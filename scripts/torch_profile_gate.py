@@ -1,0 +1,80 @@
+#!/usr/bin/env python3
+"""Where the time of the port's STD128 NAND goes, on one GPU.
+
+    python3 scripts/torch_profile_gate.py [batch ...]     (default 4096 16384)
+
+For each batch: three warm host-clock timings of
+`BinFHEContext.eval_bin_gate(Gate.NAND, ...)`, then one run under
+`torch.profiler` whose per-kernel device times go to
+`chiprun_out/profile_nand_<batch>.txt`. Prints one JSON line per batch:
+wall seconds, bootstraps/s, device-busy seconds (sum of kernel self time on
+the one stream) and the idle share 1 - busy / wall. Imports no jax.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from tfhe_tpu_torch import BinFHEContext, Gate, ParamSet  # noqa: E402
+
+
+def device_us(evt) -> float:
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def main(batches: list[int]) -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    out_dir = "chiprun_out"
+    os.makedirs(out_dir, exist_ok=True)
+
+    cc = BinFHEContext(seed=7)
+    cc.generate_binfhe_context(ParamSet.STD128)
+    sk = cc.key_gen()
+    cc.bt_key_gen(sk)
+    cc.device_setup("cuda")
+    rng = np.random.default_rng(7)
+    for B in batches:
+        m1, m2 = rng.integers(0, 2, B), rng.integers(0, 2, B)
+        ct1, ct2 = cc.encrypt(sk, m1), cc.encrypt(sk, m2)
+        out = cc.eval_bin_gate(Gate.NAND, ct1, ct2)
+        if not np.array_equal(cc.decrypt(sk, out), 1 - (m1 & m2)):
+            raise SystemExit(f"wrong NAND result at batch {B}")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            cc.eval_bin_gate(Gate.NAND, ct1, ct2)
+            walls.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cc.eval_bin_gate(Gate.NAND, ct1, ct2)
+            prof_wall = time.perf_counter() - t0
+        avgs = prof.key_averages()
+        busy = sum(device_us(e) for e in avgs if e.device_type.name == "CUDA") / 1e6
+        with open(os.path.join(out_dir, f"profile_nand_{B}.txt"), "w") as f:
+            f.write(f"{card}\nbatch {B}, profiled wall {prof_wall:.6f} s\n")
+            f.write(avgs.table(sort_by="self_device_time_total", row_limit=30))
+        print(json.dumps({"batch": B, "wall_s": walls,
+                          "bootstraps_per_s": [B / w for w in walls],
+                          "profiled_wall_s": prof_wall, "device_busy_s": busy,
+                          "idle_share": 1 - busy / prof_wall, "card": card}),
+              flush=True)
+
+
+if __name__ == "__main__":
+    main([int(b) for b in sys.argv[1:]] or [4096, 16384])

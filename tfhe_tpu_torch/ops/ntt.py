@@ -1,0 +1,74 @@
+"""Plain negacyclic NTT in torch, in the permutation-free order.
+
+Port of `tfhe_tpu/ops/ntt32.py` and of the schedule in
+`tfhe_tpu/ops/ntt_sched.py`: forward = twist by psi^j, then Gentleman-Sande
+stages with half-length N/2 .. 1, taking natural order to **bit-reversed
+evaluation order**; inverse = Cooley-Tukey stages with half-length 1 .. N/2,
+then untwist by psi^-j / N. The evaluation order is the one the packed
+bootstrapping key is stored in (`rotate_kernel.pack_bsk`), and the hand
+kernel reads the same `tables`.
+
+Values are int64 residues mod Q on the last axis; every product of two
+residues < 2^28 is exact in int64.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from tfhe_tpu.ops.ntt_sched import schedule
+
+
+@functools.lru_cache(maxsize=None)
+def tables(N: int, Q: int) -> np.ndarray:
+    """uint64 [4, N]: twist, forward twiddles, inverse twiddles, untwist
+    (N^-1 folded in). The stage with half-length h reads entries [h, 2h) of
+    its twiddle row: entry h + t multiplies the t-th butterfly of every
+    block, as the schedule's odd-half lane h + t of that stage does."""
+    sch = schedule(N, Q)
+    logn = N.bit_length() - 1
+    fwd = np.zeros(N, dtype=np.uint64)
+    inv = np.zeros(N, dtype=np.uint64)
+    for k in range(logn):
+        h = N >> (k + 1)
+        fwd[h:2 * h] = sch["fwd_w"][k][h:2 * h]
+        h = 1 << k
+        inv[h:2 * h] = sch["inv_w"][k][h:2 * h]
+    return np.stack([sch["twist"], fwd, inv, sch["untwist"]])
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_on(N: int, Q: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(tables(N, Q).astype(np.int64)).to(device)
+
+
+def forward(x: torch.Tensor, Q: int) -> torch.Tensor:
+    """Coefficients [..., N] -> evaluation values in bit-reversed order."""
+    shape, N = x.shape, x.shape[-1]
+    tw = _tables_on(N, Q, str(x.device))
+    x = x * tw[0] % Q
+    h = N // 2
+    while h >= 1:
+        y = x.reshape(*shape[:-1], N // (2 * h), 2, h)
+        a, b = y[..., 0, :], y[..., 1, :]
+        x = torch.stack([(a + b) % Q, (a - b) % Q * tw[1, h:2 * h] % Q],
+                        dim=-2).reshape(shape)
+        h //= 2
+    return x
+
+
+def inverse(x: torch.Tensor, Q: int) -> torch.Tensor:
+    """Evaluation values in bit-reversed order [..., N] -> coefficients."""
+    shape, N = x.shape, x.shape[-1]
+    tw = _tables_on(N, Q, str(x.device))
+    h = 1
+    while h < N:
+        y = x.reshape(*shape[:-1], N // (2 * h), 2, h)
+        a = y[..., 0, :]
+        t = y[..., 1, :] * tw[2, h:2 * h] % Q
+        x = torch.stack([(a + t) % Q, (a - t) % Q], dim=-2).reshape(shape)
+        h *= 2
+    return x * tw[3] % Q
