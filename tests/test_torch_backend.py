@@ -1,6 +1,8 @@
 """TorchBackend (on the CPU, so the blind rotation takes its plain version)
-against the host oracle RefBackend and the JAX backend with the Pallas
-kernel, exactly, on identical keys and ciphertexts at TOY."""
+under the port's own scheme, against the JAX package's host oracle
+RefBackend and its JAX backend with the Pallas kernel, exactly, on
+identical keys and ciphertexts at TOY: the JAX package's keys and
+ciphertexts are carried into the port's types with `tfhe_tpu_torch.convert`."""
 
 import os
 import subprocess
@@ -11,13 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from tfhe_tpu import BinFHEContext, Gate, Method, ParamSet
-from tfhe_tpu import params as params_mod
+from tfhe_tpu import BinFHEContext, Gate, ParamSet
 from tfhe_tpu import scheme
 from tfhe_tpu.ops.backend import JaxBackend
 from tfhe_tpu.ref.backend import RefBackend
 import tfhe_tpu_torch
-from tfhe_tpu_torch import TorchBackend
+from tfhe_tpu_torch import TorchBackend, convert
+from tfhe_tpu_torch import params as params_mod
+from tfhe_tpu_torch import scheme as torch_scheme
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -45,10 +48,18 @@ def toy():
 
 
 @pytest.fixture(scope="module")
-def backends(toy):
+def port(toy):
+    """The TOY context's parameters, key and ciphertexts in the port's types."""
+    cc, _, _, _, ct1, ct2 = toy
+    return (convert.params_from(cc.params), convert.key_from(cc.bt_key),
+            convert.ciphertext_from(ct1), convert.ciphertext_from(ct2))
+
+
+@pytest.fixture(scope="module")
+def backends(toy, port):
     cc = toy[0]
     torch_be = TorchBackend("cpu")
-    torch_be.setup(cc.params, cc.bt_key)
+    torch_be.setup(*port[:2])
     jax_be = JaxBackend()
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("TFHE_TPU_PALLAS", "1")
@@ -64,10 +75,12 @@ def assert_same(x, y):
 
 
 @pytest.mark.parametrize("gate", list(Gate), ids=lambda g: g.name)
-def test_gate_matches_oracle_and_pallas(toy, backends, gate):
+def test_gate_matches_oracle_and_pallas(toy, port, backends, gate):
     cc, sk, m1, m2, ct1, ct2 = toy
+    params, key, tct1, tct2 = port
     torch_be, jax_be = backends
-    got = scheme.eval_bin_gate(torch_be, cc.params, gate, cc.bt_key, ct1, ct2)
+    got = torch_scheme.eval_bin_gate(torch_be, params, params_mod.Gate(int(gate)),
+                                     key, tct1, tct2)
     assert np.array_equal(cc.decrypt(sk, got), TRUTH[gate](m1, m2))
     assert_same(got, scheme.eval_bin_gate(RefBackend(), cc.params, gate,
                                           cc.bt_key, ct1, ct2))
@@ -75,38 +88,40 @@ def test_gate_matches_oracle_and_pallas(toy, backends, gate):
                                           ct1, ct2))
 
 
-def test_bootstrap_matches_oracle_and_pallas(toy, backends):
+def test_bootstrap_matches_oracle_and_pallas(toy, port, backends):
     cc, sk, m1, _, ct1, _ = toy
+    params, key, tct1, _ = port
     torch_be, jax_be = backends
-    got = scheme.bootstrap(torch_be, cc.params, cc.bt_key, ct1)
+    got = torch_scheme.bootstrap(torch_be, params, key, tct1)
     assert np.array_equal(cc.decrypt(sk, got), m1)
     assert_same(got, scheme.bootstrap(RefBackend(), cc.params, cc.bt_key, ct1))
     assert_same(got, scheme.bootstrap(jax_be, cc.params, cc.bt_key, ct1))
 
 
-def test_gate_takes_the_fused_path(toy, backends):
-    cc, _, _, _, ct1, ct2 = toy
-    q = cc.params.lwe.q
-    out = backends[0].gate_bootstrap_pair(cc.params, cc.bt_key, Gate.NAND,
+def test_gate_takes_the_fused_path(port, backends):
+    params, key, ct1, ct2 = port
+    q = params.lwe.q
+    out = backends[0].gate_bootstrap_pair(params, key, params_mod.Gate.NAND,
                                           ct1, ct2, False, q)
     assert out is not None and out.a.dtype == np.uint16
     # a result modulus other than q leaves the gate to the generic path
-    assert backends[0].gate_bootstrap_pair(cc.params, cc.bt_key, Gate.NAND,
+    assert backends[0].gate_bootstrap_pair(params, key, params_mod.Gate.NAND,
                                            ct1, ct2, False, q // 2) is None
 
 
-def test_eval_acc_and_mkm_switch_match_oracle(toy, backends):
+def test_eval_acc_and_mkm_switch_match_oracle(toy, port, backends):
     cc = toy[0]
+    params, key = port[:2]
     p = cc.params.lwe
     rng = np.random.default_rng(11)
     acc = rng.integers(0, p.Q, (3, 2, p.N)).astype(np.uint64)
     a = rng.integers(0, p.q, (3, p.n)).astype(np.uint64)
-    got = backends[0].eval_acc(cc.params, cc.bt_key, acc.copy(), a, p.q)
+    got = backends[0].eval_acc(params, key, acc.copy(), a, p.q)
     assert np.array_equal(got, RefBackend().eval_acc(cc.params, cc.bt_key,
                                                      acc.copy(), a, p.q))
     a_ext = rng.integers(0, p.Q, (3, p.N)).astype(np.uint64)
     b_ext = rng.integers(0, p.Q, 3).astype(np.uint64)
-    assert_same(backends[0].mkm_switch(cc.params, cc.bt_key, a_ext, b_ext, p.q),
+    assert_same(backends[0].mkm_switch(params, key, a_ext, b_ext, p.q),
                 RefBackend().mkm_switch(cc.params, cc.bt_key, a_ext, b_ext, p.q))
 
 
@@ -121,10 +136,11 @@ def test_scaled_indices_match_jax(q, N):
 
 
 @pytest.mark.parametrize("params", [
-    params_mod.from_gpu_style(ParamSet.TOY, True, 12),   # 54-bit Q, qKS 2^35
-    params_mod.from_gpu_style(ParamSet.TOY, False, 11),  # 27-bit Q, qKS 2^35
-    params_mod.from_param_set(ParamSet.TOY, Method.AP),
-    params_mod.from_param_set(ParamSet.STD192),
+    # 54-bit prime Q (the reference's form, rns_modulus=False): two limbs
+    params_mod.from_gpu_style(params_mod.ParamSet.TOY, True, 12, rns_modulus=False),
+    params_mod.from_gpu_style(params_mod.ParamSet.TOY, False, 11),  # 27-bit Q, qKS 2^35
+    params_mod.from_param_set(params_mod.ParamSet.TOY, params_mod.Method.AP),
+    params_mod.from_param_set(params_mod.ParamSet.STD192),
 ], ids=["accelerated-logQ12", "accelerated-logQ11", "toy-AP", "std192"])
 def test_unsupported_params_raise(params):
     be = TorchBackend("cpu")
@@ -134,26 +150,36 @@ def test_unsupported_params_raise(params):
 
 
 def test_supported_sets():
-    for ps in (ParamSet.TOY, ParamSet.STD128, ParamSet.STD128_OPT, ParamSet.MEDIUM):
+    P = params_mod.ParamSet
+    for ps in (P.TOY, P.STD128, P.STD128_OPT, P.MEDIUM):
         assert TorchBackend.supports(params_mod.from_param_set(ps)), ps
+    for log_q, arb, to in ((12, True, False), (17, False, True), (23, False, True)):
+        acc = params_mod.from_gpu_style(P.STD128, arb, log_q, time_optimization=to,
+                                        num_digits_to_throw=1)
+        for base in sorted(acc.rgsw.g_power_map):
+            acc.rgsw.change_base_g(base)
+            assert TorchBackend.supports(acc), (log_q, base)
 
 
 def test_context_device_setup_refuses_unsupported():
-    cc = tfhe_tpu_torch.BinFHEContext(seed=1)
-    cc.generate_binfhe_context(ParamSet.TOY, arb_func=True, log_q=12)
-    cc.bt_key_load(scheme.BTKey(bsk_coeff=np.zeros(1), ksk=None,
-                                base_g=cc.params.rgsw.base_g))
+    cc = tfhe_tpu_torch.BinFHEContext(seed=1, device="cpu")
+    cc.generate_binfhe_context(params_mod.ParamSet.TOY, arb_func=False, log_q=11)
+    cc.bt_key_load(torch_scheme.BTKey(bsk_coeff=np.zeros(1), ksk=None,
+                                      base_g=cc.params.rgsw.base_g))
     with pytest.raises(NotImplementedError):
         cc.device_setup("cpu")
+    with pytest.raises(NotImplementedError):     # also lazily, never the oracle
+        cc.eval_bin_gate(params_mod.Gate.AND, None, None)
 
 
-def test_context_device_setup_runs_gates(toy):
-    cc0, sk, m1, m2, ct1, ct2 = toy
-    cc = tfhe_tpu_torch.BinFHEContext(seed=1)
-    cc.params = cc0.params
-    cc.bt_key_load(cc0.bt_key)
-    cc.device_setup("cpu")
-    out = cc.eval_bin_gate(Gate.AND, ct1, ct2)
+def test_context_device_setup_runs_gates(toy, port):
+    cc0, sk, m1, m2, _, _ = toy
+    params, key, ct1, ct2 = port
+    cc = tfhe_tpu_torch.BinFHEContext(seed=1, device="cpu")
+    cc.params = params
+    cc.bt_key_load(key)
+    out = cc.eval_bin_gate(params_mod.Gate.AND, ct1, ct2)
+    assert isinstance(cc.backend, TorchBackend) and cc.backend.device.type == "cpu"
     assert np.array_equal(cc0.decrypt(sk, out), m1 & m2)
     with pytest.raises(NotImplementedError):
         cc.ciphertext_mul_matrix(ct1, np.eye(8, dtype=np.int64), 512)
@@ -167,24 +193,62 @@ def test_cuda_backend_needs_a_card():
             TorchBackend("cuda")
 
 
+def test_context_evaluates_on_the_card_by_default(port):
+    """Without a device argument the context sets up TorchBackend("cuda") at
+    its first evaluation; with no card that raises, and nothing runs on the
+    host oracle."""
+    params, key, ct1, ct2 = port
+    cc = tfhe_tpu_torch.BinFHEContext(seed=1)
+    assert cc.device == "cuda"
+    cc.params = params
+    cc.bt_key_load(key)
+    if torch.cuda.is_available():
+        cc.eval_bin_gate(params_mod.Gate.AND, ct1, ct2)
+        assert cc.backend.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            cc.eval_bin_gate(params_mod.Gate.AND, ct1, ct2)
+        assert cc._backend is None
+    cc.device_clean()
+    assert isinstance(cc.backend, tfhe_tpu_torch.ref.backend.RefBackend)
+
+
 def test_port_never_imports_jax():
-    """The port alone, in a fresh interpreter (this process has jax loaded
-    by conftest): a TOY NAND on the CPU, and no jax module afterwards."""
+    """The port alone, in a fresh interpreter (this process has jax and the
+    JAX package loaded): a TOY NAND and a small RNS EvalSign on the CPU,
+    and no jax, tfhe_tpu or tfhe_tpu.* module afterwards."""
     script = textwrap.dedent("""
         import sys
         import numpy as np
         import tfhe_tpu_torch
         from tfhe_tpu_torch import BinFHEContext, Gate, ParamSet
-        cc = BinFHEContext(seed=5)
+        from tfhe_tpu_torch.params import BinFHEParams, LWEParams, Method, RGSWParams
+        from tfhe_tpu_torch.utils.numtheory import ntt_prime, previous_prime
+        cc = BinFHEContext(seed=5, device="cpu")
         cc.generate_binfhe_context(ParamSet.TOY)
         sk = cc.key_gen()
         cc.bt_key_gen(sk)
         m1, m2 = np.array([0, 1, 0, 1]), np.array([0, 0, 1, 1])
         ct1, ct2 = cc.encrypt(sk, m1), cc.encrypt(sk, m2)
-        cc.device_setup("cpu")
         out = cc.eval_bin_gate(Gate.NAND, ct1, ct2)
         assert np.array_equal(cc.decrypt(sk, out), 1 - (m1 & m2))
-        assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+        N, q = 256, 512
+        q1 = ntt_prime(17, 2 * N); q2 = previous_prime(q1, 2 * N)
+        cc = BinFHEContext(seed=6, device="cpu")
+        cc.params = BinFHEParams(
+            lwe=LWEParams(n=8, N=N, q=q, Q=q1 * q2, q_ks=1 << 35, std=3.19, base_ks=32),
+            rgsw=RGSWParams(N=N, Q=q1 * q2, q=q, base_g=1 << 7, base_r=23,
+                            method=Method.GINX, std=3.19, sign_eval=True))
+        sk = cc.key_gen()
+        cc.bt_key_gen(sk)
+        P = cc.params.max_plaintext_space * 4
+        delta = np.array([-2, -1, 0, 1])
+        ct = cc.encrypt(sk, (P // 2 + delta) % P, "FRESH", P, 1 << 11)
+        out = cc.eval_sign(ct)
+        assert np.array_equal(cc.decrypt(sk, out, 2), (delta >= 0).astype(np.uint64))
+        bad = [m for m in sys.modules if m in ("jax", "tfhe_tpu")
+               or m.startswith(("jax.", "tfhe_tpu."))]
+        assert not bad, bad
         print("ok")
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,

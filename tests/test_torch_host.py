@@ -1,0 +1,146 @@
+"""The port's own host layers (copies of the JAX package's parameters, keygen,
+encryption, host oracle and host CiphertextMulMatrix) against the originals,
+exactly: the same seed gives the same keys and ciphertexts bit for bit, and
+the carry-across functions of `tfhe_tpu_torch.convert` reproduce the JAX
+package's objects in the port's types."""
+
+import numpy as np
+import pytest
+
+from tfhe_tpu import BinFHEContext as JaxContext
+from tfhe_tpu import params as jax_params
+from tfhe_tpu import scheme as jax_scheme
+from tfhe_tpu.ops import lweops as jax_lweops
+from tfhe_tpu.ref.backend import RefBackend as JaxRefBackend
+import tfhe_tpu_torch
+from tfhe_tpu_torch import convert, lwe, params
+from tfhe_tpu_torch.ops import lweops
+from tfhe_tpu_torch.ref.backend import RefBackend
+
+
+def same_params(a, b):
+    for f in ("n", "N", "q", "Q", "q_ks", "std", "base_ks", "digit_count_ks"):
+        assert getattr(a.lwe, f) == getattr(b.lwe, f), f
+    for f in ("N", "Q", "q", "base_g", "base_r", "std", "sign_eval",
+              "num_digits_to_throw", "digits_g", "root", "g_power_map",
+              "digits_r", "rns_primes", "digits_g2"):
+        assert getattr(a.rgsw, f) == getattr(b.rgsw, f), f
+    assert int(a.rgsw.method) == int(b.rgsw.method)
+    assert a.time_optimization == b.time_optimization
+    assert (a.beta, a.max_plaintext_space) == (b.beta, b.max_plaintext_space)
+
+
+@pytest.mark.parametrize("ps", list(params.ParamSet), ids=lambda p: p.name)
+def test_classic_params_match(ps):
+    same_params(params.from_param_set(ps),
+                jax_params.from_param_set(jax_params.ParamSet(int(ps))))
+
+
+@pytest.mark.parametrize("log_q,arb_func,time_opt", [
+    (11, False, False), (12, True, False), (17, False, True), (23, False, True)])
+def test_accelerated_params_match(log_q, arb_func, time_opt):
+    for ps in (params.ParamSet.TOY, params.ParamSet.STD128):
+        got = params.from_gpu_style(ps, arb_func, log_q, time_optimization=time_opt,
+                                    num_digits_to_throw=1)
+        want = jax_params.from_gpu_style(jax_params.ParamSet(int(ps)), arb_func,
+                                         log_q, time_optimization=time_opt,
+                                         num_digits_to_throw=1)
+        same_params(got, want)
+        same_params(convert.params_from(want), want)
+
+
+def contexts(seed, **gen):
+    """A JAX-package context and a port context with the same seed and
+    parameters, keys generated in the same order."""
+    out = []
+    for cls in (JaxContext, tfhe_tpu_torch.BinFHEContext):
+        cc = cls(seed=seed)
+        cc.generate_binfhe_context("TOY", **gen)
+        sk = cc.key_gen()
+        cc.bt_key_gen(sk)
+        out.append((cc, sk))
+    return out
+
+
+def same_keys(jk, tk):
+    assert np.array_equal(jk.bsk_coeff, tk.bsk_coeff)
+    assert np.array_equal(jk.ksk.A, tk.ksk.A)
+    assert np.array_equal(jk.ksk.B, tk.ksk.B)
+    assert np.array_equal(jk.sk_n.s, tk.sk_n.s) and jk.sk_n.modulus == tk.sk_n.modulus
+
+
+@pytest.mark.parametrize("gen", [{}, {"arb_func": True, "log_q": 12,
+                                      "num_digits_to_throw": 1}],
+                         ids=["toy", "toy-accelerated-logQ12"])
+def test_keygen_and_encrypt_match(gen):
+    (jc, jsk), (tc, tsk) = contexts(77, **gen)
+    assert np.array_equal(jsk.s, tsk.s) and jsk.modulus == tsk.modulus
+    same_keys(jc.bt_key, tc.bt_key)
+    same_keys(jc.bt_key, convert.key_from(jc.bt_key))
+    m = np.array([0, 1, 1, 0, 1])
+    jct, tct = jc.encrypt(jsk, m), tc.encrypt(tsk, m)
+    assert np.array_equal(jct.a, tct.a) and np.array_equal(jct.b, tct.b)
+    assert jct.modulus == tct.modulus
+    carried = convert.ciphertext_from(jct)
+    assert isinstance(carried, lwe.LWECiphertext)
+    assert np.array_equal(carried.a, tct.a) and np.array_equal(carried.b, tct.b)
+    assert np.array_equal(tc.decrypt(tsk, tct), m)
+
+
+def test_time_optimization_keygen_matches():
+    """The multi-base map of EvalSign shares one ring secret and switching
+    key: same keys per base in both packages."""
+    gen = {"arb_func": False, "log_q": 17, "num_digits_to_throw": 1,
+           "time_optimization": True}
+    out = []
+    for cls in (JaxContext, tfhe_tpu_torch.BinFHEContext):
+        cc = cls(seed=5)
+        cc.generate_binfhe_context("TOY", **gen)
+        cc.bt_key_gen(cc.key_gen(), bases={1 << 18, 1 << 27})
+        out.append(cc)
+    (jc, tc) = out
+    assert sorted(jc.bt_key_map) == sorted(tc.bt_key_map) == [1 << 18, 1 << 27]
+    for base in jc.bt_key_map:
+        same_keys(jc.bt_key_map[base], tc.bt_key_map[base])
+    assert tc.bt_key_map[1 << 18].ksk is tc.bt_key_map[1 << 27].ksk
+
+
+def test_ref_backend_nand_matches():
+    (jc, jsk), (tc, tsk) = contexts(78)
+    m1, m2 = np.array([0, 0, 1, 1]), np.array([0, 1, 0, 1])
+    jct1, jct2 = jc.encrypt(jsk, m1), jc.encrypt(jsk, m2)
+    tct1, tct2 = tc.encrypt(tsk, m1), tc.encrypt(tsk, m2)
+    want = jax_scheme.eval_bin_gate(JaxRefBackend(), jc.params,
+                                    jax_params.Gate.NAND, jc.bt_key, jct1, jct2)
+    tc.device_clean()
+    got = tc.eval_bin_gate(params.Gate.NAND, tct1, tct2)
+    assert np.array_equal(got.a, want.a) and np.array_equal(got.b, want.b)
+    assert np.array_equal(tc.decrypt(tsk, got), 1 - (m1 & m2))
+
+
+def test_ciphertext_mul_matrix_matches_and_needs_the_oracle():
+    rng = np.random.default_rng(3)
+    K, n, M, mod = 6, 10, 4, (1 << 35) + 3
+    cts = lwe.LWECiphertext(rng.integers(0, mod, (K, n)).astype(np.uint64),
+                            rng.integers(0, mod, K).astype(np.uint64), mod)
+    mat = rng.integers(-1000, 1000, (K, M))
+    want = jax_lweops.ciphertext_mul_matrix(cts, mat, mod)
+    got = lweops.ciphertext_mul_matrix(cts, mat, mod)
+    assert np.array_equal(got.a, want.a) and np.array_equal(got.b, want.b)
+    cc = tfhe_tpu_torch.BinFHEContext(seed=1, device="cpu")
+    with pytest.raises(NotImplementedError):
+        cc.ciphertext_mul_matrix(cts, mat, mod)
+    cc.use_backend(RefBackend())
+    out = cc.ciphertext_mul_matrix(cts, mat, mod)
+    assert np.array_equal(out.a, want.a)
+
+
+def test_unported_host_features_raise():
+    cc = tfhe_tpu_torch.BinFHEContext(seed=1, seeded_ksk=True, device="cpu")
+    cc.generate_binfhe_context(params.ParamSet.TOY, arb_func=True, log_q=12)
+    with pytest.raises(NotImplementedError):
+        cc.bt_key_gen(cc.key_gen())
+    with pytest.raises(NotImplementedError):
+        cc.save("unused.npz")
+    with pytest.raises(NotImplementedError):
+        tfhe_tpu_torch.BinFHEContext.load("unused.npz")

@@ -1,15 +1,17 @@
-"""tfhe_tpu_torch: the PyTorch/CUDA port of tfhe_tpu's BinFHE device path.
+"""tfhe_tpu_torch: the PyTorch/CUDA port of tfhe_tpu's BinFHE scheme.
 
-Imports torch and never jax. `BinFHEContext.device_setup("cuda")` runs the
-batched CGGI gate bootstrap on an NVIDIA GPU (the blind rotation is the
-hand-written kernel `csrc/blind_rotate.cu`); `device_setup("cpu")` runs the
-same path with the kernel's plain torch version.
+Imports torch and never jax, and nothing of the JAX package: its host
+layers (parameters, keygen, encryption, the scheme, the exact host oracle)
+are the port's own copies. `BinFHEContext(seed=...)` evaluates on the GPU
+(`device="cuda"`, the default) or with the kernels' plain torch versions
+(`device="cpu"`): batched CGGI gates on the classic single-limb sets
+(hand-written kernel `csrc/blind_rotate.cu`) and EvalFunc, EvalFloor,
+EvalSign and EvalDecomp on the accelerated RNS sets (`csrc/blind_rotate_rns.cu`).
 """
-
-from tfhe_tpu.params import Gate, Method, ParamSet, from_param_set
 
 from .context import BinFHEContext
 from .ops.backend import TorchBackend
+from .params import Gate, Method, ParamSet, from_gpu_style, from_param_set
 
 __all__ = ["BinFHEContext", "Gate", "Method", "ParamSet", "TorchBackend",
-           "from_param_set"]
+           "from_gpu_style", "from_param_set"]

@@ -1,8 +1,18 @@
-"""Carry the JAX package's bootstrapping keys across to the port's tensors.
+"""Device keys of the port, and the carry-across from the JAX package.
 
-Counterpart of the single-limb branch of `JaxBackend._get_device_key`
-(`tfhe_tpu/ops/backend.py:710-718`). Keygen stays on the host in the JAX
-package's jax-free layers, so both packages compute on the same keys.
+`device_key` is the counterpart of `JaxBackend._get_device_key`
+(`tfhe_tpu/ops/backend.py:675-740`) for the port's two paths: the
+single-limb key of the gate slice (host NTT mod Q, `pack_bsk`) and the RNS
+key of the accelerated sets (`pack_bsk_rns`, one NTT per prime straight
+from `bsk_coeff`). The switching-key table is memoised on the
+switching-key object, as `JaxBackend._packed_ksk` does (551-573): every
+gadget base of a time-optimization map and every context that shares the
+LWE block share one device table.
+
+`params_from`, `key_from` and `ciphertext_from` carry the JAX package's
+parameters, keys and ciphertexts (read as plain attributes and numpy
+arrays, without importing that package) into the port's own types, so the
+two packages can be compared on identical inputs.
 """
 
 from __future__ import annotations
@@ -10,23 +20,66 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tfhe_tpu.params import BinFHEParams
-from tfhe_tpu.ref import ntt as ref_ntt
-from tfhe_tpu.scheme import BTKey
-
+from . import lwe
+from .params import BinFHEParams, LWEParams, Method, RGSWParams
+from .ref import ntt as ref_ntt
+from .scheme import BTKey
 from .ops.keyswitch import ksk_table
 from .ops.rotate_kernel import pack_bsk
+from .ops.rotate_rns_kernel import pack_bsk_rns
 
 
-def device_key(params: BinFHEParams, key: BTKey,
-               device: str | torch.device) -> dict[str, torch.Tensor]:
-    """BTKey -> {"bsk_pack": int32 [n, 8*d2, N], "ksk": int32
+def switching_table(ksk: lwe.LWESwitchingKey, device: torch.device) -> torch.Tensor:
+    """The device table of `ksk` (`ksk_table`), built once per key object
+    and device."""
+    cache = ksk.__dict__.setdefault("_device_tables", {})
+    if str(device) not in cache:
+        cache[str(device)] = ksk_table(ksk.A, ksk.B, device)
+    return cache[str(device)]
+
+
+def device_key(params: BinFHEParams, key: BTKey, device: torch.device,
+               rns: bool) -> dict[str, torch.Tensor]:
+    """BTKey -> {"bsk_pack" or "bsk_rns": int32 [n, 8*d2, N], "ksk":
     [N*baseKS*dc, n + 1]} on `device`. The CGGI key `bsk_coeff`
-    [n, 2, d2, 2, N] goes to the evaluation domain with the host NTT and
-    then to the kernel's layout."""
-    Q = params.lwe.Q
-    bsk_hat = ref_ntt.forward(np.asarray(key.bsk_coeff, dtype=np.uint64), Q)
-    return {
-        "bsk_pack": pack_bsk(bsk_hat, Q).to(device),
-        "ksk": ksk_table(key.ksk.A, key.ksk.B).to(device),
-    }
+    [n, 2, d2, 2, N] goes to the kernel's layout: with `rns`, one NTT per
+    prime of Q = q1*q2; otherwise the host NTT mod Q."""
+    p = params.lwe
+    if rns:
+        q1, q2 = params.rgsw.rns_primes
+        bsk = {"bsk_rns": pack_bsk_rns(key.bsk_coeff, q1, q2).to(device)}
+    else:
+        bsk_hat = ref_ntt.forward(np.asarray(key.bsk_coeff, dtype=np.uint64), p.Q)
+        bsk = {"bsk_pack": pack_bsk(bsk_hat, p.Q).to(device)}
+    return {**bsk, "ksk": switching_table(key.ksk, device)}
+
+
+# -- carry-across from the JAX package ------------------------------------
+
+def params_from(other) -> BinFHEParams:
+    """Any parameter bundle with the JAX package's fields -> the port's
+    BinFHEParams (same moduli, bases and current gadget base)."""
+    o, g = other.lwe, other.rgsw
+    lwe_p = LWEParams(n=o.n, N=o.N, q=o.q, Q=o.Q, q_ks=o.q_ks, std=o.std,
+                      base_ks=o.base_ks)
+    rgsw_p = RGSWParams(N=g.N, Q=g.Q, q=g.q, base_g=g.base_g, base_r=g.base_r,
+                        method=Method(int(g.method)), std=g.std,
+                        sign_eval=g.sign_eval,
+                        num_digits_to_throw=g.num_digits_to_throw)
+    return BinFHEParams(lwe=lwe_p, rgsw=rgsw_p,
+                        time_optimization=other.time_optimization)
+
+
+def key_from(other) -> BTKey:
+    """A JAX-package BTKey -> the port's BTKey (arrays copied)."""
+    ksk = lwe.LWESwitchingKey(A=np.asarray(other.ksk.A).copy(),
+                              B=np.asarray(other.ksk.B).copy())
+    sk_n = (None if other.sk_n is None else
+            lwe.LWEPrivateKey(np.asarray(other.sk_n.s).copy(), int(other.sk_n.modulus)))
+    return BTKey(bsk_coeff=np.asarray(other.bsk_coeff).copy(), ksk=ksk,
+                 base_g=int(other.base_g), sk_n=sk_n)
+
+
+def ciphertext_from(other) -> lwe.LWECiphertext:
+    return lwe.LWECiphertext(np.asarray(other.a).copy(),
+                             np.copy(other.b), int(other.modulus))

@@ -17,21 +17,24 @@
 // handled one at a time, as the Pallas body does. Butterflies index shared
 // memory directly, and X^m is index arithmetic: the TPU's roll-and-select
 // stages and bit-decomposed rolls have no counterpart here. Twiddles come from
-// tfhe_tpu.ops.ntt_sched.schedule (compacted, see tfhe_tpu_torch/ops/ntt.py),
+// tfhe_tpu_torch/ops/ntt_sched.py:schedule (compacted, see ops/ntt.py),
 // so the kernel's evaluation order is the packed key's; they carry plain
 // 32-bit Shoup companions and multiply with __umulhi.
 //
-// What bounds it on the H100 is not known: occupancy, L2 hit rate and issue
-// stalls have not been measured. The work is 32-bit integer multiplies: a
-// round costs each ciphertext about 1.1e5 lazy Shoup products (3 multiplies
-// each), 2/3 of them in the NTTs. At STD128 and B = 16384 the kernel issues
-// about 17% of an assumed peak of 64 IMAD per clock per SM at 1.98 GHz
-// (computed from the operation count over the measured time; the peak, the
-// clock and IMAD.HI's rate are assumptions). The key stream is 256 KB per round
-// (64 rows of N words), 128 MB per ciphertext over 512 rounds; the whole
-// 134 MB key does not fit in the 50 MB L2. The design assumes, without a
-// measurement, that resident blocks walk the rounds close enough in step for
-// one round's slice to come from device memory once and from L2 after that.
+// What bounds it: the work is 32-bit integer multiplies. A round costs each
+// ciphertext 106496 lazy Shoup products (three multiplies each), 2/3 of them
+// in the NTTs. The function needs 94208 of them: the separate twist and
+// untwist passes (12288) fall away in a negacyclic NTT with merged twiddles.
+// By those the least time is set by operations: at STD128 and B = 4096 the
+// bound (multiplies over 132 SMs x 64 lanes x the 1980 MHz maximum SM
+// clock) is 35.4 ms, and the kernel took 245.9 ms, 14% of it
+// (chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W). What keeps it there
+// (occupancy, shared-memory traffic, the ~60 barriers of a round) is not
+// measured. The key stream is 256 KB per round (64 rows of N words), 128 MB
+// per ciphertext over 512 rounds; the whole 134 MB key does not fit in the
+// 50 MB L2. The design assumes, without a measurement, that resident blocks
+// walk the rounds close enough in step for one round's slice to come from
+// device memory once and from L2 after that.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -3,7 +3,8 @@
 `nvcc` compiles `tfhe_tpu_torch/csrc/<name>.cu` for sm_90a into a shared
 library with a plain C interface, which `ctypes` loads: no PyTorch headers,
 so a build takes seconds. Libraries go to `tfhe_tpu_torch/_build/`, named by
-a hash of their source, and are built at first use only.
+a hash of their source, and are built at first use only; `build` starts one
+nvcc per source, all at once.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+KERNELS = ("blind_rotate", "blind_rotate_rns")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -35,28 +37,46 @@ def _nvcc() -> str:
     return path
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library built from csrc/<name>.cu, compiling it if needed.
-    The compiler's output (register and shared-memory use, from
-    -Xptxas -v) is kept in LOGS[name] when this call built it."""
+def _lib_path(name: str) -> str:
+    with open(os.path.join(_CSRC, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+
+
+def build(names=KERNELS) -> None:
+    """Compile each library of `names` that is not built yet, one nvcc
+    process per source, all started together. The compiler's output
+    (register and shared-memory use, from -Xptxas -v) is kept in
+    LOGS[name]. Raises if any build fails."""
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        src = os.path.join(_CSRC, name + ".cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        lib_path = os.path.join(BUILD_DIR, f"{name}-{digest}.so")
-        if not os.path.exists(lib_path):
+        procs = {}
+        for name in names:
+            lib_path = _lib_path(name)
+            if os.path.exists(lib_path):
+                continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{lib_path}.{os.getpid()}.tmp"
             cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, src]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+                   "-Xptxas", "-v", "-o", tmp, os.path.join(_CSRC, name + ".cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True),
+                           tmp, lib_path)
+        failed = []
+        for name, (proc, tmp, lib_path) in procs.items():
+            LOGS[name] = proc.communicate()[0]
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, lib_path)
-            LOGS[name] = proc.stdout + proc.stderr
-        _libs[name] = ctypes.CDLL(lib_path)
-        return _libs[name]
+                failed.append(f"nvcc failed on csrc/{name}.cu:\n{LOGS[name]}")
+            else:
+                os.replace(tmp, lib_path)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library built from csrc/<name>.cu, compiling it if needed."""
+    if name not in _libs:
+        build((name,))
+        with _lock:
+            _libs.setdefault(name, ctypes.CDLL(_lib_path(name)))
+    return _libs[name]

@@ -1,13 +1,22 @@
-"""TorchBackend: the `scheme.Backend` of the port, for the CGGI gate path.
+"""TorchBackend: the `scheme.Backend` of the port.
 
-Port of the single-limb gate branch of `tfhe_tpu/ops/backend.py`
-(`JaxBackend`, `build_full_gate_pipeline`). A gate bootstrap runs on one
-device from the raw u16 ciphertexts to the u16 result: the gate's LWE
-combination, the scaled indices and test polynomial of `_gate_core`, the
-blind rotation (`rotate_kernel.rotate`: the hand-written kernel on CUDA, its
-plain version on the CPU), transpose/extract, +Q/8, and the fused MKM
-switch. Configurations outside the slice raise in `setup`, and `scheme`
-keeps to its generic route for every operation this class does not define.
+Port of two branches of `tfhe_tpu/ops/backend.py` (`JaxBackend`):
+- the single-limb gate slice (`build_full_gate_pipeline`): a gate bootstrap
+  runs on one device from the raw u16 ciphertexts to the u16 result: the
+  gate's LWE combination, the scaled indices and test polynomial of
+  `_gate_core`, the blind rotation (`rotate_kernel.rotate`), transpose/
+  extract, +Q/8, and the fused MKM switch;
+- the RNS functional path of the accelerated sets (Q = q1*q2, qKS = 2^35):
+  the device-built functional test polynomial (`build_func_acc_rns`), the
+  two-lane blind rotation (`rotate_rns_kernel.rotate_rns`), Garner CRT,
+  transpose/extract and the 35-bit MKM switch (`build_mkm_switch64`), and
+  the device-resident chain glue of EvalFunc/EvalSign/EvalDecomp
+  (`DeviceLWE`, `func_bootstrap_dev`, `dev_*`).
+The rotations are hand-written kernels on CUDA and their plain versions on
+the CPU. Configurations outside the slices raise NotImplementedError in
+`setup`, and `scheme` keeps to its generic route (`eval_acc`, host extract,
+`mkm_switch`) for every operation this class has no fast path for: gates on
+the RNS sets, and functions that are not a value table.
 """
 
 from __future__ import annotations
@@ -15,19 +24,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tfhe_tpu import lwe
-from tfhe_tpu.params import BinFHEParams, Gate, Method
-
+from .. import lwe
 from ..convert import device_key
+from ..params import BinFHEParams, Gate, Method
 from .blindrotate import transpose_extract
 from .keyswitch import mkm_switch
-from .modmath import addmod, negmod, submod
+from .modmath import addmod, crt_combine, mod, negmod, submod
 from .rotate_kernel import rotate
+from .rotate_rns_kernel import rotate_rns
+
+_FUNC_CHUNK = 8192   # ciphertexts per functional bootstrap on the device
+
+
+class DeviceLWE:
+    """Device-resident LWE ciphertext batch for the functional chains:
+    int64 tensors a [B, n], b [B] on the backend's device. Values are
+    residues mod `modulus`, or a raw retag of a larger modulus (the
+    EvalDecomp digit convention, lwe.py set_modulus)."""
+
+    __slots__ = ("a", "b", "modulus", "B")
+
+    def __init__(self, a: torch.Tensor, b: torch.Tensor, modulus: int, B: int):
+        self.a, self.b, self.modulus, self.B = a, b, modulus, B
 
 
 class TorchBackend:
-    """Implements `scheme.Backend` and the fast paths `gate_bootstrap` and
-    `gate_bootstrap_pair` on one torch device."""
+    """Implements `scheme.Backend` and the fast paths `scheme` probes for
+    (`gate_bootstrap`, `gate_bootstrap_pair`, `func_bootstrap`,
+    `chain_supported` and the device chain) on one torch device."""
 
     def __init__(self, device: str | torch.device = "cuda"):
         self.device = torch.device(device)
@@ -39,25 +63,54 @@ class TorchBackend:
     # -- setup -------------------------------------------------------------
 
     @staticmethod
-    def supports(params: BinFHEParams) -> bool:
+    def _is_gate_set(params: BinFHEParams) -> bool:
+        """Single-limb GINX: the STD128-class gate slice."""
         p, rg = params.lwe, params.rgsw
-        d2 = 2 * (rg.digits_g - rg.num_digits_to_throw)
         return (rg.method == Method.GINX and p.Q < (1 << 28)
-                and p.q_ks < (1 << 31) and (2 * p.Q - 1) * d2 < (1 << 32)
+                and p.q_ks < (1 << 31) and (2 * p.Q - 1) * rg.digits_g2 < (1 << 32)
                 and p.q <= (1 << 16))
+
+    @staticmethod
+    def _is_rns_set(params: BinFHEParams) -> bool:
+        """Composite Q = q1*q2 with a power-of-two qKS in (2^32, 2^40): the
+        accelerated sets (`JaxBackend._use_rns`, `supports`)."""
+        p, rg = params.lwe, params.rgsw
+        pr = rg.rns_primes
+        if rg.method != Method.GINX or pr is None:
+            return False
+        q1, q2 = pr
+        return (q2 < q1 < (1 << 28) and (2 * q1 - 1) * rg.digits_g2 < (1 << 32)
+                and rg.base_g <= (1 << 27) and (rg.base_g >> 1) < q2
+                and rg.N in (256, 512, 1024, 2048)
+                and (1 << 32) < p.q_ks < (1 << 40)
+                and p.q_ks & (p.q_ks - 1) == 0
+                and p.base_ks & (p.base_ks - 1) == 0)
+
+    @classmethod
+    def supports(cls, params: BinFHEParams) -> bool:
+        return cls._is_gate_set(params) or cls._is_rns_set(params)
 
     def setup(self, params: BinFHEParams, key) -> None:
         self._device_key(params, key)
 
     def _device_key(self, params: BinFHEParams, key) -> dict[str, torch.Tensor]:
+        """The device key of `key`, cached by the key object (never by the
+        current gadget base, which EvalSign switches under it). Raises when
+        the key's digit count does not match the current base."""
         if not self.supports(params):
             raise NotImplementedError(
-                "TorchBackend requires GINX with Q < 2^28, qKS < 2^31, "
-                "(2Q - 1) * d2 < 2^32 and q <= 2^16; other configurations "
-                "run on the host oracle backend")
+                "TorchBackend runs GINX with either Q < 2^28, qKS < 2^31, "
+                "(2Q - 1) * d2 < 2^32 and q <= 2^16 (the classic gate sets), "
+                "or Q = q1*q2 with q2 < q1 < 2^28 and a power-of-two qKS in "
+                "(2^32, 2^40) (the accelerated sets); these parameters are "
+                "not ported")
+        if np.shape(key.bsk_coeff)[2] != params.rgsw.digits_g2:
+            raise ValueError("the key's digit count does not match the "
+                             "current gadget base")
         cache_id = id(key.bsk_coeff)
         if cache_id not in self._device_keys:
-            self._device_keys[cache_id] = device_key(params, key, self.device)
+            self._device_keys[cache_id] = device_key(
+                params, key, self.device, rns=self._is_rns_set(params))
         return self._device_keys[cache_id]
 
     # -- protocol ----------------------------------------------------------
@@ -66,31 +119,40 @@ class TorchBackend:
                  a_batch: np.ndarray, a_modulus: int) -> np.ndarray:
         dk = self._device_key(params, key)
         rg = params.rgsw
-        acc = torch.from_numpy(np.asarray(acc_init).astype(np.int32))
         a = torch.from_numpy(np.asarray(a_batch).astype(np.int64))
         a_idx = self._scaled_indices(a.to(self.device), a_modulus, rg.N)
-        out = rotate(acc.to(self.device), a_idx, dk["bsk_pack"], rg.Q,
-                     rg.base_g, rg.num_digits_to_throw)
+        acc = np.asarray(acc_init, dtype=np.uint64)   # object for Q >= 2^31
+        if "bsk_rns" in dk:
+            q1, q2 = rg.rns_primes
+            lanes = [torch.from_numpy((acc % np.uint64(qi)).astype(np.int32))
+                     .to(self.device) for qi in (q1, q2)]
+            o1, o2 = rotate_rns(*lanes, a_idx, dk["bsk_rns"], q1, q2,
+                                rg.base_g, rg.num_digits_to_throw)
+            out = crt_combine(o1.to(torch.int64), o2.to(torch.int64), q1, q2)
+        else:
+            out = rotate(torch.from_numpy(acc.astype(np.int32)).to(self.device),
+                         a_idx, dk["bsk_pack"], rg.Q, rg.base_g,
+                         rg.num_digits_to_throw)
         return out.cpu().numpy().astype(np.uint64)
 
     def mkm_switch(self, params: BinFHEParams, key, a_ext: np.ndarray,
                    b_ext: np.ndarray, fmod: int) -> lwe.LWECiphertext:
         dk = self._device_key(params, key)
         p = params.lwe
-        a = torch.from_numpy(np.asarray(a_ext).astype(np.int64)).to(self.device)
-        b = torch.from_numpy(np.asarray(b_ext).astype(np.int64)).to(self.device)
-        a_out, b_out = mkm_switch(a, b, dk["ksk"], p.Q, p.q_ks, p.base_ks,
-                                  p.digit_count_ks, int(fmod))
+        a = torch.from_numpy(np.asarray(a_ext, dtype=np.uint64).astype(np.int64))
+        b = torch.from_numpy(np.asarray(b_ext, dtype=np.uint64).astype(np.int64))
+        a_out, b_out = mkm_switch(a.to(self.device), b.to(self.device), dk["ksk"],
+                                  p.Q, p.q_ks, p.base_ks, p.digit_count_ks,
+                                  int(fmod))
         return lwe.LWECiphertext(a_out.cpu().numpy().astype(np.uint64),
                                  b_out.cpu().numpy().astype(np.uint64),
                                  int(fmod))
 
     # -- fused gate bootstrap ----------------------------------------------
 
-    @staticmethod
-    def _gate_ok(params: BinFHEParams, q: int, fmod: int) -> bool:
-        return (q == params.lwe.q and (2 * params.rgsw.N) % q == 0
-                and q <= (1 << 16) and int(fmod) == q)
+    def _gate_ok(self, params: BinFHEParams, q: int, fmod: int) -> bool:
+        return (self._is_gate_set(params) and q == params.lwe.q
+                and (2 * params.rgsw.N) % q == 0 and int(fmod) == q)
 
     def gate_bootstrap(self, params: BinFHEParams, key, gate: Gate,
                        ct: lwe.LWECiphertext, fmod: int):
@@ -149,6 +211,132 @@ class TorchBackend:
         a_out, b_out = mkm_switch(a_t, addmod(b_t, q8, Q), dk["ksk"], Q, p.q_ks,
                                   p.base_ks, p.digit_count_ks, q)
         return self._download(a_out, b_out, q)
+
+    # -- functional bootstrap (EvalFunc, EvalFloor, EvalSign, EvalDecomp) --
+
+    def _func_core(self, params: BinFHEParams, dk, fv: np.ndarray,
+                   a: torch.Tensor, b: torch.Tensor, ct_mod: int,
+                   fmod: int):
+        """One functional bootstrap on the device (the batched
+        BootstrapFuncCore, binfhe-base-scheme.cpp:1147-1192): the test
+        polynomial m[j * 2N/ctMod] = (Q // fmod) * fv[(b - j) mod ctMod]
+        from the value table fv ([ctMod] shared, or [B, ctMod] per
+        ciphertext), the blind rotation, extract and the MKM switch. a
+        [B, n], b [B] int64 on the device are reduced mod ct_mod first (the
+        raw-retag convention). Returns (a, b) int64 residues mod fmod."""
+        p, rg = params.lwe, params.rgsw
+        N, Q = rg.N, rg.Q
+        a, b = mod(a, ct_mod), mod(b, ct_mod)
+        a_idx = self._scaled_indices(a, ct_mod, N)
+        gQ = np.asarray(fv, dtype=np.uint64) * np.uint64(Q // fmod) % np.uint64(Q)
+        gQ = torch.from_numpy(gQ.astype(np.int64)).to(a.device)
+        half, factor = ct_mod >> 1, 2 * N // ct_mod
+        temp = mod(b[:, None] - torch.arange(half, device=a.device), ct_mod)
+        vals = torch.gather(gQ, 1, temp) if gQ.ndim == 2 else gQ[temp]  # [B, half]
+        B = a.shape[0]
+        lanes = rg.rns_primes if "bsk_rns" in dk else (Q,)
+        accs = []
+        for qi in lanes:
+            acc = torch.zeros((B, 2, N), dtype=torch.int32, device=a.device)
+            acc[:, 1, ::factor] = (vals % qi).to(torch.int32)
+            accs.append(acc)
+        if "bsk_rns" in dk:
+            q1, q2 = lanes
+            o1, o2 = rotate_rns(*accs, a_idx, dk["bsk_rns"], q1, q2, rg.base_g,
+                                rg.num_digits_to_throw)
+            acc = crt_combine(o1.to(torch.int64), o2.to(torch.int64), q1, q2)
+        else:
+            acc = rotate(accs[0], a_idx, dk["bsk_pack"], Q, rg.base_g,
+                         rg.num_digits_to_throw).to(torch.int64)
+        a_t, b_t = transpose_extract(acc, Q)
+        return mkm_switch(a_t, b_t, dk["ksk"], Q, p.q_ks, p.base_ks,
+                          p.digit_count_ks, int(fmod))
+
+    def func_bootstrap(self, params: BinFHEParams, key, fv: np.ndarray,
+                       ct: lwe.LWECiphertext, fmod: int):
+        """Functional bootstrap of a host batch with the test polynomial
+        built on the device from the value table fv; None when the
+        ciphertext modulus does not divide 2N or exceeds 2^16 (the caller
+        then builds the accumulators on the host)."""
+        ct_mod = int(ct.modulus)
+        if (2 * params.rgsw.N) % ct_mod or ct_mod > (1 << 16):
+            return None
+        dk = self._device_key(params, key)
+        a = torch.from_numpy(np.asarray(ct.a, dtype=np.uint64).astype(np.int64))
+        b = torch.from_numpy(np.asarray(ct.b, dtype=np.uint64).astype(np.int64))
+        a_out, b_out = self._func_core(params, dk, fv, a.to(self.device),
+                                       b.to(self.device), ct_mod, int(fmod))
+        return lwe.LWECiphertext(a_out.cpu().numpy().astype(np.uint64),
+                                 b_out.cpu().numpy().astype(np.uint64),
+                                 int(fmod))
+
+    # -- device-resident functional chains (EvalFloor/Sign/Decomp) ---------
+
+    def chain_supported(self, params: BinFHEParams, key) -> bool:
+        """True when scheme may keep the ciphertext on the device between
+        the bootstraps of EvalFunc/EvalFloor/EvalSign/EvalDecomp. Decided
+        from the parameters alone: the key of another gadget base is
+        converted when its base is current."""
+        return self.supports(params)
+
+    def lwe_upload(self, ct: lwe.LWECiphertext) -> DeviceLWE:
+        """Host LWECiphertext batch -> int64 device tensors, values kept."""
+        a = torch.from_numpy(np.asarray(ct.a, dtype=np.uint64).astype(np.int64))
+        b = torch.from_numpy(np.asarray(ct.b, dtype=np.uint64).astype(np.int64))
+        return DeviceLWE(a.to(self.device), b.to(self.device), int(ct.modulus),
+                         a.shape[0])
+
+    def lwe_download(self, dct: DeviceLWE) -> lwe.LWECiphertext:
+        """Device batch -> host LWECiphertext; raw values are kept."""
+        return lwe.LWECiphertext(dct.a.cpu().numpy().astype(np.uint64),
+                                 dct.b.cpu().numpy().astype(np.uint64),
+                                 dct.modulus)
+
+    def func_bootstrap_dev(self, params: BinFHEParams, key, fv: np.ndarray,
+                           dct: DeviceLWE, ct_mod: int,
+                           fmod: int) -> DeviceLWE:
+        """Functional bootstrap of a device batch: inputs are reduced mod
+        ct_mod on the device, outputs stay there mod fmod. `fv` is a
+        [ctMod] value table or [B, ctMod] per ciphertext. Batches above
+        8192 run as sequential slices, which bounds the work buffers; the
+        keys are shared. Callers have checked chain_supported and that
+        ct_mod divides 2N and is at most 2^16."""
+        dk = self._device_key(params, key)
+        fv = np.asarray(fv)
+        parts = [self._func_core(params, dk, fv[i:i + _FUNC_CHUNK] if fv.ndim == 2
+                                 else fv, dct.a[i:i + _FUNC_CHUNK],
+                                 dct.b[i:i + _FUNC_CHUNK], int(ct_mod), int(fmod))
+                 for i in range(0, dct.B, _FUNC_CHUNK)]
+        return DeviceLWE(torch.cat([x[0] for x in parts]),
+                         torch.cat([x[1] for x in parts]), int(fmod), dct.B)
+
+    def dev_add_const(self, dct: DeviceLWE, c: int) -> DeviceLWE:
+        """lwe.add_const_eq on the device."""
+        return DeviceLWE(dct.a, mod(dct.b + c, dct.modulus), dct.modulus, dct.B)
+
+    def dev_sub_const(self, dct: DeviceLWE, c: int) -> DeviceLWE:
+        return DeviceLWE(dct.a, mod(dct.b - c, dct.modulus), dct.modulus, dct.B)
+
+    def dev_sub(self, d1: DeviceLWE, d2: DeviceLWE) -> DeviceLWE:
+        """(d1 - d2) mod d1's modulus, elementwise."""
+        m = d1.modulus
+        return DeviceLWE(mod(d1.a - d2.a, m), mod(d1.b - d2.b, m), m, d1.B)
+
+    def dev_mod_switch(self, dct: DeviceLWE, new_mod: int) -> DeviceLWE:
+        """RoundqQ between powers of two: ((v + 2^(s-1)) >> s) mod new with
+        s = log2(old / new), bit-identical to modmath.round_q_Q
+        (lwe-pke.cpp:41-46)."""
+        old = dct.modulus
+        if old & (old - 1) or new_mod & (new_mod - 1) or new_mod >= old:
+            raise ValueError("dev_mod_switch needs powers of two, new < old")
+        s = old.bit_length() - new_mod.bit_length()
+        half = 1 << (s - 1)
+        return DeviceLWE(mod((dct.a + half) >> s, new_mod),
+                         mod((dct.b + half) >> s, new_mod), int(new_mod), dct.B)
+
+    def dev_retag(self, dct: DeviceLWE, new_mod: int) -> DeviceLWE:
+        """Raw modulus retag (lwe.set_modulus): values unchanged."""
+        return DeviceLWE(dct.a, dct.b, int(new_mod), dct.B)
 
     # -- host <-> device ---------------------------------------------------
 

@@ -16,14 +16,13 @@ import torch
 from . import ntt
 
 
-def decompose(acc: torch.Tensor, Q: int, base_g: int, digits: int,
-              throw: int) -> torch.Tensor:
-    """Signed digit decomposition (rgsw-acc.cpp:57-111) of acc [B, 2, N]
-    residues mod Q -> [B, 2*digits, N] digit residues, digit l of poly j at
-    row j + 2l. Centred with acc < Q/2 as the JAX kernels do."""
+def signed_digits(d: torch.Tensor, base_g: int, digits: int,
+                  throw: int) -> torch.Tensor:
+    """Balanced base-G digits (rgsw-acc.cpp:57-111) of signed int64 values
+    d [B, 2, N], the lowest `throw` dropped -> [B, 2*digits, N] signed
+    digits, digit l of poly j at row j + 2l."""
     g_bits = base_g.bit_length() - 1
     half = base_g >> 1
-    d = torch.where(acc < (Q >> 1), acc, acc - Q)
 
     def extract(d):
         r = d & (base_g - 1)
@@ -35,9 +34,18 @@ def decompose(acc: torch.Tensor, Q: int, base_g: int, digits: int,
     rows = []
     for _ in range(digits):
         r, d = extract(d)
-        rows.append(r % Q)
-    B, _, N = acc.shape
+        rows.append(r)
+    B, _, N = d.shape
     return torch.stack(rows, dim=1).reshape(B, 2 * digits, N)
+
+
+def decompose(acc: torch.Tensor, Q: int, base_g: int, digits: int,
+              throw: int) -> torch.Tensor:
+    """Signed digit decomposition of acc [B, 2, N] residues mod Q ->
+    [B, 2*digits, N] digit residues, digit l of poly j at row j + 2l.
+    Centred with acc < Q/2 as the JAX kernels do."""
+    d = torch.where(acc < (Q >> 1), acc, acc - Q)
+    return signed_digits(d, base_g, digits, throw) % Q
 
 
 def rotate_sub(c: torch.Tensor, m: torch.Tensor, Q: int) -> torch.Tensor:
@@ -53,6 +61,23 @@ def rotate_sub(c: torch.Tensor, m: torch.Tensor, Q: int) -> torch.Tensor:
     return (torch.where(neg, -g, g) - c) % Q
 
 
+def external_round(acc: torch.Tensor, digits: torch.Tensor,
+                   bsk_r: torch.Tensor, idx_pos: torch.Tensor,
+                   Q: int) -> torch.Tensor:
+    """One CGGI round on residues mod Q: the digits [B, d2, N] of the
+    accumulator acc [B, 2, N] to the NTT domain, their product with the
+    round's key bsk_r [2(key), 2(out), d2, N] (evaluation domain, bit-reversed
+    order), back, times (X^idx_pos - 1) for key 0 and (X^-idx_pos - 1) for
+    key 1, added to acc."""
+    N = acc.shape[-1]
+    dct = ntt.forward(digits, Q)
+    u = (dct[:, None, None] * bsk_r[None]).sum(dim=-2) % Q   # [B,key,out,N]
+    c = ntt.inverse(u, Q)
+    upd = (rotate_sub(c[:, 0], idx_pos, Q)
+           + rotate_sub(c[:, 1], (2 * N - idx_pos) % (2 * N), Q))
+    return (acc + upd) % Q
+
+
 def blind_rotate(acc: torch.Tensor, a_idx: torch.Tensor,
                  bsk_pack: torch.Tensor, Q: int, base_g: int,
                  throw: int = 0) -> torch.Tensor:
@@ -66,13 +91,8 @@ def blind_rotate(acc: torch.Tensor, a_idx: torch.Tensor,
     acc = acc.to(torch.int64)
     a_idx = a_idx.to(torch.int64)
     for r in range(n):
-        dct = ntt.forward(decompose(acc, Q, base_g, d2 // 2, throw), Q)
-        u = (dct[:, None, None] * bsk[r][None]).sum(dim=-2) % Q  # [B,key,out,N]
-        c = ntt.inverse(u, Q)
-        idx_pos = a_idx[:, r]
-        upd = (rotate_sub(c[:, 0], idx_pos, Q)
-               + rotate_sub(c[:, 1], (2 * N - idx_pos) % (2 * N), Q))
-        acc = (acc + upd) % Q
+        acc = external_round(acc, decompose(acc, Q, base_g, d2 // 2, throw),
+                             bsk[r], a_idx[:, r], Q)
     return acc.to(torch.int32)
 
 

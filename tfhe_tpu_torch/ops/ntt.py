@@ -1,12 +1,13 @@
 """Plain negacyclic NTT in torch, in the permutation-free order.
 
-Port of `tfhe_tpu/ops/ntt32.py` and of the schedule in
-`tfhe_tpu/ops/ntt_sched.py`: forward = twist by psi^j, then Gentleman-Sande
-stages with half-length N/2 .. 1, taking natural order to **bit-reversed
-evaluation order**; inverse = Cooley-Tukey stages with half-length 1 .. N/2,
-then untwist by psi^-j / N. The evaluation order is the one the packed
-bootstrapping key is stored in (`rotate_kernel.pack_bsk`), and the hand
-kernel reads the same `tables`.
+Port of `tfhe_tpu/ops/ntt32.py` and of the schedule in `ntt_sched.py` (a
+copy of `tfhe_tpu/ops/ntt_sched.py`): forward = twist by psi^j, then
+Gentleman-Sande stages with half-length N/2 .. 1, taking natural order to
+**bit-reversed evaluation order**; inverse = Cooley-Tukey stages with
+half-length 1 .. N/2, then untwist by psi^-j / N. The evaluation order is
+the one the packed bootstrapping keys are stored in
+(`rotate_kernel.pack_bsk`, `rotate_rns_kernel.pack_bsk_rns`), and the hand
+kernels read the same `tables`.
 
 Values are int64 residues mod Q on the last axis; every product of two
 residues < 2^28 is exact in int64.
@@ -19,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from tfhe_tpu.ops.ntt_sched import schedule
+from .ntt_sched import schedule
 
 
 @functools.lru_cache(maxsize=None)

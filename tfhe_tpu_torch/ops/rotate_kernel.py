@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from tfhe_tpu.ops.ntt_sched import schedule
+from .ntt_sched import schedule
 
 from . import _build, blindrotate, ntt
 from . import modmath as mm

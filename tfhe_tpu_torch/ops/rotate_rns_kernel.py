@@ -1,0 +1,114 @@
+"""The RNS blind rotation's hand-written CUDA kernel: key layout, wrapper,
+count.
+
+Port of `tfhe_tpu/ops/pallas_rotate_rns.py`. `rotate_rns` launches
+`csrc/blind_rotate_rns.cu` for CUDA tensors and runs the plain torch version
+(`blindrotate_rns.blind_rotate_rns`) for CPU tensors; both read the key in
+`pack_bsk_rns`'s layout. Values cross the kernel boundary as int32: lane
+residues are < 2^28, and the Shoup companions are the int32 view of their
+u32 bits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import _build, ntt
+from .blindrotate_rns import blind_rotate_rns
+from .ntt_sched import schedule
+from .rotate_kernel import _with_shoup
+from ..ref import ntt as ref_ntt
+
+LAUNCHES = 0  # kernel launches made by `rotate_rns`
+
+
+def pack_bsk_rns(bsk_coeff: np.ndarray, q1: int, q2: int) -> torch.Tensor:
+    """Coefficient-domain key [n, 2(key), d2, 2(out), N] mod Q = q1*q2 ->
+    int32 [n, 8*d2, N] of per-lane Shoup companions only: lane q1's rows,
+    then lane q2's, row (key*2 + out)*d2 + 2*digit + j within a lane, points
+    in the NTT's bit-reversed order. The layout of
+    `pallas_rotate_rns.pack_bsk_rns`; each lane takes its own NTT of the
+    key, so no NTT mod the full Q is needed."""
+    n, _, d2, _, N = bsk_coeff.shape
+    b = np.asarray(bsk_coeff, dtype=np.uint64)
+    out = np.empty((n, 8 * d2, N), dtype=np.uint32)
+    for lane, qi in enumerate((q1, q2)):
+        bh = ref_ntt.forward(b % np.uint64(qi), qi)[..., schedule(N, qi)["bitrev"]]
+        bh = np.swapaxes(bh, 2, 3).reshape(n, 4 * d2, N)     # [n, key*out*d2, N]
+        out[:, lane * 4 * d2:(lane + 1) * 4 * d2] = (bh << np.uint64(32)) // np.uint64(qi)
+    return torch.from_numpy(out.view(np.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _twiddles(N: int, q1: int, q2: int, device: str) -> torch.Tensor:
+    """int32 [2, 8, N]: per lane, each row of ntt.tables followed by its
+    Shoup companions (the single-lane kernel's table, once per prime)."""
+    lanes = [_with_shoup(torch.from_numpy(ntt.tables(N, qi).astype(np.int64)), qi)
+             .reshape(8, N) for qi in (q1, q2)]
+    return torch.stack(lanes).contiguous().to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = _build.load("blind_rotate_rns").tfhe_blind_rotate_rns
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                   + [ctypes.c_uint] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_params(N: int, d2: int, q1: int, q2: int, base_g: int) -> None:
+    """Raise ValueError unless the kernel takes these parameters."""
+    if N not in (256, 512, 1024, 2048):
+        raise ValueError(f"the RNS kernel takes N in 256..2048, not {N}")
+    if not (d2 >= 2 and d2 % 2 == 0 and q2 < q1 < (1 << 28)
+            and (2 * q1 - 1) * d2 < (1 << 32)):
+        raise ValueError("the RNS kernel needs q2 < q1 < 2^28 and "
+                         "(2 q1 - 1) * d2 < 2^32")
+    if base_g & (base_g - 1) or not 2 <= base_g <= (1 << 27) or base_g >> 1 >= q2:
+        raise ValueError("the gadget base must be a power of two in "
+                         "[2, 2^27] with base/2 < q2")
+
+
+def rotate_rns(acc1: torch.Tensor, acc2: torch.Tensor, a_idx: torch.Tensor,
+               key: torch.Tensor, q1: int, q2: int, base_g: int,
+               throw: int = 0):
+    """Batched CGGI blind rotation mod Q = q1*q2 in two residue lanes:
+    acc1, acc2 [B, 2, N] int32 residues mod q1 and q2, a_idx [B, n] int32
+    exponents in [0, 2N), key [n, 8*d2, N] int32 from `pack_bsk_rns` ->
+    (acc1, acc2) [B, 2, N] int32 after n rounds."""
+    if acc1.device.type == "cpu":
+        return blind_rotate_rns(acc1, acc2, a_idx, key, q1, q2, base_g, throw)
+    if acc1.device.type != "cuda":
+        raise ValueError(f"rotate_rns runs on cpu or cuda tensors, not {acc1.device}")
+    B, two, N = acc1.shape
+    n, rows, Nk = key.shape
+    d2 = rows // 8
+    for name, t in (("acc1", acc1), ("acc2", acc2), ("a_idx", a_idx), ("key", key)):
+        if t.device != acc1.device or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor on {acc1.device}")
+    if (two != 2 or acc2.shape != acc1.shape or Nk != N or rows != 8 * d2
+            or tuple(a_idx.shape) != (B, n)):
+        raise ValueError(f"bad shapes acc {tuple(acc1.shape)}/{tuple(acc2.shape)}, "
+                         f"a_idx {tuple(a_idx.shape)}, key {tuple(key.shape)}")
+    check_params(N, d2, q1, q2, base_g)
+    out1, out2 = torch.empty_like(acc1), torch.empty_like(acc2)
+    if B == 0:
+        return out1, out2
+    c12 = pow(q2, -1, q1)
+    tw = _twiddles(N, q1, q2, str(acc1.device))
+    with torch.cuda.device(acc1.device):
+        err = _kernel()(
+            acc1.data_ptr(), acc2.data_ptr(), out1.data_ptr(), out2.data_ptr(),
+            a_idx.data_ptr(), key.data_ptr(), tw.data_ptr(), B, N, n,
+            q1, q2, c12, (c12 << 32) // q1, base_g.bit_length() - 1, d2 // 2,
+            throw, torch.cuda.current_stream(acc1.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"blind_rotate_rns kernel launch failed: cudaError {err}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out1, out2
