@@ -3,18 +3,25 @@
 
     python3 chip_smoke.py
 
-Builds both hand-written kernels from `tfhe_tpu_torch/csrc` (one nvcc per
-source, in parallel, into `tfhe_tpu_torch/_build/`) and holds each bit for
-bit against its plain torch version on the card, timed, at the shapes its
-main path gives it. Then it drives the port's two paths through
-`tfhe_tpu_torch.BinFHEContext`:
+Builds the three hand-written kernels from `tfhe_tpu_torch/csrc` (one nvcc
+per source, in parallel, into `tfhe_tpu_torch/_build/`) and holds each bit
+for bit against its plain torch version on the card, timed, at the shapes
+its main path gives it. Then it drives the port's paths through
+`tfhe_tpu_torch.BinFHEContext` (the matrix through `TorchBackend`):
 - the gate path: all eight gates at TOY against the host oracle, and a
   batch-4096 STD128 NAND checked by decryption and, for its first 8
   outputs, bit for bit against the oracle;
 - the RNS functional path: EvalFunc, EvalSign and EvalDecomp on the
   accelerated TOY sets bit for bit against the oracle, then at full width
   on the STD128 accelerated sets (N = 2048, n = 1305, Q = q1*q2 of 54 bits,
-  qKS = 2^35) at batch 4096, checked by decryption.
+  qKS = 2^35) at batch 4096, checked by decryption;
+- the 17 GINX classic sets (LWE dimension cut to 12) against the oracle;
+- the two-limb paths: a batch-4096 STD128Q NAND checked by decryption and,
+  for its first 8 outputs, bit for bit against the oracle; EvalFunc,
+  EvalSign and EvalDecomp on the TOY accelerated sets at the single 54-bit
+  prime bit for bit against the oracle, and EvalSign at full width on the
+  STD128 accelerated set with that prime at batch 1024, checked by
+  decryption.
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. At the end no jax or JAX-package module may be loaded.
 Exits non-zero on any failure. The line before the last is a JSON record
@@ -31,7 +38,9 @@ import time
 SEED = 20261016
 GATE_BATCH = 4096
 FUNC_BATCH = 4096
+SIGN64_BATCH = 1024         # single-prime EvalSign batch
 LWE_N_ACC = 1305           # rounds of the accelerated sets' rotation
+ROWS = list(range(128))     # rows held to the plain version at a main path's batch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 INT32_LANES_PER_SM = 64     # 32-bit integer multiply lanes per SM per clock
 
@@ -95,18 +104,23 @@ def shoup_products(N: int, digits: int) -> int:
     return digits * (N * logn + 8 * N) + 2 * N * logn
 
 
-def bound(B: int, n: int, N: int, d2: int, lanes: int, peak: float) -> tuple[float, str]:
-    """(least ms, "bytes" or "operations") for one rotation. Bytes: each
-    input and output read or written once, the key as values and Shoup
-    companions (the RNS kernel stores companions only and rebuilds the
-    values with 2 multiplies each; a layout that stores both needs none of
-    them, so they are not counted), over the memory rate. Operations: the
-    32-bit multiplies, 3 per Shoup product and 4 per coefficient for the
-    CRT of two lanes, over the int32 peak."""
-    key_bytes = 4 * n * 8 * d2 * N * (2 if lanes == 2 else 1)
-    nbytes = 4 * (2 * lanes * B * 2 * N + B * n + lanes * 8 * N) + key_bytes
+def bound(B: int, n: int, N: int, d2: int, lanes: int, peak: float,
+          word: int = 4) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for one rotation with residues
+    of `word` bytes (8 for the 64-bit kernel). Bytes: each input and output
+    read or written once, the key as values and Shoup companions (the RNS
+    and 64-bit kernels store companions only and rebuild the values with
+    multiplies; a layout that stores both needs none of them, so they are
+    not counted), over the memory rate. Operations: the 32-bit multiplies
+    over the int32 peak: 3 per 32-bit Shoup product (lo(a w), hi(a w'),
+    lo(q_hat Q)); 15 per 64-bit one (7 for the high word of the 128-bit
+    a w', from four 32x32 products of which the lowest needs only its high
+    half, 4 each for the low words of a w and q_hat Q); 4 per coefficient
+    for the CRT of two lanes."""
+    key_bytes = word * n * 8 * d2 * N * (2 if lanes == 2 else 1)
+    nbytes = word * (2 * lanes * B * 2 * N + lanes * 8 * N) + 4 * B * n + key_bytes
     digits = d2 // 2
-    per_round = lanes * 3 * shoup_products(N, digits)
+    per_round = lanes * (3 if word == 4 else 15) * shoup_products(N, digits)
     if lanes == 2:
         per_round += 4 * 2 * N
     ops = B * n * per_round
@@ -210,6 +224,113 @@ def rns_kernel_vs_plain(rng, q1: int, q2: int, peak: float) -> dict:
     return {"max_abs_err": worst, **timing}
 
 
+def rotate64_kernel_vs_plain(rng, peak: float) -> dict:
+    """blind_rotate64 against its plain version on the card at N = 2048,
+    with tolerance 0 (torch.equal): STD128Q (Q of 50 bits, base 2^25, d2 =
+    4), the reference's 54-bit prime at the accelerated sets' bases (2^18,
+    d2 = 4, and 2^27, d2 = 2, throw 1), STD192 (37 bits, base 2^14, d2 = 6)
+    and STD256 (29 bits, base 2^8, d2 = 8), and a 54-bit prime at the
+    smallest ring the kernel takes (N = 256), at B = 64 over 16 rounds; then
+    STD128Q at B = 256 over all 1024 rounds (the returned timing). Then the
+    main paths' own shapes, all rounds: STD128Q at B = GATE_BATCH, n = 1024
+    (the NAND) and the 54-bit prime at B = SIGN64_BATCH, n = 1305, d2 = 4
+    and d2 = 2 (EvalSign); there the plain version runs on ROWS of the same
+    inputs (its time over the whole batch would be minutes) and those rows
+    of the kernel's output must equal it, and the kernel's own launches are
+    timed against their bound. Last, the kernel alone at the 54-bit prime,
+    B = GATE_BATCH, n = 1305, d2 = 4. The key holds valid companions of
+    random values < Q."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import ParamSet, from_param_set
+    from tfhe_tpu_torch.ops import blindrotate64, rotate64_kernel
+    from tfhe_tpu_torch.ops.modmath import shoup64
+    from tfhe_tpu_torch.utils.numtheory import ntt_prime
+
+    q54 = ntt_prime(54, 2 * 2048)
+    cases = {name: (rg.N, rg.Q, rg.base_g, rg.digits_g2, rg.num_digits_to_throw)
+             for name, rg in ((ps.name, from_param_set(ps).rgsw) for ps in
+                              (ParamSet.STD128Q, ParamSet.STD192, ParamSet.STD256))}
+    cases["Q54, base 2^18"] = (2048, q54, 1 << 18, 4, 1)
+    cases["Q54, base 2^27"] = (2048, q54, 1 << 27, 2, 1)
+    cases["N=256, Q54, base 2^18"] = (256, ntt_prime(54, 2 * 256), 1 << 18, 4, 1)
+    worst = 0
+
+    def inputs(name, B, n, key=None):
+        N, Q, base_g, d2, throw = cases[name]
+        acc = torch.from_numpy(rng.integers(0, Q, (B, 2, N))).cuda()
+        a_idx = torch.from_numpy(rng.integers(0, 2 * N, (B, n)).astype(np.int32)).cuda()
+        if key is None:
+            key = torch.from_numpy(shoup64(rng.integers(0, Q, (n, 4 * d2, N)), Q)).cuda()
+        return acc, a_idx, key
+
+    def launchers(name, acc, a_idx, key):
+        _, Q, base_g, _, throw = cases[name]
+        return lambda: rotate64_kernel.rotate64(acc, a_idx, key, Q, base_g, throw), \
+            lambda: blindrotate64.blind_rotate64(acc, a_idx, key, Q, base_g, throw)
+
+    def compare(name, B, n):
+        nonlocal worst
+        t0 = time.time()
+        kernel, plain = launchers(name, *inputs(name, B, n))
+        got = kernel()
+        want, plain_ms = timed_once(plain)
+        err = max_err(got, want)
+        worst = max(worst, err)
+        check(torch.equal(got, want), f"blind_rotate64 != plain at {name}, B={B}, n={n} "
+              f"(max abs err {err})")
+        ms = cuda_ms(kernel, reps=2)
+        N, d2 = cases[name][0], cases[name][3]
+        b_ms, b_by = bound(B, n, N, d2, 1, peak, word=8)
+        log(f"blind_rotate64 == plain at {name} (N={N} d2={d2}) B={B} n={n} "
+            f"(torch.equal, tolerance 0): max_abs_err {err}; kernel {ms:.3f} ms, plain "
+            f"torch {plain_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}, kernel at "
+            f"{100 * b_ms / ms:.1f}% of it ({time.time() - t0:.1f} s)")
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+    def compare_rows(name, B, n, key=None):
+        """The kernel over the whole batch, the plain version on ROWS of
+        it; returns the key for another batch of the same shape."""
+        nonlocal worst
+        t0 = time.time()
+        acc, a_idx, key = inputs(name, B, n, key)
+        kernel, _ = launchers(name, acc, a_idx, key)
+        got, first_ms = timed_once(kernel)
+        rows = ROWS + [B - 1]
+        _, plain = launchers(name, acc[rows], a_idx[rows], key)
+        want, plain_ms = timed_once(plain)
+        err = max_err(got[rows], want)
+        worst = max(worst, err)
+        check(torch.equal(got[rows], want), f"blind_rotate64 != plain at {name}, B={B}, "
+              f"n={n}, rows 0..{len(ROWS) - 1} and {B - 1} (max abs err {err})")
+        ms = cuda_ms(kernel, reps=1)
+        N, d2 = cases[name][0], cases[name][3]
+        b_ms, b_by = bound(B, n, N, d2, 1, peak, word=8)
+        log(f"blind_rotate64 == plain at {name} (N={N} d2={d2}) B={B} n={n} on rows "
+            f"0..{len(ROWS) - 1} and {B - 1} (torch.equal, tolerance 0): max_abs_err "
+            f"{err}; kernel over all {B} rows {first_ms:.3f} ms (first launch) and "
+            f"{ms:.3f} ms, plain torch on the {len(rows)} rows {plain_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms by {b_by}, kernel at {100 * b_ms / ms:.1f}% of it "
+            f"({time.time() - t0:.1f} s)")
+        return key
+
+    for name in cases:
+        compare(name, 64, 16)
+    timing = compare("STD128Q", 256, 1024)
+    compare_rows("STD128Q", GATE_BATCH, 1024)
+    key = compare_rows("Q54, base 2^18", SIGN64_BATCH, LWE_N_ACC)
+    compare_rows("Q54, base 2^27", SIGN64_BATCH, LWE_N_ACC)
+    kernel, _ = launchers("Q54, base 2^18", *inputs("Q54, base 2^18", GATE_BATCH,
+                                                     LWE_N_ACC, key))
+    kernel()
+    ms = cuda_ms(kernel, reps=1)
+    b_ms, b_by = bound(GATE_BATCH, LWE_N_ACC, 2048, 4, 1, peak, word=8)
+    log(f"blind_rotate64 alone at Q54, base 2^18 B={GATE_BATCH} n={LWE_N_ACC}: {ms:.3f} "
+        f"ms, bound {b_ms:.3f} ms by {b_by}, kernel at {100 * b_ms / ms:.1f}% of it")
+    return {"max_abs_err": worst, **timing}
+
+
 def toy_gates(rng) -> None:
     """All eight gates at TOY on the GPU, bit for bit against the oracle."""
     import numpy as np
@@ -288,25 +409,30 @@ def std128_nand(rng, card: str) -> None:
             f"{GATE_BATCH / s:.1f} bootstraps/s on {card}")
 
 
-def accelerated_contexts(param_set, log_qs=(17, 12)):
+def accelerated_contexts(param_set, log_qs=(17, 12), rns_modulus=None, func=True):
     """The sign/decomp context (logQ 17, time optimization, bases {2^18,
-    2^27}; logQ 23 resolves to the same parameters) and the EvalFunc
-    context (logQ 12, arbFunc), numDigitsToThrow 1, keys made on the host
-    once per LWE block: the func context reuses the ring secret and the
-    switching key. Returns (sign_cc, func_cc, sk, keygen seconds)."""
+    2^27}; logQ 23 resolves to the same parameters) and, with `func`, the
+    EvalFunc context (logQ 12, arbFunc), numDigitsToThrow 1, keys made on
+    the host once per LWE block: the func context reuses the ring secret
+    and the switching key. Q is q1*q2, or with rns_modulus=False the
+    reference's single 54-bit prime. Returns (sign_cc, func_cc or None, sk,
+    keygen seconds)."""
     from tfhe_tpu_torch import BinFHEContext
 
     t0 = time.time()
     sign_cc = BinFHEContext(seed=SEED)
     sign_cc.generate_binfhe_context(param_set, arb_func=False, log_q=log_qs[0],
-                                    num_digits_to_throw=1, time_optimization=True)
+                                    num_digits_to_throw=1, time_optimization=True,
+                                    rns_modulus=rns_modulus)
     sk = sign_cc.key_gen()
     sign_cc.bt_key_gen(sk, bases={1 << 18, 1 << 27})
-    func_cc = BinFHEContext(seed=SEED + 1)
-    func_cc.generate_binfhe_context(param_set, arb_func=True, log_q=log_qs[1],
-                                    num_digits_to_throw=1)
-    key = sign_cc.bt_key
-    func_cc.bt_key_gen(sk, sk_n=key.sk_n, ksk=key.ksk)
+    func_cc = None
+    if func:
+        func_cc = BinFHEContext(seed=SEED + 1)
+        func_cc.generate_binfhe_context(param_set, arb_func=True, log_q=log_qs[1],
+                                        num_digits_to_throw=1, rns_modulus=rns_modulus)
+        key = sign_cc.bt_key
+        func_cc.bt_key_gen(sk, sk_n=key.sk_n, ksk=key.ksk)
     return sign_cc, func_cc, sk, time.time() - t0
 
 
@@ -361,16 +487,19 @@ def same(x, y) -> bool:
             and np.array_equal(x.b, y.b))
 
 
-def toy_accelerated(rng) -> None:
+def toy_accelerated(rng, rns_modulus=None) -> None:
     """EvalFunc, EvalSign and EvalDecomp on the accelerated TOY sets (N =
     2048, n = 32, the same Q and kernel shapes as STD128) on the card, each
-    output decrypted and held bit for bit against the port's host oracle."""
+    output decrypted and held bit for bit against the port's host oracle.
+    With rns_modulus=False, Q is the single 54-bit prime."""
     import numpy as np
 
     from tfhe_tpu_torch import ParamSet
 
     t0 = time.time()
-    sign_cc, func_cc, sk, keygen_s = accelerated_contexts(ParamSet.TOY)
+    sign_cc, func_cc, sk, keygen_s = accelerated_contexts(ParamSet.TOY,
+                                                          rns_modulus=rns_modulus)
+    form = "Q=q1*q2" if rns_modulus is None else f"one prime Q={sign_cc.params.lwe.Q}"
     B = 8
     ct_f, lut, want_f, p = func_inputs(func_cc, sk, rng, B)
     ct_s, delta = sign_inputs(sign_cc, sk, rng, B)
@@ -388,7 +517,7 @@ def toy_accelerated(rng) -> None:
     check(same(got[0], ref[0]) and same(got[1], ref[1]) and len(got[2]) == len(ref[2])
           and all(same(g, r) for g, r in zip(got[2], ref[2])),
           "TOY accelerated results differ from the host oracle")
-    log(f"TOY accelerated (N=2048, n=32, Q=q1*q2): EvalFunc (cube LUT), EvalSign "
+    log(f"TOY accelerated (N=2048, n=32, {form}): EvalFunc (cube LUT), EvalSign "
         f"(bases 2^18, 2^27) and EvalDecomp ({len(got[2])} digits) at B={B} decrypt "
         f"right and equal the host oracle bit for bit (keygen {keygen_s:.1f} s, "
         f"{time.time() - t0:.1f} s in all)")
@@ -447,6 +576,184 @@ def std128_accelerated(rng, card: str) -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+class KernelClock:
+    """Device time of every call of `module.name` (a kernel wrapper that
+    launches one kernel) while the clock is entered: CUDA events around
+    each call, summed by `ms()` after a synchronize."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.events = module, name, []
+
+    def __enter__(self):
+        import torch
+
+        self.orig = orig = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def paramset_matrix(rng) -> None:
+    """Every GINX row of the classic table on the card, with the LWE
+    dimension cut to 12 (full N, Q, qKS and bases): TorchBackend's eval_acc
+    and mkm_switch at B = 2 bit for bit against the host oracle (its native
+    engine, fed uint64 accumulators). The 9 single-limb sets run
+    blind_rotate (STD256Q and MEDIUM at N = 2048), the 8 two-limb sets
+    blind_rotate64."""
+    import dataclasses
+
+    import numpy as np
+
+    from tfhe_tpu_torch import ParamSet, TorchBackend, from_param_set, lwe, scheme
+    from tfhe_tpu_torch.params import BinFHEParams
+    from tfhe_tpu_torch.ref.backend import RefBackend
+    from tfhe_tpu_torch.ref.rgsw import poly_transpose
+    from tfhe_tpu_torch.utils.rng import BinFHERng
+
+    t0 = time.time()
+    for ps in ParamSet:
+        full = from_param_set(ps)
+        params = BinFHEParams(lwe=dataclasses.replace(full.lwe, n=12), rgsw=full.rgsw)
+        p = params.lwe
+        brng = BinFHERng(SEED + int(ps))
+        key = scheme.key_gen(brng, params, lwe.key_gen(brng, p.n, p.q_ks))
+        acc = rng.integers(0, p.Q, (2, 2, p.N)).astype(np.uint64)
+        a = rng.integers(0, p.q, (2, p.n)).astype(np.uint64)
+        dev, ref = TorchBackend("cuda"), RefBackend()
+        got = dev.eval_acc(params, key, acc.copy(), a, p.q)
+        want = ref.eval_acc(params, key, acc.copy(), a, p.q)
+        check(np.array_equal(got, want), f"{ps.name}: eval_acc differs from the oracle")
+        a_t = poly_transpose(want[:, 0, :], p.Q)
+        b = (want[:, 1, 0] + np.uint64(p.Q // 8 + 1)) % np.uint64(p.Q)
+        got_ct = dev.mkm_switch(params, key, a_t, b, p.q)
+        check(same(got_ct, ref.mkm_switch(params, key, a_t, b, p.q)),
+              f"{ps.name}: mkm_switch differs from the oracle")
+    log(f"17 GINX classic sets (n=12, B=2): eval_acc and mkm_switch on the card "
+        f"equal the host oracle bit for bit ({time.time() - t0:.1f} s)")
+
+
+def std128q_nand(rng, card: str) -> None:
+    """The two-limb gate path at full width: STD128Q (N = 2048, n = 1024,
+    Q of 50 bits, baseG 2^25, qKS 2^25, baseKS 32) NAND at batch
+    GATE_BATCH. Every output decrypts; the first 8 equal the host oracle's
+    native engine (`RefBackend.eval_acc` fed uint64 accumulators of the
+    scheme's gate test polynomial, then `mkm_switch`); the scheme's
+    object-dtype oracle would take hours at n = 1024."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import BinFHEContext, Gate, ParamSet, lwe, scheme
+    from tfhe_tpu_torch.ops import backend as backend_mod
+    from tfhe_tpu_torch.ref.backend import RefBackend
+    from tfhe_tpu_torch.ref.rgsw import poly_transpose
+
+    t0 = time.time()
+    cc = BinFHEContext(seed=SEED)
+    cc.generate_binfhe_context(ParamSet.STD128Q)
+    sk = cc.key_gen()
+    cc.bt_key_gen(sk)
+    p = cc.params.lwe
+    log(f"STD128Q: N={p.N} n={p.n} Q={p.Q} qKS={p.q_ks} baseKS={p.base_ks} "
+        f"baseG=2^{cc.params.rgsw.base_g.bit_length() - 1}; host keygen "
+        f"{time.time() - t0:.1f} s")
+
+    m1 = rng.integers(0, 2, GATE_BATCH)
+    m2 = rng.integers(0, 2, GATE_BATCH)
+    ct1, ct2 = cc.encrypt(sk, m1), cc.encrypt(sk, m2)
+    t0 = time.time()
+    prep = type(ct1)(ct1.a[:8], ct1.b[:8], ct1.modulus)
+    lwe.add_eq(prep, type(ct2)(ct2.a[:8], ct2.b[:8], ct2.modulus))
+    m = scheme._gate_test_poly(cc.params, Gate.NAND, prep.b, prep.modulus)
+    ref = RefBackend()
+    acc = ref.eval_acc(cc.params, cc.bt_key, scheme._acc_init(m.astype(np.uint64)),
+                       prep.a, prep.modulus)
+    b = (acc[:, 1, 0] + np.uint64(p.Q // 8 + 1)) % np.uint64(p.Q)
+    want = ref.mkm_switch(cc.params, cc.bt_key, poly_transpose(acc[:, 0, :], p.Q), b, p.q)
+    log(f"host oracle (native engine) NAND on 8 ciphertexts {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    cc.device_setup("cuda")
+    torch.cuda.synchronize()
+    log(f"device_setup (key to eval domain, pack_bsk64, switching-key table) "
+        f"{time.time() - t0:.1f} s, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    for call in ("first", "warm"):
+        with KernelClock(backend_mod, "rotate64") as clock:
+            t0 = time.time()
+            out = cc.eval_bin_gate(Gate.NAND, ct1, ct2)
+            wall = time.time() - t0
+            kernel_s = clock.ms() / 1e3
+        check(np.array_equal(cc.decrypt(sk, out), 1 - (m1 & m2)), "STD128Q NAND decryption")
+        check(np.array_equal(out.a[:8], want.a) and np.array_equal(out.b[:8], want.b),
+              "STD128Q NAND: first 8 outputs differ from the host oracle")
+        log(f"STD128Q NAND B={GATE_BATCH} {call} call: all decrypt to 1-(m1&m2), first 8 "
+            f"equal the host oracle; wall {wall:.4f} s, {GATE_BATCH / wall:.1f} "
+            f"bootstraps/s; blind_rotate64 {kernel_s:.4f} s in {len(clock.events)} "
+            f"launch(es); outside it (wall - kernel: host, key switch, copies) "
+            f"{wall - kernel_s:.4f} s "
+            f"({100 * (wall - kernel_s) / wall:.1f}%) on {card}")
+    log(f"STD128Q NAND peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def single_prime_sign(rng, card: str) -> None:
+    """EvalSign at the STD128 accelerated set with the reference's single
+    54-bit prime (rns_modulus=False): N = 2048, n = 1305, qKS = 2^35,
+    bases {2^18, 2^27}, one digit thrown, batch SIGN64_BATCH, a first and
+    a warm call, each checked by decryption. The two-limb sets have no device chain (as in the JAX
+    package): each bootstrap's test polynomial is built on the host."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import ParamSet
+    from tfhe_tpu_torch.ops import backend as backend_mod
+
+    sign_cc, _, sk, keygen_s = accelerated_contexts(ParamSet.STD128, rns_modulus=False,
+                                                    func=False)
+    p = sign_cc.params.lwe
+    log(f"STD128 accelerated, one prime: N={p.N} n={p.n} Q={p.Q} qKS=2^35; host keygen "
+        f"(bases 2^18, 2^27) {keygen_s:.1f} s")
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    sign_cc.device_setup("cuda")
+    torch.cuda.synchronize()
+    log(f"device_setup {time.time() - t0:.1f} s")
+    ct, delta = sign_inputs(sign_cc, sk, rng, SIGN64_BATCH)
+    # the first call also converts and uploads the second gadget base's key
+    for call in ("first", "warm"):
+        with KernelClock(backend_mod, "rotate64") as clock:
+            t0 = time.time()
+            out = sign_cc.eval_sign(ct)
+            wall = time.time() - t0
+            kernel_s = clock.ms() / 1e3
+        check(np.array_equal(sign_cc.decrypt(sk, out, 2), (delta >= 0).astype(np.uint64)),
+              f"single-prime EvalSign decryption at B={SIGN64_BATCH}")
+        log(f"single-prime EvalSign B={SIGN64_BATCH} {call} call: all decrypt right; wall "
+            f"{wall:.4f} s = {wall / SIGN64_BATCH * 1e3:.4f} ms/ciphertext; blind_rotate64 "
+            f"{kernel_s:.4f} s in {len(clock.events)} launches; outside it (wall - kernel) "
+            f"{100 * (wall - kernel_s) / wall:.1f}% on {card}")
+    log(f"single-prime EvalSign peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main() -> int:
     import torch
 
@@ -464,7 +771,10 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     from tfhe_tpu_torch import ParamSet, from_gpu_style, from_param_set
-    from tfhe_tpu_torch.ops import _build, rotate_kernel, rotate_rns_kernel
+    from tfhe_tpu_torch.ops import _build, rotate64_kernel, rotate_kernel, rotate_rns_kernel
+
+    def reset_counts():
+        rotate_kernel.LAUNCHES = rotate_rns_kernel.LAUNCHES = rotate64_kernel.LAUNCHES = 0
 
     t0 = time.time()
     _build.build()
@@ -481,10 +791,11 @@ def main() -> int:
     gate_timing = gate_kernel_vs_plain(rng, from_param_set(ParamSet.STD128).lwe.Q, peak)
     q1, q2 = from_gpu_style(ParamSet.STD128, True, 12).rgsw.rns_primes
     rns_timing = rns_kernel_vs_plain(rng, q1, q2, peak)
+    r64_timing = rotate64_kernel_vs_plain(rng, peak)
     log(f"kernels against their plain versions: {time.time() - t0:.1f} s")
 
     # the gate path, counts read just after it
-    rotate_kernel.LAUNCHES = rotate_rns_kernel.LAUNCHES = 0
+    reset_counts()
     t0 = time.time()
     toy_gates(rng)
     std128_nand(rng, card)
@@ -493,13 +804,39 @@ def main() -> int:
     log(f"gate path: blind_rotate launches {gate_launches} ({time.time() - t0:.1f} s)")
 
     # the RNS functional path, counts read just after it
-    rotate_kernel.LAUNCHES = rotate_rns_kernel.LAUNCHES = 0
+    reset_counts()
     t0 = time.time()
     toy_accelerated(rng)
     std128_accelerated(rng, card)
     rns_launches = rotate_rns_kernel.LAUNCHES
     check(rns_launches > 0, "the functional path did not launch blind_rotate_rns")
     log(f"RNS functional path: blind_rotate_rns launches {rns_launches} "
+        f"({time.time() - t0:.1f} s)")
+
+    # the 17 classic GINX sets through TorchBackend, counts read just after
+    reset_counts()
+    paramset_matrix(rng)
+    check(rotate_kernel.LAUNCHES > 0 and rotate64_kernel.LAUNCHES > 0,
+          "the 17-set matrix did not launch blind_rotate and blind_rotate64")
+    log(f"17-set matrix: blind_rotate launches {rotate_kernel.LAUNCHES}, "
+        f"blind_rotate64 launches {rotate64_kernel.LAUNCHES}")
+
+    # the two-limb paths: the STD128Q gate, then the single 54-bit prime's
+    # functional bootstraps, counts read just after each
+    reset_counts()
+    t0 = time.time()
+    std128q_nand(rng, card)
+    nand_launches = rotate64_kernel.LAUNCHES
+    check(nand_launches > 0, "the STD128Q NAND path did not launch blind_rotate64")
+    log(f"STD128Q gate path: blind_rotate64 launches {nand_launches} "
+        f"({time.time() - t0:.1f} s)")
+    reset_counts()
+    t0 = time.time()
+    toy_accelerated(rng, rns_modulus=False)
+    single_prime_sign(rng, card)
+    prime_launches = rotate64_kernel.LAUNCHES
+    check(prime_launches > 0, "the single-prime path did not launch blind_rotate64")
+    log(f"single-prime functional path: blind_rotate64 launches {prime_launches} "
         f"({time.time() - t0:.1f} s)")
 
     loaded = [m for m in sys.modules if m in ("jax", "tfhe_tpu")
@@ -516,6 +853,10 @@ def main() -> int:
          "source": "tfhe_tpu_torch/csrc/blind_rotate_rns.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate_rns.py:278",
          "launches": rns_launches, **rns_timing, "library_ms": None},
+        {"name": "blind_rotate64", "route": "cuda",
+         "source": "tfhe_tpu_torch/csrc/blind_rotate64.cu",
+         "replaces": "tfhe_tpu/ops/pallas_rotate64.py:324",
+         "launches": nand_launches + prime_launches, **r64_timing, "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -136,12 +136,11 @@ def test_scaled_indices_match_jax(q, N):
 
 
 @pytest.mark.parametrize("params", [
-    # 54-bit prime Q (the reference's form, rns_modulus=False): two limbs
-    params_mod.from_gpu_style(params_mod.ParamSet.TOY, True, 12, rns_modulus=False),
+    params_mod.from_param_set(params_mod.ParamSet.STD192, params_mod.Method.AP),
     params_mod.from_gpu_style(params_mod.ParamSet.TOY, False, 11),  # 27-bit Q, qKS 2^35
     params_mod.from_param_set(params_mod.ParamSet.TOY, params_mod.Method.AP),
-    params_mod.from_param_set(params_mod.ParamSet.STD192),
-], ids=["accelerated-logQ12", "accelerated-logQ11", "toy-AP", "std192"])
+    params_mod.from_param_set(params_mod.ParamSet.STD128Q, params_mod.Method.AP),
+], ids=["std192-AP", "accelerated-logQ11", "toy-AP", "std128q-AP"])
 def test_unsupported_params_raise(params):
     be = TorchBackend("cpu")
     assert not be.supports(params)
@@ -150,15 +149,25 @@ def test_unsupported_params_raise(params):
 
 
 def test_supported_sets():
+    """Every GINX row of the classic table (the single-limb gate sets and
+    the 8 two-limb sets), and the accelerated maps with either ring
+    modulus: Q = q1*q2 (RNS) or the reference's single 54-bit prime."""
     P = params_mod.ParamSet
-    for ps in (P.TOY, P.STD128, P.STD128_OPT, P.MEDIUM):
-        assert TorchBackend.supports(params_mod.from_param_set(ps)), ps
-    for log_q, arb, to in ((12, True, False), (17, False, True), (23, False, True)):
-        acc = params_mod.from_gpu_style(P.STD128, arb, log_q, time_optimization=to,
-                                        num_digits_to_throw=1)
-        for base in sorted(acc.rgsw.g_power_map):
-            acc.rgsw.change_base_g(base)
-            assert TorchBackend.supports(acc), (log_q, base)
+    two_limb = (P.STD192, P.STD192_OPT, P.STD256, P.STD256_OPT, P.STD128Q,
+                P.STD128Q_OPT, P.STD192Q, P.STD192Q_OPT)
+    for ps in P:
+        params = params_mod.from_param_set(ps)
+        assert TorchBackend.supports(params), ps
+        assert TorchBackend._is_two_limb_set(params) == (ps in two_limb), ps
+    for rns in (None, False):
+        for log_q, arb, to in ((12, True, False), (17, False, True), (23, False, True)):
+            acc = params_mod.from_gpu_style(P.STD128, arb, log_q, time_optimization=to,
+                                            num_digits_to_throw=1, rns_modulus=rns)
+            assert (acc.rgsw.rns_primes is None) == (rns is False)
+            for base in sorted(acc.rgsw.g_power_map):
+                acc.rgsw.change_base_g(base)
+                assert TorchBackend.supports(acc), (rns, log_q, base)
+                assert TorchBackend._is_two_limb_set(acc) == (rns is False)
 
 
 def test_context_device_setup_refuses_unsupported():

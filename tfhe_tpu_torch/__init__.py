@@ -5,8 +5,11 @@ layers (parameters, keygen, encryption, the scheme, the exact host oracle)
 are the port's own copies. `BinFHEContext(seed=...)` evaluates on the GPU
 (`device="cuda"`, the default) or with the kernels' plain torch versions
 (`device="cpu"`): batched CGGI gates on the classic single-limb sets
-(hand-written kernel `csrc/blind_rotate.cu`) and EvalFunc, EvalFloor,
-EvalSign and EvalDecomp on the accelerated RNS sets (`csrc/blind_rotate_rns.cu`).
+(hand-written kernel `csrc/blind_rotate.cu`), EvalFunc, EvalFloor,
+EvalSign and EvalDecomp on the accelerated RNS sets
+(`csrc/blind_rotate_rns.cu`), and gates and functions on the two-limb sets:
+the big-Q classic sets, STD256 and the accelerated sets at the single 54-bit
+prime (`csrc/blind_rotate64.cu`).
 """
 
 from .context import BinFHEContext

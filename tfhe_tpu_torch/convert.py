@@ -1,10 +1,11 @@
 """Device keys of the port, and the carry-across from the JAX package.
 
 `device_key` is the counterpart of `JaxBackend._get_device_key`
-(`tfhe_tpu/ops/backend.py:675-740`) for the port's two paths: the
-single-limb key of the gate slice (host NTT mod Q, `pack_bsk`) and the RNS
+(`tfhe_tpu/ops/backend.py:675-740`) for the port's three paths: the
+single-limb key of the gate slice (host NTT mod Q, `pack_bsk`), the RNS
 key of the accelerated sets (`pack_bsk_rns`, one NTT per prime straight
-from `bsk_coeff`). The switching-key table is memoised on the
+from `bsk_coeff`) and the 64-bit key of the two-limb sets (host NTT mod Q,
+`pack_bsk64`). The switching-key table is memoised on the
 switching-key object, as `JaxBackend._packed_ksk` does (551-573): every
 gadget base of a time-optimization map and every context that shares the
 LWE block share one device table.
@@ -25,6 +26,7 @@ from .params import BinFHEParams, LWEParams, Method, RGSWParams
 from .ref import ntt as ref_ntt
 from .scheme import BTKey
 from .ops.keyswitch import ksk_table
+from .ops.rotate64_kernel import pack_bsk64
 from .ops.rotate_kernel import pack_bsk
 from .ops.rotate_rns_kernel import pack_bsk_rns
 
@@ -39,18 +41,20 @@ def switching_table(ksk: lwe.LWESwitchingKey, device: torch.device) -> torch.Ten
 
 
 def device_key(params: BinFHEParams, key: BTKey, device: torch.device,
-               rns: bool) -> dict[str, torch.Tensor]:
-    """BTKey -> {"bsk_pack" or "bsk_rns": int32 [n, 8*d2, N], "ksk":
-    [N*baseKS*dc, n + 1]} on `device`. The CGGI key `bsk_coeff`
-    [n, 2, d2, 2, N] goes to the kernel's layout: with `rns`, one NTT per
-    prime of Q = q1*q2; otherwise the host NTT mod Q."""
+               path: str) -> dict[str, torch.Tensor]:
+    """BTKey -> {"bsk_pack" or "bsk_rns": int32 [n, 8*d2, N], or "bsk64":
+    int64 [n, 4*d2, N]; "ksk": [N*baseKS*dc, n + 1]} on `device`. The CGGI
+    key `bsk_coeff` [n, 2, d2, 2, N] goes to the layout of the kernel that
+    `path` names: "rns", one NTT per prime of Q = q1*q2; "gate" or "two_limb",
+    the host NTT mod Q."""
     p = params.lwe
-    if rns:
+    if path == "rns":
         q1, q2 = params.rgsw.rns_primes
         bsk = {"bsk_rns": pack_bsk_rns(key.bsk_coeff, q1, q2).to(device)}
     else:
         bsk_hat = ref_ntt.forward(np.asarray(key.bsk_coeff, dtype=np.uint64), p.Q)
-        bsk = {"bsk_pack": pack_bsk(bsk_hat, p.Q).to(device)}
+        pack, name = (pack_bsk64, "bsk64") if path == "two_limb" else (pack_bsk, "bsk_pack")
+        bsk = {name: pack(bsk_hat, p.Q).to(device)}
     return {**bsk, "ksk": switching_table(key.ksk, device)}
 
 

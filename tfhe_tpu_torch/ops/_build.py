@@ -19,7 +19,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNELS = ("blind_rotate", "blind_rotate_rns")
+KERNELS = ("blind_rotate", "blind_rotate_rns", "blind_rotate64")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,6 +1,6 @@
 """TorchBackend: the `scheme.Backend` of the port.
 
-Port of two branches of `tfhe_tpu/ops/backend.py` (`JaxBackend`):
+Port of three branches of `tfhe_tpu/ops/backend.py` (`JaxBackend`):
 - the single-limb gate slice (`build_full_gate_pipeline`): a gate bootstrap
   runs on one device from the raw u16 ciphertexts to the u16 result: the
   gate's LWE combination, the scaled indices and test polynomial of
@@ -11,12 +11,19 @@ Port of two branches of `tfhe_tpu/ops/backend.py` (`JaxBackend`):
   two-lane blind rotation (`rotate_rns_kernel.rotate_rns`), Garner CRT,
   transpose/extract and the 35-bit MKM switch (`build_mkm_switch64`), and
   the device-resident chain glue of EvalFunc/EvalSign/EvalDecomp
-  (`DeviceLWE`, `func_bootstrap_dev`, `dev_*`).
+  (`DeviceLWE`, `func_bootstrap_dev`, `dev_*`);
+- the two-limb sets, one ring modulus 2^28 <= Q < 2^54 (the big-Q classic
+  sets STD192, STD128Q, STD192Q and their _OPT rows, STD256/STD256_OPT,
+  and the accelerated sets at the reference's single 54-bit prime): the
+  64-bit rotation (`rotate64_kernel.rotate64`), transpose/extract and the
+  MKM switch from the big Q.
 The rotations are hand-written kernels on CUDA and their plain versions on
 the CPU. Configurations outside the slices raise NotImplementedError in
-`setup`, and `scheme` keeps to its generic route (`eval_acc`, host extract,
-`mkm_switch`) for every operation this class has no fast path for: gates on
-the RNS sets, and functions that are not a value table.
+`setup`. Every operation without a fast path here (gates on the RNS and
+two-limb sets, every function on the two-limb sets, functions that are not
+a value table) reaches `bootstrap_pipeline` from `scheme` with a host-built
+accumulator, as in the JAX package, and stays on the device from the
+rotation to the key switch.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from ..params import BinFHEParams, Gate, Method
 from .blindrotate import transpose_extract
 from .keyswitch import mkm_switch
 from .modmath import addmod, crt_combine, mod, negmod, submod
+from .rotate64_kernel import rotate64
 from .rotate_kernel import rotate
 from .rotate_rns_kernel import rotate_rns
 
@@ -87,8 +95,37 @@ class TorchBackend:
                 and p.base_ks & (p.base_ks - 1) == 0)
 
     @classmethod
+    def _is_two_limb_set(cls, params: BinFHEParams) -> bool:
+        """One ring modulus 2^28 <= Q < 2^54 that the other two predicates
+        do not take, with qKS < 2^31 (the big-Q classic sets and STD256) or
+        a power-of-two qKS in (2^32, 2^40) and baseKS (the accelerated sets
+        with `rns_modulus=False`): GINX as in `JaxBackend.supports`. Below
+        2^28 a Q with qKS = 2^35 is the mixed logQ = 11 path, not ported."""
+        p, rg = params.lwe, params.rgsw
+        if (rg.method != Method.GINX or cls._is_gate_set(params)
+                or cls._is_rns_set(params)):
+            return False
+        if not ((1 << 28) <= p.Q < (1 << 54) and rg.N in (256, 512, 1024, 2048)
+                and 2 * p.Q * rg.digits_g2 < (1 << 62) and rg.base_g <= (1 << 27)):
+            return False
+        if p.q_ks < (1 << 31):
+            return True
+        return ((1 << 32) < p.q_ks < (1 << 40) and p.q_ks & (p.q_ks - 1) == 0
+                and p.base_ks & (p.base_ks - 1) == 0)
+
+    @classmethod
+    def _path(cls, params: BinFHEParams) -> str | None:
+        """"gate", "rns" or "two_limb": the slice that runs these
+        parameters; None when none does."""
+        for path, pred in (("gate", cls._is_gate_set), ("rns", cls._is_rns_set),
+                           ("two_limb", cls._is_two_limb_set)):
+            if pred(params):
+                return path
+        return None
+
+    @classmethod
     def supports(cls, params: BinFHEParams) -> bool:
-        return cls._is_gate_set(params) or cls._is_rns_set(params)
+        return cls._path(params) is not None
 
     def setup(self, params: BinFHEParams, key) -> None:
         self._device_key(params, key)
@@ -97,43 +134,58 @@ class TorchBackend:
         """The device key of `key`, cached by the key object (never by the
         current gadget base, which EvalSign switches under it). Raises when
         the key's digit count does not match the current base."""
-        if not self.supports(params):
+        path = self._path(params)
+        if path is None:
             raise NotImplementedError(
-                "TorchBackend runs GINX with either Q < 2^28, qKS < 2^31, "
+                "TorchBackend runs GINX with Q < 2^28, qKS < 2^31, "
                 "(2Q - 1) * d2 < 2^32 and q <= 2^16 (the classic gate sets), "
-                "or Q = q1*q2 with q2 < q1 < 2^28 and a power-of-two qKS in "
-                "(2^32, 2^40) (the accelerated sets); these parameters are "
-                "not ported")
+                "Q = q1*q2 with q2 < q1 < 2^28 and a power-of-two qKS in "
+                "(2^32, 2^40) (the accelerated RNS sets), or one modulus "
+                "2^28 <= Q < 2^54 with qKS < 2^31 or a power-of-two qKS in "
+                "(2^32, 2^40) (the two-limb sets); these parameters are not "
+                "ported")
         if np.shape(key.bsk_coeff)[2] != params.rgsw.digits_g2:
             raise ValueError("the key's digit count does not match the "
                              "current gadget base")
         cache_id = id(key.bsk_coeff)
         if cache_id not in self._device_keys:
-            self._device_keys[cache_id] = device_key(
-                params, key, self.device, rns=self._is_rns_set(params))
+            self._device_keys[cache_id] = device_key(params, key, self.device, path)
         return self._device_keys[cache_id]
+
+    def _rotate(self, params: BinFHEParams, dk, acc: torch.Tensor,
+                a_idx: torch.Tensor) -> torch.Tensor:
+        """The blind rotation of acc [B, 2, N] int64 residues mod Q on the
+        device by the kernel of the key's path -> int64 [B, 2, N]."""
+        rg = params.rgsw
+        throw = rg.num_digits_to_throw
+        if "bsk_rns" in dk:
+            q1, q2 = rg.rns_primes
+            o1, o2 = rotate_rns(*[(acc % qi).to(torch.int32) for qi in (q1, q2)],
+                                a_idx, dk["bsk_rns"], q1, q2, rg.base_g, throw)
+            return crt_combine(o1.to(torch.int64), o2.to(torch.int64), q1, q2)
+        if "bsk64" in dk:
+            return rotate64(acc.contiguous(), a_idx, dk["bsk64"], rg.Q,
+                            rg.base_g, throw)
+        return rotate(acc.to(torch.int32), a_idx, dk["bsk_pack"], rg.Q,
+                      rg.base_g, throw).to(torch.int64)
+
+    def _host_acc(self, params: BinFHEParams, acc_init: np.ndarray,
+                  a_batch: np.ndarray, a_modulus: int):
+        """A host-built accumulator batch (uint64, or Python ints for
+        Q >= 2^31) and its LWE a-vectors -> (acc int64 [B, 2, N], a_idx int32
+        [B, n]) on the device."""
+        acc = np.asarray(acc_init, dtype=np.uint64).astype(np.int64)
+        a = torch.from_numpy(np.asarray(a_batch, dtype=np.uint64).astype(np.int64))
+        return (torch.from_numpy(acc).to(self.device),
+                self._scaled_indices(a.to(self.device), a_modulus, params.rgsw.N))
 
     # -- protocol ----------------------------------------------------------
 
     def eval_acc(self, params: BinFHEParams, key, acc_init: np.ndarray,
                  a_batch: np.ndarray, a_modulus: int) -> np.ndarray:
         dk = self._device_key(params, key)
-        rg = params.rgsw
-        a = torch.from_numpy(np.asarray(a_batch).astype(np.int64))
-        a_idx = self._scaled_indices(a.to(self.device), a_modulus, rg.N)
-        acc = np.asarray(acc_init, dtype=np.uint64)   # object for Q >= 2^31
-        if "bsk_rns" in dk:
-            q1, q2 = rg.rns_primes
-            lanes = [torch.from_numpy((acc % np.uint64(qi)).astype(np.int32))
-                     .to(self.device) for qi in (q1, q2)]
-            o1, o2 = rotate_rns(*lanes, a_idx, dk["bsk_rns"], q1, q2,
-                                rg.base_g, rg.num_digits_to_throw)
-            out = crt_combine(o1.to(torch.int64), o2.to(torch.int64), q1, q2)
-        else:
-            out = rotate(torch.from_numpy(acc.astype(np.int32)).to(self.device),
-                         a_idx, dk["bsk_pack"], rg.Q, rg.base_g,
-                         rg.num_digits_to_throw)
-        return out.cpu().numpy().astype(np.uint64)
+        acc, a_idx = self._host_acc(params, acc_init, a_batch, a_modulus)
+        return self._rotate(params, dk, acc, a_idx).cpu().numpy().astype(np.uint64)
 
     def mkm_switch(self, params: BinFHEParams, key, a_ext: np.ndarray,
                    b_ext: np.ndarray, fmod: int) -> lwe.LWECiphertext:
@@ -144,6 +196,27 @@ class TorchBackend:
         a_out, b_out = mkm_switch(a.to(self.device), b.to(self.device), dk["ksk"],
                                   p.Q, p.q_ks, p.base_ks, p.digit_count_ks,
                                   int(fmod))
+        return lwe.LWECiphertext(a_out.cpu().numpy().astype(np.uint64),
+                                 b_out.cpu().numpy().astype(np.uint64),
+                                 int(fmod))
+
+    def bootstrap_pipeline(self, params: BinFHEParams, key, acc_init: np.ndarray,
+                           a_batch: np.ndarray, a_modulus: int, fmod: int,
+                           add_q8: bool) -> lwe.LWECiphertext:
+        """Bootstrap of a host-built accumulator batch
+        (`JaxBackend.bootstrap_pipeline`, `tfhe_tpu/ops/backend.py:1164-1234`):
+        the rotation, transpose/extract, +Q/8 when `add_q8` and the MKM
+        switch to fmod, on the device from the rotation to the key switch
+        (the reference pays a round trip between EvalAcc_CUDA and
+        MKMSwitch_CUDA, binfhe-base-scheme.cpp:659-675)."""
+        dk = self._device_key(params, key)
+        p, Q = params.lwe, params.rgsw.Q
+        acc, a_idx = self._host_acc(params, acc_init, a_batch, a_modulus)
+        a_t, b = transpose_extract(self._rotate(params, dk, acc, a_idx), Q)
+        if add_q8:
+            b = addmod(b, Q // 8 + 1, Q)
+        a_out, b_out = mkm_switch(a_t, b, dk["ksk"], Q, p.q_ks, p.base_ks,
+                                  p.digit_count_ks, int(fmod))
         return lwe.LWECiphertext(a_out.cpu().numpy().astype(np.uint64),
                                  b_out.cpu().numpy().astype(np.uint64),
                                  int(fmod))
@@ -233,33 +306,22 @@ class TorchBackend:
         half, factor = ct_mod >> 1, 2 * N // ct_mod
         temp = mod(b[:, None] - torch.arange(half, device=a.device), ct_mod)
         vals = torch.gather(gQ, 1, temp) if gQ.ndim == 2 else gQ[temp]  # [B, half]
-        B = a.shape[0]
-        lanes = rg.rns_primes if "bsk_rns" in dk else (Q,)
-        accs = []
-        for qi in lanes:
-            acc = torch.zeros((B, 2, N), dtype=torch.int32, device=a.device)
-            acc[:, 1, ::factor] = (vals % qi).to(torch.int32)
-            accs.append(acc)
-        if "bsk_rns" in dk:
-            q1, q2 = lanes
-            o1, o2 = rotate_rns(*accs, a_idx, dk["bsk_rns"], q1, q2, rg.base_g,
-                                rg.num_digits_to_throw)
-            acc = crt_combine(o1.to(torch.int64), o2.to(torch.int64), q1, q2)
-        else:
-            acc = rotate(accs[0], a_idx, dk["bsk_pack"], Q, rg.base_g,
-                         rg.num_digits_to_throw).to(torch.int64)
-        a_t, b_t = transpose_extract(acc, Q)
+        acc = torch.zeros((a.shape[0], 2, N), dtype=torch.int64, device=a.device)
+        acc[:, 1, ::factor] = vals
+        a_t, b_t = transpose_extract(self._rotate(params, dk, acc, a_idx), Q)
         return mkm_switch(a_t, b_t, dk["ksk"], Q, p.q_ks, p.base_ks,
                           p.digit_count_ks, int(fmod))
 
     def func_bootstrap(self, params: BinFHEParams, key, fv: np.ndarray,
                        ct: lwe.LWECiphertext, fmod: int):
         """Functional bootstrap of a host batch with the test polynomial
-        built on the device from the value table fv; None when the
-        ciphertext modulus does not divide 2N or exceeds 2^16 (the caller
-        then builds the accumulators on the host)."""
+        built on the device from the value table fv; None on the two-limb
+        sets (the JAX package's `_func_path` has no such path for them) and
+        when the ciphertext modulus does not divide 2N or exceeds 2^16 (the
+        caller then builds the accumulators on the host)."""
         ct_mod = int(ct.modulus)
-        if (2 * params.rgsw.N) % ct_mod or ct_mod > (1 << 16):
+        if (self._path(params) == "two_limb"
+                or (2 * params.rgsw.N) % ct_mod or ct_mod > (1 << 16)):
             return None
         dk = self._device_key(params, key)
         a = torch.from_numpy(np.asarray(ct.a, dtype=np.uint64).astype(np.int64))
@@ -274,10 +336,11 @@ class TorchBackend:
 
     def chain_supported(self, params: BinFHEParams, key) -> bool:
         """True when scheme may keep the ciphertext on the device between
-        the bootstraps of EvalFunc/EvalFloor/EvalSign/EvalDecomp. Decided
-        from the parameters alone: the key of another gadget base is
-        converted when its base is current."""
-        return self.supports(params)
+        the bootstraps of EvalFunc/EvalFloor/EvalSign/EvalDecomp: the gate
+        and RNS sets, not the two-limb sets (whose functions take the host
+        route of the JAX package). Decided from the parameters alone: the
+        key of another gadget base is converted when its base is current."""
+        return self._path(params) in ("gate", "rns")
 
     def lwe_upload(self, ct: lwe.LWECiphertext) -> DeviceLWE:
         """Host LWECiphertext batch -> int64 device tensors, values kept."""

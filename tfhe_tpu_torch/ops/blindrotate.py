@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from . import modmath as mm
 from . import ntt
 
 
@@ -63,15 +64,21 @@ def rotate_sub(c: torch.Tensor, m: torch.Tensor, Q: int) -> torch.Tensor:
 
 def external_round(acc: torch.Tensor, digits: torch.Tensor,
                    bsk_r: torch.Tensor, idx_pos: torch.Tensor,
-                   Q: int) -> torch.Tensor:
+                   Q: int, bsk_sh_r: torch.Tensor | None = None) -> torch.Tensor:
     """One CGGI round on residues mod Q: the digits [B, d2, N] of the
     accumulator acc [B, 2, N] to the NTT domain, their product with the
     round's key bsk_r [2(key), 2(out), d2, N] (evaluation domain, bit-reversed
     order), back, times (X^idx_pos - 1) for key 0 and (X^-idx_pos - 1) for
-    key 1, added to acc."""
+    key 1, added to acc. Above 2^31 the products are the 64-bit Shoup
+    products with the key's companions bsk_sh_r; their sum over d2 <= 8
+    terms stays below 2^57."""
     N = acc.shape[-1]
-    dct = ntt.forward(digits, Q)
-    u = (dct[:, None, None] * bsk_r[None]).sum(dim=-2) % Q   # [B,key,out,N]
+    dct = ntt.forward(digits, Q)[:, None, None]
+    if bsk_sh_r is None:
+        prod = dct * bsk_r[None]
+    else:
+        prod = mm.mulmod_shoup64(dct, bsk_r[None], bsk_sh_r[None], Q)
+    u = prod.sum(dim=-2) % Q                                 # [B,key,out,N]
     c = ntt.inverse(u, Q)
     upd = (rotate_sub(c[:, 0], idx_pos, Q)
            + rotate_sub(c[:, 1], (2 * N - idx_pos) % (2 * N), Q))

@@ -1,17 +1,28 @@
 """Modular arithmetic on int64 torch tensors.
 
-Port of `tfhe_tpu/ops/modmath32.py`, and of the two-limb functions that the
-RNS path needs from `tfhe_tpu/ops/modmath64.py` and `tfhe_tpu/ops/backend.py`
-(`round_q_Q64`, `_crt_combine_pair`). The JAX modules build everything from
-exact uint32 primitives because 64-bit multiplies are untrustworthy on the
-TPU; torch's uint32 has no add, sub, shift or compare on the CPU, so these
-plain versions compute in int64 (products of two values < 2^28 stay below
-2^56) and callers convert to int32 bit patterns only at a kernel boundary.
+Port of `tfhe_tpu/ops/modmath32.py` and `tfhe_tpu/ops/modmath64.py` (with
+`_crt_combine_pair` of `tfhe_tpu/ops/backend.py`). The JAX modules build
+everything from exact uint32 primitives because 64-bit multiplies are
+untrustworthy on the TPU; torch's uint32 has no add, sub, shift or compare
+on the CPU, so these plain versions compute in int64 (products of two values
+< 2^28 stay below 2^56) and callers convert to int32 bit patterns only at a
+kernel boundary.
+
+Residues mod a prime Q < 2^54 (the two-limb sets) fit int64 as they are, so
+the 64-bit functions need no (lo, hi) pairs. What does not fit is the
+128-bit product of the Shoup method: `mulhi64` builds its high half from
+32-bit halves, and the low halves are int64 products that wrap modulo 2^64.
+A Shoup companion floor(b * 2^64 / Q) uses all 64 bits, so it travels as
+the int64 view of a u64; its halves are taken with a mask and a masked
+shift, never an arithmetic `>>` alone.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+_M32 = 0xFFFFFFFF
 
 
 def addmod(a, b, Q: int):
@@ -66,3 +77,56 @@ def crt_combine(r1, r2, q1: int, q2: int):
     the int64 residue mod q1*q2: r2 + q2 * ((r1 - r2) * q2^-1 mod q1)."""
     t = (r1 - r2) % q1 * pow(q2, -1, q1) % q1
     return r2 + q2 * t
+
+
+def shoup64(b: np.ndarray, Q: int) -> np.ndarray:
+    """Shoup companions floor(b * 2^64 / Q) of residues b < Q < 2^54, exact,
+    on the host (`modmath64.shoup64`): b << 64 does not fit a u64, so the
+    quotient is built by long division in steps of at most 10 bits, where
+    every remainder shifted left stays below 2^64. Returns the int64 view of
+    the u64 companions."""
+    if not 2 <= Q < (1 << 54):
+        raise ValueError(f"shoup64 needs Q < 2^54, got {Q}")
+    uq = np.uint64(Q)
+    x = np.asarray(b, dtype=np.uint64) % uq
+    quot = np.zeros_like(x)
+    for step in (10, 10, 10, 10, 10, 10, 4):
+        x = x << np.uint64(step)
+        digit = x // uq
+        quot = (quot << np.uint64(step)) + digit
+        x -= digit * uq
+    return quot.view(np.int64)
+
+
+def mulhi64(a, b):
+    """High 64 bits of the 128-bit product of u64 values a, b held as int64
+    bit patterns (either may be a Python int < 2^64), as an int64 bit
+    pattern. From the four products of 32-bit halves: each is below 2^64,
+    so its int64 product has the right bits, and the column sums are exact
+    modulo 2^64."""
+    a0, a1 = a & _M32, (a >> 32) & _M32
+    b0, b1 = b & _M32, (b >> 32) & _M32
+    p01, p10 = a0 * b1, a1 * b0
+    mid = ((a0 * b0 >> 32) & _M32) + (p01 & _M32) + (p10 & _M32)   # < 3 * 2^32
+    return a1 * b1 + ((p01 >> 32) & _M32) + ((p10 >> 32) & _M32) + (mid >> 32)
+
+
+def mulmod_shoup64_lazy(a, w, w_sh, Q: int):
+    """a * w mod Q + {0, Q} for any u64 a (int64 bits), w < Q < 2^62 and its
+    companion w_sh = floor(w * 2^64 / Q): q_hat = hi64(a * w_sh), then
+    a * w - q_hat * Q, whose true value lies in [0, 2Q), computed in int64
+    arithmetic that wraps modulo 2^64 (`pallas_rotate64._mulmod_shoup64_lazy`)."""
+    return a * w - mulhi64(a, w_sh) * Q
+
+
+def mulmod_shoup64(a, w, w_sh, Q: int):
+    """a * w mod Q in [0, Q) (`modmath64.mulmod_shoup64`)."""
+    r = mulmod_shoup64_lazy(a, w, w_sh, Q)
+    return torch.where(r >= Q, r - Q, r)
+
+
+def shoup64_values(w_sh, Q: int):
+    """The values w < Q rebuilt from their companions w_sh (int64 bits):
+    w * 2^64 = w_sh * Q + (w * 2^64 mod Q), so w = hi64(w_sh * Q) plus one
+    unless lo64(w_sh * Q) is 0 (`pallas_rotate64.py:182-191`)."""
+    return mulhi64(w_sh, Q) + ((w_sh * Q) != 0).to(torch.int64)

@@ -9,8 +9,11 @@ the one the packed bootstrapping keys are stored in
 (`rotate_kernel.pack_bsk`, `rotate_rns_kernel.pack_bsk_rns`), and the hand
 kernels read the same `tables`.
 
-Values are int64 residues mod Q on the last axis; every product of two
-residues < 2^28 is exact in int64.
+Values are int64 residues mod Q on the last axis. Below 2^31 a product of
+two residues is exact in int64 and reduced with `%`; for Q up to 2^54 (the
+two-limb sets, the counterpart of `tfhe_tpu/ops/ntt64.py`) every product is
+the exact 64-bit Shoup product of `modmath.mulmod_shoup64`, with the
+twiddles' companions from `modmath.shoup64`.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from . import modmath as mm
 from .ntt_sched import schedule
 
 
@@ -42,20 +46,33 @@ def tables(N: int, Q: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _tables_on(N: int, Q: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(tables(N, Q).astype(np.int64)).to(device)
+def tables_on(N: int, Q: int, device: str) -> torch.Tensor:
+    """int64 [8, N] on `device`: the four rows of `tables`, then their
+    64-bit Shoup companions (`modmath.shoup64`, the int64 view of u64).
+    The 64-bit kernel (`rotate64_kernel`) reads this block as it is."""
+    tab = tables(N, Q)
+    both = np.concatenate([tab.astype(np.int64), mm.shoup64(tab, Q)])
+    return torch.from_numpy(both).to(device)
+
+
+def _mul(x: torch.Tensor, t: torch.Tensor, row: int, cols: slice, Q: int) -> torch.Tensor:
+    """x * tables[row, cols] mod Q, exactly (t from `tables_on`)."""
+    if Q < (1 << 31):
+        return x * t[row, cols] % Q
+    return mm.mulmod_shoup64(x, t[row, cols], t[4 + row, cols], Q)
 
 
 def forward(x: torch.Tensor, Q: int) -> torch.Tensor:
     """Coefficients [..., N] -> evaluation values in bit-reversed order."""
     shape, N = x.shape, x.shape[-1]
-    tw = _tables_on(N, Q, str(x.device))
-    x = x * tw[0] % Q
+    t = tables_on(N, Q, str(x.device))
+    x = _mul(x, t, 0, slice(None), Q)
     h = N // 2
     while h >= 1:
         y = x.reshape(*shape[:-1], N // (2 * h), 2, h)
         a, b = y[..., 0, :], y[..., 1, :]
-        x = torch.stack([(a + b) % Q, (a - b) % Q * tw[1, h:2 * h] % Q],
+        x = torch.stack([(a + b) % Q,
+                         _mul((a - b) % Q, t, 1, slice(h, 2 * h), Q)],
                         dim=-2).reshape(shape)
         h //= 2
     return x
@@ -64,12 +81,12 @@ def forward(x: torch.Tensor, Q: int) -> torch.Tensor:
 def inverse(x: torch.Tensor, Q: int) -> torch.Tensor:
     """Evaluation values in bit-reversed order [..., N] -> coefficients."""
     shape, N = x.shape, x.shape[-1]
-    tw = _tables_on(N, Q, str(x.device))
+    t = tables_on(N, Q, str(x.device))
     h = 1
     while h < N:
         y = x.reshape(*shape[:-1], N // (2 * h), 2, h)
         a = y[..., 0, :]
-        t = y[..., 1, :] * tw[2, h:2 * h] % Q
-        x = torch.stack([(a + t) % Q, (a - t) % Q], dim=-2).reshape(shape)
+        c = _mul(y[..., 1, :], t, 2, slice(h, 2 * h), Q)
+        x = torch.stack([(a + c) % Q, (a - c) % Q], dim=-2).reshape(shape)
         h *= 2
-    return x * tw[3] % Q
+    return _mul(x, t, 3, slice(None), Q)
