@@ -43,6 +43,10 @@ LWE_N_ACC = 1305           # rounds of the accelerated sets' rotation
 ROWS = list(range(128))     # rows held to the plain version at a main path's batch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 INT32_LANES_PER_SM = 64     # 32-bit integer multiply lanes per SM per clock
+# blind_rotate_rns at B = 4096, n = 1305, d2 = 4 in its earlier design (the
+# two lanes one after the other, every NTT stage through shared memory), on
+# an NVIDIA H100 80GB HBM3 at 700 W, by this script
+EARLIER_RNS_MS = 1925.602
 
 
 def check(cond: bool, msg: str) -> None:
@@ -175,43 +179,50 @@ def gate_kernel_vs_plain(rng, Q: int, peak: float) -> dict:
 
 
 def rns_kernel_vs_plain(rng, q1: int, q2: int, peak: float) -> dict:
-    """blind_rotate_rns against its plain version on the card at N = 2048 and
-    the accelerated sets' q1, q2, throw = 1, with tolerance 0 (torch.equal),
-    each case timed: d2 = 4 (base 2^18, EvalSign/EvalDecomp) and d2 = 2
-    (base 2^27, EvalFunc) at B = 64 over 16 rounds and at B = 256 over all
-    1305 rounds, then the main path's B = FUNC_BATCH, n = 1305 at d2 = 4.
-    The key holds valid Shoup companions of random values < qi."""
+    """blind_rotate_rns against its plain version on the card at the
+    accelerated sets' q1, q2, with tolerance 0 (torch.equal), each case
+    timed: at N = 2048 and throw = 1, d2 = 4 (base 2^18, EvalSign/EvalDecomp)
+    and d2 = 2 (base 2^27, EvalFunc) at B = 64 over 16 rounds and at B = 256
+    over all 1305 rounds; then every ring size and digit count the kernel
+    takes at a small odd batch (B = 5, the ragged edge of a batch) over 8
+    rounds with throw = 0: N in {256, 512, 1024, 2048}, d2 in {2, 6, 8};
+    then the main path's B = FUNC_BATCH, n = 1305 at d2 = 4, which is
+    returned and set beside EARLIER_RNS_MS. In every case rows 0, 1 and 2
+    of the exponents hold 0, N and 2N - 1 in all rounds. The key holds
+    valid Shoup companions of random values < qi."""
     import numpy as np
     import torch
 
     from tfhe_tpu_torch.ops import blindrotate_rns, rotate_rns_kernel
 
-    N = 2048
     worst = 0
 
-    def compare(B, n, d2):
+    def compare(B, n, d2, N=2048, throw=1):
         nonlocal worst
         t0 = time.time()
-        base_g = 1 << 18 if d2 == 4 else 1 << 27
+        base_g = {2: 1 << 27, 4: 1 << 18, 6: 1 << 9, 8: 1 << 7}[d2]
         acc = [torch.from_numpy(rng.integers(0, qi, (B, 2, N)).astype(np.int32)).cuda()
                for qi in (q1, q2)]
-        a_idx = torch.from_numpy(rng.integers(0, 2 * N, (B, n)).astype(np.int32)).cuda()
+        a_np = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
+        a_np[:3] = np.array([0, N, 2 * N - 1], dtype=np.int32)[:, None]
+        a_idx = torch.from_numpy(a_np).cuda()
         key = torch.empty((n, 8 * d2, N), dtype=torch.int64, device="cuda")
         for lane, qi in enumerate((q1, q2)):
             rows = slice(lane * 4 * d2, (lane + 1) * 4 * d2)
             key[:, rows] = (torch.randint(0, qi, (n, 4 * d2, N), device="cuda") << 32) // qi
         key = torch.where(key >= 1 << 31, key - (1 << 32), key).to(torch.int32)
-        kernel = lambda: rotate_rns_kernel.rotate_rns(*acc, a_idx, key, q1, q2, base_g, 1)  # noqa: E731
-        plain = lambda: blindrotate_rns.blind_rotate_rns(*acc, a_idx, key, q1, q2, base_g, 1)  # noqa: E731
+        kernel = lambda: rotate_rns_kernel.rotate_rns(*acc, a_idx, key, q1, q2, base_g, throw)  # noqa: E731
+        plain = lambda: blindrotate_rns.blind_rotate_rns(*acc, a_idx, key, q1, q2, base_g, throw)  # noqa: E731
         got = kernel()
         want, plain_ms = timed_once(plain)
         err = max(max_err(g, w) for g, w in zip(got, want))
         worst = max(worst, err)
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"blind_rotate_rns != plain at B={B}, n={n}, d2={d2} (max abs err {err})")
+              f"blind_rotate_rns != plain at N={N}, B={B}, n={n}, d2={d2}, throw={throw} "
+              f"(max abs err {err})")
         ms = cuda_ms(kernel, reps=2)
         b_ms, b_by = bound(B, n, N, d2, 2, peak)
-        log(f"blind_rotate_rns == plain at N={N} d2={d2} throw=1 B={B} n={n} "
+        log(f"blind_rotate_rns == plain at N={N} d2={d2} throw={throw} B={B} n={n} "
             f"(torch.equal, tolerance 0): max_abs_err {err}; kernel {ms:.3f} ms, "
             f"plain torch {plain_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}, "
             f"kernel at {100 * b_ms / ms:.1f}% of it ({time.time() - t0:.1f} s)")
@@ -220,7 +231,15 @@ def rns_kernel_vs_plain(rng, q1: int, q2: int, peak: float) -> dict:
     for d2 in (4, 2):
         compare(64, 16, d2)
         compare(256, LWE_N_ACC, d2)
+    for N in (256, 512, 1024, 2048):
+        for d2 in (2, 6, 8):
+            compare(5, 8, d2, N, throw=0)
     timing = compare(FUNC_BATCH, LWE_N_ACC, 4)
+    log(f"blind_rotate_rns at B={FUNC_BATCH} n={LWE_N_ACC} d2=4: {timing['ms']:.3f} ms, "
+        f"{100 * timing['bound_ms'] / timing['ms']:.1f}% of its bound; the earlier design "
+        f"(lanes one after the other, every NTT stage through shared memory) took "
+        f"{EARLIER_RNS_MS} ms ({100 * timing['bound_ms'] / EARLIER_RNS_MS:.1f}%) on an "
+        f"NVIDIA H100 80GB HBM3 at 700 W: {EARLIER_RNS_MS / timing['ms']:.2f}x")
     return {"max_abs_err": worst, **timing}
 
 

@@ -3,6 +3,7 @@
 the key switch's row sums against one alternative.
 
     python3 scripts/torch_profile_rns.py [--ks-only [--gate]] [--batch B]
+    python3 scripts/torch_profile_rns.py --kernel-only [--ncu]
 
 Without `--ks-only`: host keygen of the STD128 accelerated sign context
 (logQ 17, time optimization with bases {2^18, 2^27}, numDigitsToThrow 1),
@@ -23,7 +24,18 @@ B two ways with CUDA events: the port's `keyswitch.row_sums`
 partial sum is an integer below 2^53), and the rows gathered from an
 integer copy of the table (int32 at the gate shape, int64 above), then
 summed, in 256 MB chunks of rows. Prints one JSON line with both times and
-whether the sums agree. Imports no jax.
+whether the sums agree.
+
+With `--kernel-only` (about a minute): builds `csrc/blind_rotate_rns.cu`,
+prints what ptxas says of its registers and spills, holds the kernel to its
+plain version (`torch.equal`) at B = 64, n = 16 for d2 = 2 and 4 (N = 2048,
+the accelerated primes, throw 1), then times it with CUDA events at B = 256
+and at B = 4096, n = 1305, d2 = 4 on a key of valid Shoup companions of
+random values, without keygen, against the bound `chip_smoke.py` computes.
+Prints one JSON line. With `--ncu`, when the toolkit has `ncu`, profiles
+the B = 256 launch (occupancy, shared-memory bank conflicts, warp stall
+reasons) into `chiprun_out/ncu_rns.txt`, and says so when it has none.
+Imports no jax.
 """
 
 from __future__ import annotations
@@ -152,8 +164,97 @@ def ks_compare(params, table: torch.Tensor, B: int, card: str) -> None:
         raise SystemExit("the two row sums differ")
 
 
+def rns_inputs(B: int, n: int, d2: int, q1: int, q2: int, N: int = 2048, seed: int = 5):
+    """Accumulators of residues, exponents and a key of valid Shoup
+    companions of random values (pack_bsk_rns's layout), on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    acc = [torch.randint(0, qi, (B, 2, N), device="cuda", generator=g).to(torch.int32)
+           for qi in (q1, q2)]
+    a_idx = torch.randint(0, 2 * N, (B, n), device="cuda", generator=g).to(torch.int32)
+    key = torch.empty((n, 8 * d2, N), dtype=torch.int64, device="cuda")
+    for lane, qi in enumerate((q1, q2)):
+        rows = slice(lane * 4 * d2, (lane + 1) * 4 * d2)
+        key[:, rows] = (torch.randint(0, qi, (n, 4 * d2, N), device="cuda",
+                                      generator=g) << 32) // qi
+    key = torch.where(key >= 1 << 31, key - (1 << 32), key).to(torch.int32)
+    return acc, a_idx, key
+
+
+def kernel_only(card: str, ncu: bool) -> None:
+    """Build, check and time blind_rotate_rns alone (see the module doc)."""
+    import shutil
+
+    import chip_smoke
+    from tfhe_tpu_torch.ops import _build, blindrotate_rns, rotate_rns_kernel
+
+    t0 = time.time()
+    _build.build(("blind_rotate_rns",))
+    ptxas = [ln.strip() for ln in _build.LOGS.get("blind_rotate_rns", "").splitlines()
+             if "registers" in ln or "spill" in ln]
+    for ln in ptxas:
+        print(f"ptxas: {ln}", flush=True)
+    build_s = time.time() - t0
+    q1, q2 = from_gpu_style(ParamSet.STD128, True, 12).rgsw.rns_primes
+    peak = chip_smoke.int32_peak_per_s()
+    rec = {"phase": "rns_kernel", "card": card, "build_s": build_s, "ptxas": ptxas}
+    for d2 in (2, 4):
+        base_g = 1 << 18 if d2 == 4 else 1 << 27
+        acc, a_idx, key = rns_inputs(64, 16, d2, q1, q2)
+        got = rotate_rns_kernel.rotate_rns(*acc, a_idx, key, q1, q2, base_g, 1)
+        want = blindrotate_rns.blind_rotate_rns(*acc, a_idx, key, q1, q2, base_g, 1)
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        rec[f"equal_B64_n16_d2_{d2}"] = ok
+        print(f"blind_rotate_rns == plain at B=64 n=16 d2={d2}: {ok}", flush=True)
+        if not ok:
+            print(json.dumps(rec), flush=True)
+            raise SystemExit("the kernel differs from its plain version")
+    for B in (256, 4096):
+        acc, a_idx, key = rns_inputs(B, 1305, 4, q1, q2)
+        run = lambda: rotate_rns_kernel.rotate_rns(*acc, a_idx, key, q1, q2, 1 << 18, 1)  # noqa: E731
+        run()
+        ms = cuda_ms(run, 2)
+        b_ms, b_by = chip_smoke.bound(B, 1305, 2048, 4, 2, peak)
+        rec[f"B{B}"] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms}
+        print(f"blind_rotate_rns B={B} n=1305 d2=4: {ms:.3f} ms, bound {b_ms:.3f} ms "
+              f"by {b_by}, {100 * b_ms / ms:.1f}% of it on {card}", flush=True)
+    if ncu:
+        tool = shutil.which("ncu") or ("/usr/local/cuda/bin/ncu"
+                                       if os.path.exists("/usr/local/cuda/bin/ncu") else None)
+        rec["ncu"] = tool
+        if tool is None:
+            print("ncu: the toolkit has none", flush=True)
+        else:
+            cmd = [tool, "--section", "Occupancy", "--section", "WarpStateStats",
+                   "--section", "MemoryWorkloadAnalysis_Tables", "-k",
+                   "regex:blind_rotate_rns", "-c", "1", sys.executable,
+                   os.path.abspath(__file__), "--ncu-child"]
+            try:
+                res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+                text = res.stdout + res.stderr
+                rec["ncu_rc"] = res.returncode
+            except subprocess.TimeoutExpired:
+                text, rec["ncu_rc"] = "ncu timed out after 300 s", None
+            with open(os.path.join(OUT, "ncu_rns.txt"), "w") as f:
+                f.write(f"{card}\n{' '.join(cmd)}\n{text}")
+            print(f"ncu rc {rec['ncu_rc']}; output in {OUT}/ncu_rns.txt", flush=True)
+    print(json.dumps(rec), flush=True)
+
+
+def ncu_child() -> None:
+    """One B = 256 launch for ncu to profile."""
+    from tfhe_tpu_torch.ops import rotate_rns_kernel
+
+    q1, q2 = from_gpu_style(ParamSet.STD128, True, 12).rgsw.rns_primes
+    acc, a_idx, key = rns_inputs(256, 1305, 4, q1, q2)
+    rotate_rns_kernel.rotate_rns(*acc, a_idx, key, q1, q2, 1 << 18, 1)
+    torch.cuda.synchronize()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel-only", action="store_true")
+    ap.add_argument("--ncu", action="store_true")
+    ap.add_argument("--ncu-child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--ks-only", action="store_true")
     ap.add_argument("--gate", action="store_true")
     ap.add_argument("--batch", type=int, default=4096)
@@ -165,6 +266,10 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     os.makedirs(OUT, exist_ok=True)
+    if args.ncu_child:
+        return ncu_child()
+    if args.kernel_only:
+        return kernel_only(card, args.ncu)
     if args.ks_only:
         params = (from_param_set(ParamSet.STD128) if args.gate else
                   from_gpu_style(ParamSet.STD128, False, 17, num_digits_to_throw=1))

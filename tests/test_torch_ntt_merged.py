@@ -1,0 +1,311 @@
+"""The RNS kernel's register NTT and round, emulated in torch on the CPU.
+
+`csrc/blind_rotate_rns.cu` (with `csrc/register_ntt.cuh`) runs only on the
+card. This file repeats what its threads do, with its u32 lazy arithmetic,
+its thread ownership and its swizzled shared-memory exchanges, and reads
+the tables the wrapper uploads (`rotate_rns_kernel._twiddles`). The merged-
+twiddle forward and inverse must equal `ops.ntt.forward` and `ops.ntt.inverse`
+exactly, and a whole emulated rotation must equal the plain version
+(`blindrotate_rns.blind_rotate_rns`, itself held to the Pallas kernel in
+tests/test_torch_rns.py)."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from tfhe_tpu_torch.ops import _build, blindrotate_rns, ntt, rotate_rns_kernel
+
+Q1, Q2 = 134176769, 134111233          # the accelerated sets' primes (N = 2048)
+M32 = (1 << 32) - 1
+
+
+def umulhi(a, b):
+    """High word of the 64-bit product of two u32 tensors held in int64."""
+    ah, al = a >> 16, a & 0xFFFF
+    return (ah * b + ((al * b) >> 16)) >> 16
+
+
+def mulmod_lazy(a, w, w_sh, q):
+    return (a * w - umulhi(a, w_sh) * q) & M32
+
+
+def csub(x, c):
+    """min(x, x - c) in u32, as the kernel computes it."""
+    return torch.minimum(x, (x - c) & M32)
+
+
+def groups(logn):
+    """(C, top, lo) of each register group (register_ntt.cuh: Group)."""
+    out = []
+    for g in range((logn + 2) // 3):
+        top = logn - 1 - 3 * g
+        C = max(top, 2)
+        out.append((C, top, C - 2))
+    return out
+
+
+def owned(C, TG):
+    """[TG, 8] index j of register k of thread t in the group with top
+    register bit C."""
+    t = torch.arange(TG)[:, None]
+    k = torch.arange(8)[None, :]
+    return ((t >> (C - 2)) << (C + 1)) | (k << (C - 2)) | (t & ((1 << (C - 2)) - 1))
+
+
+def pmask(b):
+    return ((b << 2) & 28) ^ ((b >> 1) & 3)
+
+
+def swz(j):
+    return j ^ pmask((j >> 5) & 7) ^ pmask((j >> 8) & 7)
+
+
+def tables(N, lane):
+    """The lane's rows of the uploaded table as u32 in int64: fwd, fwd',
+    inv, inv'."""
+    tw = rotate_rns_kernel._twiddles(N, Q1, Q2, "cpu")
+    return [row.to(torch.int64) & M32 for row in tw[lane]]
+
+
+def twiddle_index(N, base, hi, b):
+    """Table entry of the stage of bit b for the pairs whose registers
+    above the stage's bit are `hi`; base = the thread's register 0 index."""
+    return (N | base | (hi << (b + 1))) >> (b + 1)
+
+
+def exchange(regs, N, c_from, c_to):
+    """Registers [..., TG, 8] of group c_from through a swizzled buffer
+    into those of group c_to."""
+    TG = N // 8
+    buf = torch.full(regs.shape[:-2] + (N,), -1, dtype=torch.int64)
+    buf[..., swz(owned(c_from, TG)).reshape(-1)] = regs.reshape(*regs.shape[:-2], -1)
+    assert (buf >= 0).all()
+    return buf[..., swz(owned(c_to, TG))]
+
+
+def forward_regs(x, q, fw, fws):
+    """Natural-order coefficients [..., N] (< 4q) -> the last group's
+    registers [..., TG, 8]: point 8t + k, values < 4q."""
+    N = x.shape[-1]
+    logn = N.bit_length() - 1
+    grp = groups(logn)
+    regs = x[..., owned(grp[0][0], N // 8)]
+    for g, (C, top, lo) in enumerate(grp):
+        if g:
+            regs = exchange(regs, N, grp[g - 1][0], C)
+        j = owned(C, N // 8)
+        for b in range(top, lo - 1, -1):
+            r = b - lo
+            for k in range(8):
+                if k >> r & 1:
+                    continue
+                k2 = k | 1 << r
+                assert torch.equal(j[:, k2], j[:, k] + (1 << b))
+                idx = twiddle_index(N, j[:, 0], k >> (r + 1), b)
+                assert torch.equal(idx, (N | j[:, k]) >> (b + 1))
+                u = csub(regs[..., k], 2 * q)
+                v = mulmod_lazy(regs[..., k2], fw[idx], fws[idx], q)
+                regs[..., k], regs[..., k2] = u + v, u + 2 * q - v
+        assert (regs < 4 * q).all()
+    return regs
+
+
+def inverse_regs(regs, q, iw, iws):
+    """The last group's registers [..., TG, 8] (< 2q) -> group 0's:
+    coefficient t + k N/8, values < 2q."""
+    N = regs.shape[-2] * 8
+    logn = N.bit_length() - 1
+    grp = groups(logn)
+    for g in range(len(grp) - 1, -1, -1):
+        C, top, lo = grp[g]
+        if g < len(grp) - 1:
+            regs = exchange(regs, N, grp[g + 1][0], C)
+        j = owned(C, N // 8)
+        for b in range(lo, top + 1):
+            r = b - lo
+            for k in range(8):
+                if k >> r & 1:
+                    continue
+                k2 = k | 1 << r
+                idx = twiddle_index(N, j[:, 0], k >> (r + 1), b)
+                u, v = regs[..., k].clone(), regs[..., k2].clone()
+                if b == logn - 1:
+                    regs[..., k] = mulmod_lazy(u + v, iw[0], iws[0], q)
+                else:
+                    regs[..., k] = csub(u + v, 2 * q)
+                regs[..., k2] = mulmod_lazy(u + 2 * q - v, iw[idx], iws[idx], q)
+        assert (regs < 2 * q).all()
+    return regs
+
+
+def scatter(regs, C):
+    """Registers [..., TG, 8] of group C -> [..., N] in index order."""
+    TG = regs.shape[-2]
+    out = torch.empty(regs.shape[:-2] + (8 * TG,), dtype=torch.int64)
+    out[..., owned(C, TG).reshape(-1)] = regs.reshape(*regs.shape[:-2], -1)
+    return out
+
+
+@pytest.mark.parametrize("lane", [0, 1])
+@pytest.mark.parametrize("N", [256, 512, 1024, 2048])
+def test_merged_forward_and_inverse_equal_ntt(N, lane):
+    q = (Q1, Q2)[lane]
+    fw, fws, iw, iws = tables(N, lane)
+    rng = np.random.default_rng(N + lane)
+    x = torch.from_numpy(rng.integers(0, q, (3, N)))
+    x[0, :4] = torch.tensor([0, q - 1, 1, q // 2])
+    got = scatter(forward_regs(x.clone(), q, fw, fws), 2) % q
+    assert torch.equal(got, ntt.forward(x, q))
+    # the forward also takes lazy inputs below 4q
+    lazy = x + q * torch.from_numpy(rng.integers(0, 4, (3, N)))
+    lazy = torch.where(lazy < 4 * q, lazy, x)
+    assert torch.equal(scatter(forward_regs(lazy, q, fw, fws), 2) % q, got)
+
+    y = torch.from_numpy(rng.integers(0, q, (3, N)))
+    y_lazy = y + q * torch.from_numpy(rng.integers(0, 2, (3, N)))   # < 2q
+    regs = y_lazy[..., owned(2, N // 8)]
+    got = csub(scatter(inverse_regs(regs, q, iw, iws), groups(N.bit_length() - 1)[0][0]), q)
+    assert torch.equal(got, ntt.inverse(y, q))
+
+
+@pytest.mark.parametrize("N", [256, 512, 1024, 2048])
+def test_register_exchanges_are_conflict_free_bijections(N):
+    """Every group's layout covers each index once, every warp's access to a
+    swizzled buffer hits 32 banks, and a block-wide barrier is needed only
+    where a group with C > 7 takes part."""
+    TG = N // 8
+    phys = swz(torch.arange(N))
+    assert torch.equal(phys.sort().values, torch.arange(N))
+    grp = groups(N.bit_length() - 1)
+    for C, _, _ in grp:
+        j = owned(C, TG)
+        assert torch.equal(j.reshape(-1).sort().values, torch.arange(N))
+        for w in range(0, TG, 32):
+            for k in range(8):
+                assert len(set((swz(j[w:w + 32, k]) % 32).tolist())) == 32
+    for (c_a, _, _), (c_b, _, _) in zip(grp, grp[1:]):
+        ja, jb = owned(c_a, TG), owned(c_b, TG)
+        warp_of = torch.empty(N, dtype=torch.int64)
+        warp_of[ja.reshape(-1)] = (torch.arange(TG)[:, None] // 32).expand(TG, 8).reshape(-1)
+        same_warp = torch.equal(warp_of[jb], (torch.arange(TG)[:, None] // 32).expand(TG, 8))
+        assert same_warp == (max(c_a, c_b) <= 7)
+
+
+def extract(d, g_bits):
+    base = 1 << g_bits
+    r = d & (base - 1)
+    r = torch.where(r >= base >> 1, r - base, r)
+    return r, (d - r) >> g_bits
+
+
+def emulate_rotation(acc1, acc2, a_idx, key, q1, q2, base_g, throw):
+    """What every block of the kernel computes, for all blocks at once:
+    acc [B, 2, N], a_idx [B, n], key [n, 8 d2, N] int32 as from pack_bsk_rns;
+    q1, q2 are Q1, Q2 (the tables')."""
+    B, _, N = acc1.shape
+    n, rows, _ = key.shape
+    d2, TG, g_bits = rows // 8, N // 8, base_g.bit_length() - 1
+    digits = d2 // 2
+    grp = groups(N.bit_length() - 1)
+    c12 = pow(q2, -1, q1)
+    c12_sh = (c12 << 32) // q1
+    Q = q1 * q2
+    acc = [acc1.to(torch.int64), acc2.to(torch.int64)]
+    key = key.to(torch.int64) & M32
+    pos0 = owned(grp[0][0], TG)                  # coefficient t + k N/8
+    for r in range(n):
+        r1, r2 = acc[0][..., pos0], acc[1][..., pos0]   # [B, 2, TG, 8]
+        diff = torch.where(r1 >= r2, r1 - r2, r1 + q1 - r2)
+        c = csub(mulmod_lazy(diff, c12, c12_sh, q1), q1)
+        xv = r2 + q2 * c
+        d = torch.where(xv >= Q >> 1, xv - Q, xv)
+        for _ in range(throw):
+            _, d = extract(d, g_bits)
+        digs = []
+        for _ in range(digits):
+            rr, d = extract(d, g_bits)
+            digs.append(rr)
+        new = []
+        for lane, q in enumerate((q1, q2)):
+            fw, fws, iw, iws = tables(N, lane)
+            red_sh = int(fws[0])
+            u = None
+            for l in range(digits):
+                dig = torch.where(digs[l] < 0, digs[l] + q, digs[l])
+                x = forward_regs(scatter(dig, grp[0][0]), q, fw, fws)   # [B, 2, TG, 8]
+                pts = torch.arange(TG)[:, None] * 8 + torch.arange(8)[None, :]
+                ks = key[r, lane * 4 * d2:(lane + 1) * 4 * d2][:, pts]   # [4 d2, TG, 8]
+                ks = ks.reshape(4, d2, TG, 8)
+                s0, s1 = ks[:, 2 * l], ks[:, 2 * l + 1]
+                v0, v1 = umulhi(s0 + 1, q), umulhi(s1 + 1, q)
+                p = (mulmod_lazy(x[:, None, 0], v0, s0, q)
+                     + mulmod_lazy(x[:, None, 1], v1, s1, q))        # [B, 4, TG, 8]
+                u = p if u is None else u + p
+                assert (u < 1 << 32).all()
+            u = u - umulhi(u, red_sh) * q
+            u = csub(inverse_regs(u, q, iw, iws), q)                   # [B, 4, TG, 8]
+            out = scatter(u, grp[0][0])                                # [B, 4, N]
+            j = pos0
+            m_pos = a_idx[:, r].to(torch.int64)[:, None, None]
+            m_neg = (2 * N - m_pos) & (2 * N - 1)
+            a = acc[lane][..., pos0]
+            for o in range(2):
+                r0 = (j - m_pos) & (2 * N - 1)
+                r1_ = (j - m_neg) & (2 * N - 1)
+                c0 = torch.gather(out[:, o], 1, (r0 & (N - 1)).reshape(B, -1)).reshape(B, TG, 8)
+                c1 = torch.gather(out[:, 2 + o], 1, (r1_ & (N - 1)).reshape(B, -1)).reshape(B, TG, 8)
+                v0 = torch.where(r0 < N, c0, q - c0)
+                v1 = torch.where(r1_ < N, c1, q - c1)
+                s = a[:, o] + v0 + (q - u[:, o]) + v1 + (q - u[:, 2 + o])
+                assert (s < 5 * q).all()
+                a[:, o] = csub(csub(csub(s, 4 * q), 2 * q), q)
+            new.append(scatter(a, grp[0][0]))
+        acc = new
+    return acc[0].to(torch.int32), acc[1].to(torch.int32)
+
+
+@pytest.mark.parametrize("N,d2,throw,base_log", [(256, 4, 1, 18), (512, 2, 1, 27),
+                                                  (256, 6, 0, 9), (1024, 8, 0, 7)])
+def test_emulated_kernel_round_equals_plain(N, d2, throw, base_log):
+    q1, q2 = Q1, Q2
+    B, n = 3, 2
+    rng = np.random.default_rng(N + d2)
+    acc = [torch.from_numpy(rng.integers(0, qi, (B, 2, N)).astype(np.int32)) for qi in (q1, q2)]
+    a_idx = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
+    a_idx[0] = [0, 2 * N - 1]
+    a_idx[1] = [N, 1]
+    a_idx = torch.from_numpy(a_idx)
+    bsk = rng.integers(0, q1 * q2, (n, 2, d2, 2, N)).astype(np.uint64)
+    key = rotate_rns_kernel.pack_bsk_rns(bsk, q1, q2)
+    want = blindrotate_rns.blind_rotate_rns(*acc, a_idx, key, q1, q2, 1 << base_log, throw)
+    got = emulate_rotation(*acc, a_idx, key, q1, q2, 1 << base_log, throw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("q", [Q1, Q2])
+def test_key_values_from_companions(q):
+    """The kernel rebuilds a key value as hi32((b' + 1) q), the plain
+    version as hi32(b' q) + (lo32(b' q) != 0): equal for every companion
+    b' = floor(b 2^32 / q) of a value b < q."""
+    b = torch.from_numpy(np.random.default_rng(q).integers(0, q, 1 << 16))
+    b = torch.cat([b, torch.tensor([0, 1, q - 2, q - 1])])
+    sh = (b << 32) // q
+    key = torch.where(sh < 1 << 31, sh, sh - (1 << 32)).to(torch.int32)
+    key = key.expand(1, 8, -1).contiguous()          # one round, d2 = 1
+    plain = blindrotate_rns.key_values(key, q, q)[0].reshape(4, -1)[0]
+    assert torch.equal(plain, b)
+    assert torch.equal(umulhi(sh + 1, q), b)
+
+
+def test_build_hash_covers_headers(tmp_path, monkeypatch):
+    """A library's name changes with any header in csrc/, so an edit to a
+    shared header never loads a stale build."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
+    first = _build._lib_path("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._lib_path("k") != first
+    assert os.path.basename(first).startswith("k-")

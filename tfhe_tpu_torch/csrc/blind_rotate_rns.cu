@@ -7,61 +7,92 @@
 // it computes, bit for bit. Each of n rounds: Garner CRT of the two lanes
 // gives the value mod Q, centred (x >= Q/2 is negative) in a native int64;
 // numDigitsToThrow balanced base-G digits are dropped and the next ones are
-// mapped into each lane. Per lane, as in blind_rotate.cu: the forward
-// negacyclic NTT of each digit, the lazy external product with the round's
-// +s and -s RGSW keys, one reduction, the inverse NTT, the (X^a - 1) and
-// (X^-a - 1) monomials and the accumulation. Every step is exact modular
-// arithmetic, so the result equals the plain torch version
-// (tfhe_tpu_torch/ops/blindrotate_rns.py) and the JAX package exactly.
+// mapped into each lane. Per lane: the forward negacyclic NTT of each digit,
+// the lazy external product with the round's +s and -s RGSW keys, one
+// reduction, the inverse NTT, the (X^a - 1) and (X^-a - 1) monomials and the
+// accumulation. Every step is exact modular arithmetic, so the result
+// equals the plain torch version (tfhe_tpu_torch/ops/blindrotate_rns.py) and
+// the JAX package exactly.
 //
 // Design. One thread block owns one ciphertext for all n rounds; the loop
 // over rounds inside the block replaces the TPU's sequential `rounds` grid
-// axis. The TPU kernel's u32-pair arithmetic for the CRT and the digits
-// (_addc, _sub64, sra64) is plain 64-bit integer arithmetic here. A round
-// first writes each coefficient's centred value, after the thrown digits,
-// to shared memory; the two lanes then run one after the other, each taking
-// its digits from that buffer, so both see the round's starting
-// accumulator. Shared memory at N = 2048: the centred values [2][N] int64
-// (32 KB), both lanes' accumulators [2][2][N] (32 KB), one digit pair [2][N]
-// (16 KB) and one lane's four lazy sums [4][N] (32 KB): 112 KB, so two
-// blocks fit an SM. The key holds only the per-lane Shoup companions b'
-// (the layout of pack_bsk_rns, bit-reversed evaluation order); each value
-// is rebuilt as hi32(b' q) + (lo32(b' q) != 0), which halves the key
-// stream. Twiddles are the single-lane kernel's, one table per prime, with
-// plain 32-bit companions multiplied with __umulhi.
+// axis. The block has N/4 threads, N/8 per residue lane, so the two lanes
+// run every step side by side and share each barrier. A thread owns R = 8
+// coefficients of each polynomial and runs the NTTs in registers
+// (register_ntt.cuh): merged twiddles, so no twist or untwist pass, N^-1
+// folded into the inverse's last stage, three radix-2 stages per register
+// group, 3 + 3 + 3 + 2 stages at N = 2048 with three exchanges through
+// swizzled, conflict-free shared memory per transform, one of them
+// block-wide. A round:
+// - the CRT, the centring and the thrown digits of 8 coefficients, once:
+//   lane 0's threads take polynomial 0, lane 1's polynomial 1, and keep the
+//   rest in int64 registers;
+// - per kept digit: each thread extracts its 8 signed digits and writes them
+//   to shared memory (one barrier), reads the 16 digits of both polynomials
+//   at its points into its lane, runs the lane's forward NTT of the two, and
+//   the lazy external product on its 8 consecutive evaluation points (a
+//   warp reads 1 KB of each key row, in 16-byte loads); the sums of the
+//   digits before the last wait in shared memory, which frees 32 registers
+//   during the NTTs;
+// - the sums (< (2q - 1) d2 < 2^32) reduced by one Shoup product with the
+//   companion of 1, the inverse NTT of the four, its output written once and
+//   read back rotated for the monomials, the accumulation (< 5q) reduced by
+//   three conditional subtractions. No runtime `%`.
+// Barriers per round at N >= 512: two per digit (the digits' exchange and
+// the forward's block-wide exchange), one for the inverse's, two around the
+// monomials: 2 digits + 3, 7 at d2 = 4 (81 before). Shared memory: the
+// accumulators [2][2][N], the forward's buffer [2][2][N], the digits
+// [2][2][N] (double-buffered by digit parity; the two together also hold
+// the inverse's output [2][4][N]) and the inverse's buffer [2][4][N] (also
+// the waiting sums): 80 N bytes, 160 KB at N = 2048, so one block of 512
+// threads per SM and at most 128 registers a thread
+// (__launch_bounds__(N/4, 2048/N) at every N).
+// ptxas keeps it at 128 registers without spills only if it cannot hoist:
+// twiddles and keys are read with coherent loads, which it does not move
+// above a barrier, and each transform takes the thread index anew from
+// shared memory, so it does not keep one transform's addresses in registers
+// for another. The key holds only the per-lane Shoup companions b'
+// (pack_bsk_rns's layout), which halves the key stream; each value is
+// rebuilt as hi32((b' + 1) q): for b' = floor(b 2^32 / q) with b < q,
+// b 2^32 < (b' + 1) q <= b 2^32 + q, so that is b, the value the plain
+// version's hi32(b' q) + (lo32(b' q) != 0) gives, in two instructions
+// instead of four.
 //
-// Work per ciphertext and round at N = 2048 and d2 = 4 (two digits): per
-// lane, 2 x (4096 twist + 22528 forward butterflies + 16384 key products)
-// + 45056 inverse butterflies + 8192 untwists = 139264 lazy Shoup products
-// (three 32-bit multiplies each) and 32768 key values rebuilt (two
-// multiplies each); over both lanes 278528 Shoup products, 9.7e5 32-bit
-// multiplies, about 3 times a STD128 round of blind_rotate.cu. The function
-// needs 245760 of those products (no separate twist or untwist with merged
-// twiddles) and 4 multiplies per coefficient for the CRT, 7.5e5 in all; the
-// rebuilt values are this layout's price for half the key stream, 256 KB
-// per round and 342 MB per ciphertext over 1305 rounds (values and
-// companions would be twice that). By the multiply count it is bound by
+// Work per ciphertext and round at N = 2048, d2 = 4 (two digits), per
+// lane: 2 x (22528 forward butterflies + 16384 key products) + 45056
+// inverse butterflies = 122880 lazy Shoup products (three 32-bit multiplies
+// each), 32768 key values rebuilt (one each) and 8192 reductions (two
+// each); the CRT, 4 multiplies per coefficient. The function needs 245760
+// Shoup products over both lanes and the CRT, so it is bound by
 // operations: at B = 4096, n = 1305, d2 = 4 the bound (multiplies over 132
-// SMs x 64 lanes x the 1980 MHz maximum SM clock) is 240.8 ms, and the
-// kernel took 1927.9 ms, 12% of it (chip_smoke.py on an NVIDIA H100 80GB
-// HBM3, 700 W). What keeps it there is not measured.
-
+// SMs x 64 lanes x the 1980 MHz maximum SM clock) is 240.8 ms
+// (chip_smoke.py). The key stream, 256 KB per round and block, comes from L2
+// once per ciphertext: about 1.4 TB through L2 per launch at that shape.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 932.8 ms
+// at B = 4096, n = 1305, d2 = 4, 25.8% of the bound (the earlier design, the
+// lanes one after the other and every NTT stage through shared memory,
+// took 1925.6 ms); 128 registers and no spills at every N. ncu could not
+// profile where this was measured, so what holds it there is reckoned: each
+// butterfly issues about as many additions, comparisons and selections as
+// multiplies, and each shared access an XOR address, so the integer pipes
+// carry about twice the bound's work, and 16 warps with 7 barriers a round
+// stall for the rest. Cutting instructions (min-based subtractions, the
+// two-instruction key rebuild) showed in the time; cutting a barrier per
+// digit at the price of a second CRT did not. The key stream runs at 1.5
+// TB/s, below what L2 delivers, so a block that reads each key word once
+// for several ciphertexts would not be the first gain; it would also not
+// fit one SM's shared memory and registers next to this design.
+//
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "register_ntt.cuh"
+
 namespace {
 
-constexpr int NT = 512;  // threads per block
-
-__device__ __forceinline__ uint32_t mulmod_lazy(uint32_t a, uint32_t w,
-                                                uint32_t w_sh, uint32_t q) {
-  // (a * w mod q) + {0, q} for any a < 2^32, w < q, w_sh = floor(w 2^32 / q)
-  return a * w - __umulhi(a, w_sh) * q;
-}
-
-__device__ __forceinline__ uint32_t csub(uint32_t x, uint32_t c) {
-  return x >= c ? x - c : x;
-}
+using rntt::csub;
+using rntt::mulmod_lazy;
 
 // Balanced base-2^g_bits digit of d; d becomes (d - digit) >> g_bits.
 __device__ __forceinline__ int64_t extract(int64_t& d, int g_bits) {
@@ -73,11 +104,12 @@ __device__ __forceinline__ int64_t extract(int64_t& d, int g_bits) {
 }
 
 // acc1/acc2: [B][2][N] residues mod q1 / q2. bsk: [n][8*d2][N] u32, rows
-// lane*4*d2 + (key*2 + out)*d2 + 2l + j, Shoup companions only.
-// tw: [2 lanes][8][N] rows twist, twist', fwd, fwd', inv, inv', untwist,
-// untwist' (x' = Shoup companion).
+// lane*4*d2 + (key*2 + out)*d2 + 2l + j, Shoup companions only, points in
+// the forward NTT's order. tw: [2 lanes][4][N] rows fwd, fwd', inv, inv'
+// (register_ntt.cuh; x' = Shoup companion); fwd[0] = 1, so fwd'[0] =
+// floor(2^32 / q) reduces the lazy sums.
 template <int LOGN>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__((1 << LOGN) / 4, 2048 >> LOGN)
 blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
                         const uint32_t* __restrict__ acc2_in,
                         uint32_t* __restrict__ acc1_out,
@@ -88,135 +120,170 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
                         uint32_t q2, uint32_t c12, uint32_t c12_sh,
                         int g_bits, int digits, int throw_digits) {
   constexpr int N = 1 << LOGN;
-  constexpr int HALF = N / 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int64_t* dval = reinterpret_cast<int64_t*>(smem_raw);        // [2][N]
-  uint32_t* acc = reinterpret_cast<uint32_t*>(dval + 2 * N);   // [2][2][N]
-  uint32_t* x = acc + 4 * N;                                   // [2][N]
-  uint32_t* u = x + 2 * N;                                     // [4][N]
+  constexpr int TG = N / 8;                 // threads per lane
+  constexpr int G = rntt::groups<LOGN>();
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* acc = smem;          // [2 lanes][2][N], natural order
+  uint32_t* fbuf = acc + 4 * N;  // [2 lanes][2][N], swizzled
+  int32_t* digs = reinterpret_cast<int32_t*>(fbuf + 4 * N);  // [2 parities][2][N]
+  uint32_t* out = fbuf;          // fbuf and digs: the inverse's output
+                                 // [2 lanes][4][N], natural order
+  uint32_t* ibuf = fbuf + 8 * N; // [2 lanes][4][N], swizzled
 
-  const int tid = threadIdx.x;
+  const int lane = threadIdx.x / TG;        // TG >= 32: a warp is in one lane
+  const int t = threadIdx.x % TG;
   const size_t b = blockIdx.x;
   const int d2 = 2 * digits;
+  const uint32_t q = lane ? q2 : q1;
+  const uint32_t* fw = tw + lane * 4 * N;
+  const uint32_t* fws = fw + N;
+  const uint32_t* iw = fw + 2 * N;
+  const uint32_t* iws = fw + 3 * N;
+  const uint32_t red_sh = __ldg(fws);       // floor(2^32 / q)
   const uint64_t Q = uint64_t(q1) * q2;
   const uint64_t half_Q = Q >> 1;
+  uint32_t* my_acc = acc + lane * 2 * N;
+  uint32_t* my_out = out + lane * 4 * N;
 
-  for (int i = tid; i < 2 * N; i += NT) {
+  // fresh(t) is t read anew from shared memory: the addresses each NTT makes
+  // from it are made where it runs, not kept in registers from another
+  // transform that made the same ones
+  __shared__ int zero;
+  auto fresh = [&](int v) { return v + *static_cast<volatile int*>(&zero); };
+
+  if (threadIdx.x == 0) zero = 0;
+  for (int i = threadIdx.x; i < 2 * N; i += 2 * TG) {
     acc[i] = acc1_in[b * 2 * N + i];
     acc[2 * N + i] = acc2_in[b * 2 * N + i];
   }
   __syncthreads();
 
+  // the lazy sums of digits before the last wait in the inverse's buffer,
+  // among the 256 words per polynomial that the warp's own first exchange of
+  // the inverse writes: register k at word 32k + (t mod 32), so one base and
+  // constant offsets address all of them
+  uint32_t* sums = ibuf + lane * 4 * N + 8 * (t & ~31) + (t & 31);
+
   for (int r = 0; r < n; ++r) {
+    const uint32_t* key = bsk + ((size_t)r * 8 * d2 + lane * 4 * d2) * N + 8 * t;
+
+    // Garner CRT x = r2 + q2 ((r1 - r2) q2^-1 mod q1) of coefficient
+    // t + k N/8 of polynomial `lane` (each lane's threads take one of the
+    // two), centred, the thrown digits dropped
+    int64_t d[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int j = lane * N + t + k * TG;
+      const uint32_t r1 = acc[j], r2 = acc[2 * N + j];
+      const uint32_t diff = r1 >= r2 ? r1 - r2 : r1 + q1 - r2;
+      const uint32_t c = csub(mulmod_lazy(diff, c12, c12_sh, q1), q1);
+      const uint64_t xv = uint64_t(r2) + uint64_t(q2) * c;
+      int64_t v = xv >= half_Q ? int64_t(xv) - int64_t(Q) : int64_t(xv);
+      for (int i = 0; i < throw_digits; ++i) extract(v, g_bits);
+      d[k] = v;
+    }
+
+    // digit l of both polynomials, through shared memory into this lane,
+    // then the lane's forward NTT of the two: x[o][k] at point 8t + k
+    auto digit_forward = [&](int l, uint32_t (&x)[2][8]) {
+      int32_t* dg = digs + (l & 1) * 2 * N;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) dg[lane * N + t + k * TG] = int32_t(extract(d[k], g_bits));
+      __syncthreads();
+#pragma unroll
+      for (int o = 0; o < 2; ++o)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int32_t rr = dg[o * N + t + k * TG];
+          x[o][k] = rr < 0 ? uint32_t(rr + int32_t(q)) : uint32_t(rr);
+        }
+      rntt::forward<LOGN, 0, 2>(x, fbuf + lane * 2 * N, fresh(t), fw, fws, q);
+    };
+    // the lazy external product of digit l for output ko = key*2 + out:
+    // p[k] = sum_j x_j K[key][out][2l + j] at point 8t + k, < 4q
+    auto product = [&](int l, int ko, const uint32_t (&x)[2][8], uint32_t (&p)[8]) {
+      const uint32_t* ks = key + (size_t)(ko * d2 + 2 * l) * N;
+      const uint4 a0 = rntt::ld_global4(ks), a1 = rntt::ld_global4(ks + 4);
+      const uint4 b0 = rntt::ld_global4(ks + N), b1 = rntt::ld_global4(ks + N + 4);
+      const uint32_t s0[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const uint32_t s1[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t v0 = __umulhi(s0[k] + 1, q), v1 = __umulhi(s1[k] + 1, q);
+        p[k] = mulmod_lazy(x[0][k], v0, s0[k], q) + mulmod_lazy(x[1][k], v1, s1[k], q);
+      }
+    };
+
+    for (int l = 0; l + 1 < digits; ++l) {
+      uint32_t x[2][8];
+      digit_forward(l, x);
+#pragma unroll
+      for (int ko = 0; ko < 4; ++ko) {
+        uint32_t p[8];
+        product(l, ko, x, p);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          uint32_t* sp = sums + ko * N + 32 * k;
+          *sp = l == 0 ? p[k] : *sp + p[k];
+        }
+      }
+    }
+    uint32_t u[4][8];
+    {
+      const int l = digits - 1;
+      uint32_t x[2][8];
+      digit_forward(l, x);
+#pragma unroll
+      for (int ko = 0; ko < 4; ++ko) {
+        uint32_t p[8];
+        product(l, ko, x, p);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) u[ko][k] = l == 0 ? p[k] : sums[ko * N + 32 * k] + p[k];
+      }
+    }
+
+    // one Shoup reduction of the lazy sums (< 2^32) to [0, 2q), then the
+    // inverse NTT of the four polynomials, N^-1 folded in
+#pragma unroll
+    for (int ko = 0; ko < 4; ++ko)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) u[ko][k] -= __umulhi(u[ko][k], red_sh) * q;
+    rntt::inverse<LOGN, G - 1, 4>(u, ibuf + lane * 4 * N, fresh(t), iw, iws, q);
+
+    // a[o] += (X^m_pos - 1) u[o] + (X^m_neg - 1) u[2 + o]: write the inverse's
+    // output once, read it rotated. It overwrites the other lane's forward
+    // buffer and digits: below N = 512 no exchange of the inverse was
+    // block-wide, so wait here for the other lane to be done with them.
+    if constexpr (LOGN < 9) __syncthreads();
+#pragma unroll
+    for (int ko = 0; ko < 4; ++ko)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        u[ko][k] = csub(u[ko][k], q);
+        my_out[ko * N + t + k * TG] = u[ko][k];
+      }
+    __syncthreads();
     const int m_pos = a_idx[b * n + r];
     const int m_neg = (2 * N - m_pos) & (2 * N - 1);
-    const uint32_t* key_r = bsk + (size_t)r * 8 * d2 * N;
-
-    // Garner CRT x = r2 + q2 ((r1 - r2) q2^-1 mod q1), centred, throw
-    for (int i = tid; i < 2 * N; i += NT) {
-      const uint32_t r1 = acc[i], r2 = acc[2 * N + i];
-      const uint32_t diff = r1 >= r2 ? r1 - r2 : r1 + q1 - r2;
-      const uint32_t t = csub(mulmod_lazy(diff, c12, c12_sh, q1), q1);
-      const uint64_t xv = uint64_t(r2) + uint64_t(q2) * t;
-      int64_t d = xv >= half_Q ? int64_t(xv) - int64_t(Q) : int64_t(xv);
-      for (int k = 0; k < throw_digits; ++k) extract(d, g_bits);
-      dval[i] = d;
-    }
-    __syncthreads();
-
-    for (int lane = 0; lane < 2; ++lane) {
-      const uint32_t q = lane ? q2 : q1;
-      const uint32_t two_q = 2 * q;
-      const uint32_t* t = tw + lane * 8 * N;
-      const uint32_t* twist = t;
-      const uint32_t* twist_sh = t + N;
-      const uint32_t* fwd = t + 2 * N;
-      const uint32_t* fwd_sh = t + 3 * N;
-      const uint32_t* inv = t + 4 * N;
-      const uint32_t* inv_sh = t + 5 * N;
-      const uint32_t* untwist = t + 6 * N;
-      const uint32_t* untwist_sh = t + 7 * N;
-      const uint32_t* key = key_r + (size_t)lane * 4 * d2 * N;
-      uint32_t* a = acc + lane * 2 * N;
-
-      for (int l = 0; l < digits; ++l) {
-        // digit l of both polynomials into this lane, twisted on the way
-        for (int i = tid; i < 2 * N; i += NT) {
-          int64_t d = dval[i];
-          int64_t rr = 0;
-          for (int k = 0; k <= l; ++k) rr = extract(d, g_bits);
-          const uint32_t dig = rr < 0 ? uint32_t(rr + q) : uint32_t(rr);
-          const int j = i & (N - 1);
-          x[i] = mulmod_lazy(dig, twist[j], twist_sh[j], q);
-        }
-        __syncthreads();
-        // Gentleman-Sande stages, values lazy in [0, 2q)
-        for (int h = HALF; h >= 1; h >>= 1) {
-          for (int s = tid; s < 2 * HALF; s += NT) {
-            uint32_t* y = x + (s >> (LOGN - 1)) * N;
-            const int k = s & (HALF - 1);
-            const int lo = k & (h - 1);
-            const int p = ((k - lo) << 1) | lo;
-            const uint32_t a0 = y[p], c = y[p + h];
-            y[p] = csub(a0 + c, two_q);
-            y[p + h] = mulmod_lazy(a0 + two_q - c, fwd[h + lo], fwd_sh[h + lo], q);
-          }
-          __syncthreads();
-        }
-        // lazy external product: u[key*2 + out] += sum_j x_j * K[key][out][2l + j]
-        for (int i = tid; i < N; i += NT) {
-          const uint32_t x0 = x[i], x1 = x[N + i];
-          for (int ko = 0; ko < 4; ++ko) {
-            const uint32_t* ks = key + (size_t)(ko * d2 + 2 * l) * N + i;
-            const uint32_t s0 = __ldg(ks), s1 = __ldg(ks + N);
-            const uint32_t v0 = __umulhi(s0, q) + (s0 * q != 0u);
-            const uint32_t v1 = __umulhi(s1, q) + (s1 * q != 0u);
-            const uint32_t p = mulmod_lazy(x0, v0, s0, q) + mulmod_lazy(x1, v1, s1, q);
-            u[ko * N + i] = l == 0 ? p : u[ko * N + i] + p;
-          }
-        }
-        __syncthreads();
-      }
-
-      // one reduction of the lazy sums, then Cooley-Tukey stages
-      for (int i = tid; i < 4 * N; i += NT) u[i] %= q;
-      __syncthreads();
-      for (int h = 1; h < N; h <<= 1) {
-        for (int s = tid; s < 4 * HALF; s += NT) {
-          uint32_t* y = u + (s >> (LOGN - 1)) * N;
-          const int k = s & (HALF - 1);
-          const int lo = k & (h - 1);
-          const int p = ((k - lo) << 1) | lo;
-          const uint32_t a0 = y[p];
-          const uint32_t c = mulmod_lazy(y[p + h], inv[h + lo], inv_sh[h + lo], q);
-          y[p] = csub(a0 + c, two_q);
-          y[p + h] = csub(a0 + two_q - c, two_q);
-        }
-        __syncthreads();
-      }
-      for (int i = tid; i < 4 * N; i += NT) {
-        const int j = i & (N - 1);
-        u[i] = csub(mulmod_lazy(u[i], untwist[j], untwist_sh[j], q), q);
-      }
-      __syncthreads();
-
-      // a[o] += (X^m_pos - 1) u[o] + (X^m_neg - 1) u[2 + o]
-      for (int i = tid; i < 2 * N; i += NT) {
-        const int o = i >> LOGN;
-        const int j = i & (N - 1);
-        const uint32_t* c0 = u + o * N;
-        const uint32_t* c1 = u + (2 + o) * N;
+#pragma unroll
+    for (int o = 0; o < 2; ++o)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int j = t + k * TG;
         const int r0 = (j - m_pos) & (2 * N - 1);
         const int r1 = (j - m_neg) & (2 * N - 1);
-        const uint32_t v0 = r0 < N ? c0[r0] : q - c0[r0 - N];  // in [0, q]
-        const uint32_t v1 = r1 < N ? c1[r1] : q - c1[r1 - N];
-        a[i] = (a[i] + v0 + (q - c0[j]) + v1 + (q - c1[j])) % q;  // < 5q
+        const uint32_t c0 = my_out[o * N + (r0 & (N - 1))];
+        const uint32_t c1 = my_out[(2 + o) * N + (r1 & (N - 1))];
+        const uint32_t v0 = r0 < N ? c0 : q - c0;  // in [0, q]
+        const uint32_t v1 = r1 < N ? c1 : q - c1;
+        uint32_t s = my_acc[o * N + j] + v0 + (q - u[o][k]) + v1 + (q - u[2 + o][k]);
+        s = csub(csub(csub(s, 4 * q), 2 * q), q);  // s < 5q
+        my_acc[o * N + j] = s;
       }
-      __syncthreads();
-    }
+    __syncthreads();
   }
 
-  for (int i = tid; i < 2 * N; i += NT) {
+  for (int i = threadIdx.x; i < 2 * N; i += 2 * TG) {
     acc1_out[b * 2 * N + i] = acc[i];
     acc2_out[b * 2 * N + i] = acc[2 * N + i];
   }
@@ -229,12 +296,12 @@ cudaError_t launch(const void* acc1_in, const void* acc2_in, void* acc1_out,
                    unsigned c12, unsigned c12_sh, int g_bits, int digits,
                    int throw_digits, cudaStream_t stream) {
   const size_t N = size_t(1) << LOGN;
-  const size_t smem = 2 * N * sizeof(int64_t) + 10 * N * sizeof(uint32_t);
+  const size_t smem = 20 * N * sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
       blind_rotate_rns_kernel<LOGN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  blind_rotate_rns_kernel<LOGN><<<B, NT, smem, stream>>>(
+  blind_rotate_rns_kernel<LOGN><<<B, N / 4, smem, stream>>>(
       static_cast<const uint32_t*>(acc1_in),
       static_cast<const uint32_t*>(acc2_in), static_cast<uint32_t*>(acc1_out),
       static_cast<uint32_t*>(acc2_out), static_cast<const int32_t*>(a_idx),
@@ -246,7 +313,7 @@ cudaError_t launch(const void* acc1_in, const void* acc2_in, void* acc1_out,
 }  // namespace
 
 // acc*_in/acc*_out [B][2][N], a_idx [B][n] int32, bsk [n][8*d2][N],
-// tw [2][8][N]. Returns the launch's cudaError_t (0 on success).
+// tw [2][4][N]. Returns the launch's cudaError_t (0 on success).
 extern "C" int tfhe_blind_rotate_rns(const void* acc1_in, const void* acc2_in,
                                      void* acc1_out, void* acc2_out,
                                      const void* a_idx, const void* bsk,

@@ -3,8 +3,8 @@
 `nvcc` compiles `tfhe_tpu_torch/csrc/<name>.cu` for sm_90a into a shared
 library with a plain C interface, which `ctypes` loads: no PyTorch headers,
 so a build takes seconds. Libraries go to `tfhe_tpu_torch/_build/`, named by
-a hash of their source, and are built at first use only; `build` starts one
-nvcc per source, all at once.
+a hash of their source and of the headers in `csrc/`, and are built at first
+use only; `build` starts one nvcc per source, all at once.
 """
 
 from __future__ import annotations
@@ -38,9 +38,15 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(_CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """Where the library of csrc/<name>.cu goes: named by a hash of the
+    source and of every header in csrc/, which a source may include."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        h.update(fname.encode() + b"\0")
+        with open(os.path.join(_CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names=KERNELS) -> None:
