@@ -47,6 +47,10 @@ INT32_LANES_PER_SM = 64     # 32-bit integer multiply lanes per SM per clock
 # two lanes one after the other, every NTT stage through shared memory), on
 # an NVIDIA H100 80GB HBM3 at 700 W, by this script
 EARLIER_RNS_MS = 1925.602
+# blind_rotate at B = 4096, n = 512, d2 = 8 in its earlier design (every NTT
+# stage through shared memory, values and companions read), on an NVIDIA H100
+# 80GB HBM3 at 700 W, by this script
+EARLIER_GATE_MS = 245.621
 
 
 def check(cond: bool, msg: str) -> None:
@@ -138,43 +142,77 @@ def max_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+GATE_MODULI = (134215681, 268369921, 134176769)  # STD128/TOY, MEDIUM, STD256Q
+GATE_BASES = {2: 1 << 14, 6: 1 << 10, 8: 1 << 7, 12: 1 << 5}   # gadget base by d2
+
+
+def gate_cases():
+    """(N, Q, d2, base, throw) of every ring size, digit count and modulus
+    the gate kernel serves: Q 134215681 at N <= 1024, 268369921 at d2 <= 8,
+    134176769 at N = 2048, each with throw 0 and 1; and one base above 2Q,
+    whose only digit is the centred value itself."""
+    cases = []
+    for N in (256, 512, 1024, 2048):
+        for d2 in (2, 6, 8, 12):
+            for Q in GATE_MODULI:
+                if ((Q == 134215681 and N > 1024) or (Q == 134176769 and N != 2048)
+                        or (2 * Q - 1) * d2 >= 1 << 32):
+                    continue
+                cases += [(N, Q, d2, GATE_BASES[d2], throw) for throw in (0, 1)]
+    return cases + [(512, 268369921, 2, 1 << 31, 1)]
+
+
 def gate_kernel_vs_plain(rng, Q: int, peak: float) -> dict:
-    """blind_rotate against its plain version on the card, at STD128 shapes
-    (N = 1024, d2 = 8, baseG = 2^7), with tolerance 0 (torch.equal: the
-    arithmetic is exact and modular), each case timed: B = 64 over 16
-    rounds, then the main path's B = GATE_BATCH over all 512 rounds."""
+    """blind_rotate against its plain version on the card with tolerance 0
+    (torch.equal: the arithmetic is exact and modular), each case timed: at
+    STD128 shapes (N = 1024, d2 = 8, baseG = 2^7) B = 64 over 16 rounds;
+    then every case of `gate_cases` at a small odd batch (B = 5, the ragged
+    edge of a batch) over 8 rounds, rows 0, 1 and 2 of the exponents 0, N
+    and 2N - 1 in all rounds; then the main path's B = GATE_BATCH over all
+    512 rounds, which is returned and set beside EARLIER_GATE_MS."""
     import numpy as np
     import torch
 
     from tfhe_tpu_torch.ops import blindrotate, rotate_kernel
 
-    N, d2, base_g = 1024, 8, 1 << 7
     worst = 0
 
-    def compare(B, n):
+    def compare(B, n, N=1024, Q=Q, d2=8, base_g=1 << 7, throw=0, edge=False):
         nonlocal worst
         t0 = time.time()
         acc = torch.from_numpy(rng.integers(0, Q, (B, 2, N)).astype(np.int32)).cuda()
-        a_idx = torch.from_numpy(rng.integers(0, 2 * N, (B, n)).astype(np.int32)).cuda()
+        a_np = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
+        if edge:
+            a_np[:3] = np.array([0, N, 2 * N - 1], dtype=np.int32)[:, None]
+        a_idx = torch.from_numpy(a_np).cuda()
         bsk_hat = rng.integers(0, Q, (n, 2, d2, 2, N)).astype(np.uint64)
         bsk = rotate_kernel.pack_bsk(bsk_hat, Q).cuda()
-        kernel = lambda: rotate_kernel.rotate(acc, a_idx, bsk, Q, base_g)  # noqa: E731
-        plain = lambda: blindrotate.blind_rotate(acc, a_idx, bsk, Q, base_g)  # noqa: E731
+        kernel = lambda: rotate_kernel.rotate(acc, a_idx, bsk, Q, base_g, throw)  # noqa: E731
+        plain = lambda: blindrotate.blind_rotate(acc, a_idx, bsk, Q, base_g, throw)  # noqa: E731
         got = kernel()
         want, plain_ms = timed_once(plain)
         err = max_err(got, want)
         worst = max(worst, err)
-        check(torch.equal(got, want), f"blind_rotate != plain at B={B}, n={n} (max abs err {err})")
+        check(torch.equal(got, want), f"blind_rotate != plain at N={N}, Q={Q}, d2={d2}, "
+              f"base 2^{base_g.bit_length() - 1}, throw={throw}, B={B}, n={n} "
+              f"(max abs err {err})")
         ms = cuda_ms(kernel, reps=3)
         b_ms, b_by = bound(B, n, N, d2, 1, peak)
-        log(f"blind_rotate == plain at N={N} d2={d2} B={B} n={n} (torch.equal, "
-            f"tolerance 0): max_abs_err {err}; kernel {ms:.3f} ms, plain torch "
-            f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} "
-            f"({time.time() - t0:.1f} s)")
+        log(f"blind_rotate == plain at N={N} Q={Q} d2={d2} base 2^{base_g.bit_length() - 1} "
+            f"throw={throw} B={B} n={n} (torch.equal, tolerance 0): max_abs_err {err}; "
+            f"kernel {ms:.3f} ms, plain torch {plain_ms:.3f} ms, bound {b_ms:.3f} ms by "
+            f"{b_by}, kernel at {100 * b_ms / ms:.1f}% of it ({time.time() - t0:.1f} s)")
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
 
     compare(64, 16)
+    for N, Qc, d2, base_g, throw in gate_cases():
+        compare(5, 8, N, Qc, d2, base_g, throw, edge=True)
     timing = compare(GATE_BATCH, 512)
+    log(f"blind_rotate at B={GATE_BATCH} n=512 d2=8: {timing['ms']:.3f} ms, "
+        f"{100 * timing['bound_ms'] / timing['ms']:.1f}% of its bound; the earlier design "
+        f"(every NTT stage through shared memory, values and companions read) took "
+        f"{EARLIER_GATE_MS} ms ({100 * timing['bound_ms'] / EARLIER_GATE_MS:.1f}%) on an "
+        f"NVIDIA H100 80GB HBM3 at 700 W: {EARLIER_GATE_MS / timing['ms']:.2f}x")
     return {"max_abs_err": worst, **timing}
 
 

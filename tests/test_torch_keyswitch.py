@@ -3,12 +3,17 @@ tfhe_tpu.ops.keyswitch32.build_mkm_switch and, at the accelerated sets'
 qKS = 2^35, tfhe_tpu.ops.keyswitch64.build_mkm_switch64, exactly, on one
 random key per case: a power-of-two baseKS (STD128's 2^7 with qKS = 2^14),
 TOY's baseKS = 25 with qKS = Q, and baseKS = 32 with qKS = 2^35 from the
-composite Q = q1*q2."""
+composite Q = q1*q2; and at qKS = 2^39, N = 2048, where the row sums are
+taken in chunks, against the JAX package's host switch
+(tfhe_tpu.lwe.mod_switch and key_switch)."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
+from tfhe_tpu import lwe as jax_lwe
 from tfhe_tpu.ops import keyswitch32 as ks32
 from tfhe_tpu.ops import keyswitch64 as ks64
 from tfhe_tpu.ops import modmath64 as mm64
@@ -102,3 +107,33 @@ def test_mkm_switch_35bit_matches_jax(fmod, monkeypatch):
         table, Q_RNS, q_ks, base_ks, dc, fmod)
     assert np.array_equal(got_a.numpy(), np.asarray(want_a).astype(np.int64))
     assert np.array_equal(got_b.numpy(), np.asarray(want_b).astype(np.int64))
+
+
+
+def test_mkm_switch_row_sums_in_exact_chunks():
+    """N = 2048, qKS = 2^39, baseKS = 16 (dc = 10): 20480 selected rows of
+    values below 2^39, so one float64 sum over all of them could pass 2^53;
+    `row_sums` sums them in chunks. The JAX package's device switch
+    (`build_mkm_switch64`) stops at qKS = 2^35 (its 7-bit limbs are shifted
+    within 32 bits), so the port is held to its host switch, the oracle
+    `RefBackend.mkm_switch` runs: mod_switch, key_switch, mod_switch."""
+    N, n, B, q_ks, base_ks, fmod = 2048, 4, 3, 1 << 39, 16, 2048
+    dc = _digit_count(q_ks, base_ks)
+    assert dc == 10 and N * dc * (q_ks - 1) >= 1 << 53
+    rng = np.random.default_rng(12)
+    ksk_a = rng.integers(0, q_ks, (N, base_ks, dc, n)).astype(np.uint64)
+    ksk_b = rng.integers(0, q_ks, (N, base_ks, dc)).astype(np.uint64)
+    a_ext = rng.integers(0, Q_RNS, (B, N)).astype(np.uint64)
+    b_ext = rng.integers(0, Q_RNS, B).astype(np.uint64)
+    a_ext[0, :3] = [0, Q_RNS - 1, Q_RNS // 2]
+
+    p = SimpleNamespace(n=n, N=N, q_ks=q_ks, base_ks=base_ks, digit_count_ks=dc)
+    ct = jax_lwe.mod_switch(q_ks, jax_lwe.LWECiphertext(a_ext, b_ext, Q_RNS))
+    ct = jax_lwe.key_switch(p, jax_lwe.LWESwitchingKey(A=ksk_a, B=ksk_b), ct)
+    want = jax_lwe.mod_switch(fmod, ct)
+    got_a, got_b = keyswitch.mkm_switch(
+        torch.from_numpy(a_ext.astype(np.int64)),
+        torch.from_numpy(b_ext.astype(np.int64)),
+        keyswitch.ksk_table(ksk_a, ksk_b), Q_RNS, q_ks, base_ks, dc, fmod)
+    assert torch.equal(got_a, torch.from_numpy(np.asarray(want.a).astype(np.int64)))
+    assert torch.equal(got_b, torch.from_numpy(np.asarray(want.b).astype(np.int64)))

@@ -284,11 +284,12 @@ def test_emulated_kernel_round_equals_plain(N, d2, throw, base_log):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("q", [Q1, Q2])
+@pytest.mark.parametrize("q", [Q1, Q2, 134215681, 268369921])
 def test_key_values_from_companions(q):
-    """The kernel rebuilds a key value as hi32((b' + 1) q), the plain
+    """The kernels rebuild a key value as hi32((b' + 1) q), the plain
     version as hi32(b' q) + (lo32(b' q) != 0): equal for every companion
-    b' = floor(b 2^32 / q) of a value b < q."""
+    b' = floor(b 2^32 / q) of a value b < q, at the RNS primes and the gate
+    sets' moduli (Q1 is also STD256Q's)."""
     b = torch.from_numpy(np.random.default_rng(q).integers(0, q, 1 << 16))
     b = torch.cat([b, torch.tensor([0, 1, q - 2, q - 1])])
     sh = (b << 32) // q

@@ -10,54 +10,92 @@
 // the result equals the plain torch version (tfhe_tpu_torch/ops/blindrotate.py)
 // and the JAX package exactly.
 //
-// Design. One thread block owns one ciphertext for all n rounds; the loop over
-// rounds inside the block replaces the TPU's sequential `rounds` grid axis.
-// Shared memory holds the accumulator [2][N], one digit pair [2][N] in the NTT
-// domain and the four lazy product sums [4][N]: 32 KB at N = 1024. Digits are
-// handled one at a time, as the Pallas body does. Butterflies index shared
-// memory directly, and X^m is index arithmetic: the TPU's roll-and-select
-// stages and bit-decomposed rolls have no counterpart here. Twiddles come from
-// tfhe_tpu_torch/ops/ntt_sched.py:schedule (compacted, see ops/ntt.py),
-// so the kernel's evaluation order is the packed key's; they carry plain
-// 32-bit Shoup companions and multiply with __umulhi.
+// Design. One thread block of N/8 threads owns one ciphertext for all n
+// rounds; the loop over rounds inside the block replaces the TPU's sequential
+// `rounds` grid axis. A thread owns 8 coefficients of each polynomial,
+// coefficient t + k N/8 of thread t, keeps those of the accumulator in
+// registers for all rounds, and runs the NTTs in registers
+// (register_ntt.cuh): merged twiddles, so no twist or untwist pass, N^-1
+// folded into the inverse's last stage, three radix-2 stages per register
+// group (3 + 3 + 3 + 1 at N = 1024) with one block-wide exchange through
+// swizzled, conflict-free shared memory per transform. A round:
+// - each thread centres its 16 coefficients (x >= Q/2 is negative), drops
+//   the thrown digits once and keeps the rest in int32 registers; a thread
+//   holds both polynomials' coefficients, so digits need no exchange;
+// - per kept digit: one balanced digit of the 16, the forward NTT of the
+//   pair, and the lazy external product on the thread's 8 consecutive
+//   evaluation points (a warp reads 1 KB of each key row, in 16-byte
+//   loads). The key is read only in its companion rows b' (pack_bsk's
+//   layout keeps values and companions; the values are not read) and each
+//   value is rebuilt as hi32((b' + 1) Q), which halves the key stream. The
+//   sums of the digits before the last wait in shared memory, which frees
+//   32 registers during the NTTs;
+// - the sums (< (2Q - 1) d2 < 2^32) reduced by one Shoup product with the
+//   companion of 1, the inverse NTT of the four, its output written once
+//   and read back rotated for the monomials, the accumulation (< 5Q)
+//   reduced by three conditional subtractions. No runtime `%`.
+// Barriers per round at N >= 512: one per digit (the forward's block-wide
+// exchange), one for the inverse's, two around the monomials: 7 at d2 = 8
+// (about 61 before). At N = 256 a block is one warp. Shared memory: the
+// forward's buffer [2][2][N], double-buffered by digit parity because the
+// next digit's block-wide exchange would otherwise overwrite words a slower
+// warp still reads in this digit's warp-local ones, and the inverse's buffer
+// [4][N], which also holds the waiting sums and the inverse's output: 32 N
+// bytes, 32 KB at N = 1024, so 512 threads per SM and at most 128 registers
+// a thread (__launch_bounds__(N/8, 4096/N) at every N; ptxas: 125-128, no
+// spills). As in blind_rotate_rns.cu, twiddles and keys are read with
+// coherent loads and each transform takes the thread index anew from shared
+// memory, so that ptxas does not hoist one transform's loads or addresses
+// into another's registers.
 //
-// What bounds it: the work is 32-bit integer multiplies. A round costs each
-// ciphertext 106496 lazy Shoup products (three multiplies each), 2/3 of them
-// in the NTTs. The function needs 94208 of them: the separate twist and
-// untwist passes (12288) fall away in a negacyclic NTT with merged twiddles.
-// By those the least time is set by operations: at STD128 and B = 4096 the
-// bound (multiplies over 132 SMs x 64 lanes x the 1980 MHz maximum SM
-// clock) is 35.4 ms, and the kernel took 245.9 ms, 14% of it
-// (chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W). What keeps it there
-// (occupancy, shared-memory traffic, the ~60 barriers of a round) is not
-// measured. The key stream is 256 KB per round (64 rows of N words), 128 MB
-// per ciphertext over 512 rounds; the whole 134 MB key does not fit in the
-// 50 MB L2. The design assumes, without a measurement, that resident blocks
-// walk the rounds close enough in step for one round's slice to come from
-// device memory once and from L2 after that.
+// What bounds it: the work is 32-bit integer multiplies. The function needs,
+// per ciphertext and round at N = 1024, d2 = 8, 94208 lazy Shoup products
+// (three multiplies each): the digits' forward NTTs, the external product and
+// the inverse NTT. At STD128 and B = 4096 the bound (multiplies over 132 SMs
+// x 64 lanes x the 1980 MHz maximum SM clock, chip_smoke.py) is 35.4 ms. The
+// kernel adds 32768 key values rebuilt (one multiply each) and 4096
+// reductions (two each). The key stream is 128 KB per ciphertext and round,
+// 275 GB through L2 per launch at that shape; the 134 MB key does not fit the
+// 50 MB L2, and resident blocks walk the rounds close enough in step that
+// device memory sees about one key per wave.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (scripts/torch_profile_gate.py
+// --kernel-only): 121.1 ms at B = 4096, n = 512, d2 = 8, 29.3% of the bound;
+// the earlier design (every NTT stage through shared memory, separate twist
+// and untwist passes, values and companions read, runtime `%`, ~61 barriers
+// a round) took 245.621 ms, 14.4%. What holds it there is reckoned (ncu does
+// not run where it was measured): beside its multiplies each butterfly
+// issues about as many additions, selections and shared-memory addresses,
+// and 16 warps a SM leave the rest as stalls. Whether the key stream through
+// L2 binds is not measured.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "register_ntt.cuh"
+
 namespace {
 
-constexpr int NT = 256;  // threads per block; N is a multiple of NT
+using rntt::csub;
+using rntt::mulmod_lazy;
 
-__device__ __forceinline__ uint32_t mulmod_lazy(uint32_t a, uint32_t w,
-                                                uint32_t w_sh, uint32_t Q) {
-  // (a * w mod Q) + {0, Q} for any a < 2^32, w < Q, w_sh = floor(w 2^32 / Q)
-  return a * w - __umulhi(a, w_sh) * Q;
+// Balanced base-2^g_bits digit of d; d becomes (d - digit) >> g_bits.
+__device__ __forceinline__ int32_t extract(int32_t& d, int g_bits) {
+  const int32_t base = int32_t(1) << g_bits;
+  int32_t r = d & (base - 1);
+  if (r >= (base >> 1)) r -= base;
+  d = (d - r) >> g_bits;
+  return r;
 }
 
-__device__ __forceinline__ uint32_t csub(uint32_t x, uint32_t c) {
-  return x >= c ? x - c : x;
-}
-
-// tw: [8][N] u32 rows twist, twist', fwd, fwd', inv, inv', untwist, untwist'
-// (x' = Shoup companion). bsk: [n][8*d2][N] u32, row
-// ((vs*2 + key)*2 + out)*d2 + 2l + j, vs 0 = value / 1 = companion.
+// acc: [B][2][N] residues mod Q. bsk: [n][8*d2][N] u32, row
+// ((vs*2 + key)*2 + out)*d2 + 2l + j, vs 0 = value / 1 = Shoup companion,
+// points in the forward NTT's order; only vs = 1 is read. tw: [4][N] rows
+// fwd, fwd', inv, inv' (register_ntt.cuh; x' = Shoup companion); fwd[0] = 1,
+// so fwd'[0] = floor(2^32 / Q) reduces the lazy sums. g_bits <= 28: a larger
+// base gives the same digits (|x| < 2^27 is one digit).
 template <int LOGN>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__((1 << LOGN) / 8, 4096 >> LOGN)
 blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
                     uint32_t* __restrict__ acc_out,
                     const int32_t* __restrict__ a_idx,
@@ -65,119 +103,160 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
                     const uint32_t* __restrict__ tw, int n, uint32_t Q,
                     int g_bits, int digits, int throw_digits) {
   constexpr int N = 1 << LOGN;
-  constexpr int HALF = N / 2;
-  extern __shared__ uint32_t smem[];
-  uint32_t* acc = smem;        // [2][N]
-  uint32_t* x = smem + 2 * N;  // [2][N]
-  uint32_t* u = smem + 4 * N;  // [4][N]
+  constexpr int TG = N / 8;                 // threads per block
+  constexpr int G = rntt::groups<LOGN>();
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* fbuf = smem;         // [2 parities][2][N], swizzled
+  uint32_t* ibuf = fbuf + 4 * N; // [4][N], swizzled; the inverse's output
+                                 // [4][N] in natural order
 
-  const uint32_t* twist = tw;
-  const uint32_t* twist_sh = tw + N;
-  const uint32_t* fwd = tw + 2 * N;
-  const uint32_t* fwd_sh = tw + 3 * N;
-  const uint32_t* inv = tw + 4 * N;
-  const uint32_t* inv_sh = tw + 5 * N;
-  const uint32_t* untwist = tw + 6 * N;
-  const uint32_t* untwist_sh = tw + 7 * N;
-
-  const int tid = threadIdx.x;
+  const int t = threadIdx.x;
   const size_t b = blockIdx.x;
   const int d2 = 2 * digits;
-  const uint32_t two_q = 2 * Q;
+  const uint32_t* fw = tw;
+  const uint32_t* fws = tw + N;
+  const uint32_t* iw = tw + 2 * N;
+  const uint32_t* iws = tw + 3 * N;
+  const uint32_t red_sh = __ldg(fws);       // floor(2^32 / Q)
   const uint32_t half_q = Q >> 1;
-  const int32_t base = 1 << g_bits;
-  const int32_t g_mask = base - 1;
-  const int32_t g_half = base >> 1;
 
-  for (int i = tid; i < 2 * N; i += NT) acc[i] = acc_in[b * 2 * N + i];
+  // fresh(t) is t read anew from shared memory: the addresses each NTT makes
+  // from it are made where it runs, not kept in registers from another
+  // transform that made the same ones
+  __shared__ int zero;
+  auto fresh = [&](int v) { return v + *static_cast<volatile int*>(&zero); };
+
+  // the accumulator stays in registers: coefficient t + k N/8 of
+  // polynomial o in acc[o][k]
+  uint32_t acc[2][8];
+#pragma unroll
+  for (int o = 0; o < 2; ++o)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[o][k] = acc_in[b * 2 * N + o * N + t + k * TG];
+  if (t == 0) zero = 0;
   __syncthreads();
 
+  // the lazy sums of digits before the last wait in the inverse's buffer,
+  // among the 256 words per polynomial that the warp's own first exchange of
+  // the inverse writes: register k at word 32k + (t mod 32), so one base and
+  // constant offsets address all of them
+  uint32_t* sums = ibuf + 8 * (t & ~31) + (t & 31);
+
   for (int r = 0; r < n; ++r) {
+    const uint32_t* key = bsk + ((size_t)r * 8 * d2 + 4 * d2) * N + 8 * t;
+
+    // the accumulator centred, the thrown digits dropped
+    int32_t d[2][8];
+#pragma unroll
+    for (int o = 0; o < 2; ++o)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t a = acc[o][k];
+        int32_t v = a < half_q ? int32_t(a) : int32_t(a) - int32_t(Q);
+        for (int i = 0; i < throw_digits; ++i) extract(v, g_bits);
+        d[o][k] = v;
+      }
+
+    // digit l of both polynomials and their forward NTT: x[o][k] at point
+    // 8t + k
+    auto digit_forward = [&](int l, uint32_t (&x)[2][8]) {
+#pragma unroll
+      for (int o = 0; o < 2; ++o)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int32_t rr = extract(d[o][k], g_bits);
+          x[o][k] = rr < 0 ? uint32_t(rr + int32_t(Q)) : uint32_t(rr);
+        }
+      rntt::forward<LOGN, 0, 2>(x, fbuf + (l & 1) * 2 * N, fresh(t), fw, fws, Q);
+    };
+    // the lazy external product of digit l for output ko = key*2 + out:
+    // p[k] = sum_j x_j K[key][out][2l + j] at point 8t + k, < 4Q
+    auto product = [&](int l, int ko, const uint32_t (&x)[2][8], uint32_t (&p)[8]) {
+      const uint32_t* ks = key + (size_t)(ko * d2 + 2 * l) * N;
+      const uint4 a0 = rntt::ld_global4(ks), a1 = rntt::ld_global4(ks + 4);
+      const uint4 b0 = rntt::ld_global4(ks + N), b1 = rntt::ld_global4(ks + N + 4);
+      const uint32_t s0[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const uint32_t s1[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t v0 = __umulhi(s0[k] + 1, Q), v1 = __umulhi(s1[k] + 1, Q);
+        p[k] = mulmod_lazy(x[0][k], v0, s0[k], Q) + mulmod_lazy(x[1][k], v1, s1[k], Q);
+      }
+    };
+
+    for (int l = 0; l + 1 < digits; ++l) {
+      uint32_t x[2][8];
+      digit_forward(l, x);
+#pragma unroll
+      for (int ko = 0; ko < 4; ++ko) {
+        uint32_t p[8];
+        product(l, ko, x, p);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          uint32_t* sp = sums + ko * N + 32 * k;
+          *sp = l == 0 ? p[k] : *sp + p[k];
+        }
+      }
+    }
+    uint32_t u[4][8];
+    {
+      const int l = digits - 1;
+      uint32_t x[2][8];
+      digit_forward(l, x);
+#pragma unroll
+      for (int ko = 0; ko < 4; ++ko) {
+        uint32_t p[8];
+        product(l, ko, x, p);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) u[ko][k] = l == 0 ? p[k] : sums[ko * N + 32 * k] + p[k];
+      }
+    }
+
+    // one Shoup reduction of the lazy sums (< 2^32) to [0, 2Q), then the
+    // inverse NTT of the four polynomials, N^-1 folded in
+#pragma unroll
+    for (int ko = 0; ko < 4; ++ko)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) u[ko][k] -= __umulhi(u[ko][k], red_sh) * Q;
+    rntt::inverse<LOGN, G - 1, 4>(u, ibuf, fresh(t), iw, iws, Q);
+
+    // acc[o] += (X^m_pos - 1) u[o] + (X^m_neg - 1) u[2 + o]: write the
+    // inverse's output once over its buffer, when every thread has read its
+    // last exchange, and read it rotated
+    __syncthreads();
+#pragma unroll
+    for (int ko = 0; ko < 4; ++ko)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        u[ko][k] = csub(u[ko][k], Q);
+        ibuf[ko * N + t + k * TG] = u[ko][k];
+      }
+    __syncthreads();
     const int m_pos = a_idx[b * n + r];
     const int m_neg = (2 * N - m_pos) & (2 * N - 1);
-    const uint32_t* key = bsk + (size_t)r * 8 * d2 * N;
-
-    for (int l = 0; l < digits; ++l) {
-      // digit l of both polynomials, twisted on the way into x
-      for (int i = tid; i < 2 * N; i += NT) {
-        const uint32_t a = acc[i];
-        int32_t d = a < half_q ? (int32_t)a : (int32_t)a - (int32_t)Q;
-        int32_t rr = 0;
-        for (int k = 0; k <= throw_digits + l; ++k) {
-          rr = d & g_mask;
-          if (rr >= g_half) rr -= base;
-          d = (d - rr) >> g_bits;
-        }
-        const uint32_t dig = rr < 0 ? (uint32_t)(rr + (int32_t)Q) : (uint32_t)rr;
-        const int j = i & (N - 1);
-        x[i] = mulmod_lazy(dig, twist[j], twist_sh[j], Q);
+#pragma unroll
+    for (int o = 0; o < 2; ++o)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int j = t + k * TG;
+        const int r0 = (j - m_pos) & (2 * N - 1);
+        const int r1 = (j - m_neg) & (2 * N - 1);
+        const uint32_t c0 = ibuf[o * N + (r0 & (N - 1))];
+        const uint32_t c1 = ibuf[(2 + o) * N + (r1 & (N - 1))];
+        const uint32_t v0 = r0 < N ? c0 : Q - c0;  // in [0, Q]
+        const uint32_t v1 = r1 < N ? c1 : Q - c1;
+        const uint32_t s = acc[o][k] + v0 + (Q - u[o][k]) + v1 + (Q - u[2 + o][k]);
+        acc[o][k] = csub(csub(csub(s, 4 * Q), 2 * Q), Q);  // s < 5Q
       }
-      __syncthreads();
-      // Gentleman-Sande stages, values lazy in [0, 2Q)
-      for (int h = HALF; h >= 1; h >>= 1) {
-        for (int t = tid; t < 2 * HALF; t += NT) {
-          uint32_t* y = x + (t >> (LOGN - 1)) * N;
-          const int k = t & (HALF - 1);
-          const int lo = k & (h - 1);
-          const int p = ((k - lo) << 1) | lo;
-          const uint32_t a = y[p], c = y[p + h];
-          y[p] = csub(a + c, two_q);
-          y[p + h] = mulmod_lazy(a + two_q - c, fwd[h + lo], fwd_sh[h + lo], Q);
-        }
-        __syncthreads();
-      }
-      // lazy external product: u[key*2 + out] += sum_j x_j * K[key][out][2l + j]
-      for (int i = tid; i < N; i += NT) {
-        const uint32_t x0 = x[i], x1 = x[N + i];
-        for (int ko = 0; ko < 4; ++ko) {
-          const uint32_t* kv = key + (size_t)(ko * d2 + 2 * l) * N + i;
-          const uint32_t* ks = kv + (size_t)4 * d2 * N;
-          const uint32_t p = mulmod_lazy(x0, __ldg(kv), __ldg(ks), Q) +
-                             mulmod_lazy(x1, __ldg(kv + N), __ldg(ks + N), Q);
-          u[ko * N + i] = l == 0 ? p : u[ko * N + i] + p;
-        }
-      }
-      __syncthreads();
-    }
-
-    // one reduction of the lazy sums, then Cooley-Tukey stages
-    for (int i = tid; i < 4 * N; i += NT) u[i] %= Q;
-    __syncthreads();
-    for (int h = 1; h < N; h <<= 1) {
-      for (int t = tid; t < 4 * HALF; t += NT) {
-        uint32_t* y = u + (t >> (LOGN - 1)) * N;
-        const int k = t & (HALF - 1);
-        const int lo = k & (h - 1);
-        const int p = ((k - lo) << 1) | lo;
-        const uint32_t a = y[p];
-        const uint32_t c = mulmod_lazy(y[p + h], inv[h + lo], inv_sh[h + lo], Q);
-        y[p] = csub(a + c, two_q);
-        y[p + h] = csub(a + two_q - c, two_q);
-      }
-      __syncthreads();
-    }
-    for (int i = tid; i < 4 * N; i += NT) {
-      const int j = i & (N - 1);
-      u[i] = csub(mulmod_lazy(u[i], untwist[j], untwist_sh[j], Q), Q);
-    }
-    __syncthreads();
-
-    // acc[o] += (X^m_pos - 1) u[o] + (X^m_neg - 1) u[2 + o]
-    for (int i = tid; i < 2 * N; i += NT) {
-      const int o = i >> LOGN;
-      const int j = i & (N - 1);
-      const uint32_t* c0 = u + o * N;
-      const uint32_t* c1 = u + (2 + o) * N;
-      const int r0 = (j - m_pos) & (2 * N - 1);
-      const int r1 = (j - m_neg) & (2 * N - 1);
-      const uint32_t v0 = r0 < N ? c0[r0] : Q - c0[r0 - N];  // in [0, Q]
-      const uint32_t v1 = r1 < N ? c1[r1] : Q - c1[r1 - N];
-      acc[i] = (acc[i] + v0 + (Q - c0[j]) + v1 + (Q - c1[j])) % Q;  // < 5Q
-    }
-    __syncthreads();
+    // the next round's sums and inverse overwrite the output only after its
+    // first forward's block-wide exchange (N >= 512; at N = 256 the block is
+    // one warp and every exchange a __syncwarp)
   }
 
-  for (int i = tid; i < 2 * N; i += NT) acc_out[b * 2 * N + i] = acc[i];
+#pragma unroll
+  for (int o = 0; o < 2; ++o)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc_out[b * 2 * N + o * N + t + k * TG] = acc[o][k];
 }
 
 template <int LOGN>
@@ -185,22 +264,23 @@ cudaError_t launch(const void* acc_in, void* acc_out, const void* a_idx,
                    const void* bsk, const void* tw, int B, int n, int Q,
                    int g_bits, int digits, int throw_digits,
                    cudaStream_t stream) {
-  const size_t smem = 8 * (size_t(1) << LOGN) * sizeof(uint32_t);
+  const size_t N = size_t(1) << LOGN;
+  const size_t smem = 8 * N * sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
       blind_rotate_kernel<LOGN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  blind_rotate_kernel<LOGN><<<B, NT, smem, stream>>>(
+  blind_rotate_kernel<LOGN><<<B, N / 8, smem, stream>>>(
       static_cast<const uint32_t*>(acc_in), static_cast<uint32_t*>(acc_out),
       static_cast<const int32_t*>(a_idx), static_cast<const uint32_t*>(bsk),
-      static_cast<const uint32_t*>(tw), n, (uint32_t)Q, g_bits, digits,
-      throw_digits);
+      static_cast<const uint32_t*>(tw), n, (uint32_t)Q, g_bits < 28 ? g_bits : 28,
+      digits, throw_digits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// acc_in/acc_out [B][2][N], a_idx [B][n] int32, bsk [n][8*d2][N], tw [8][N].
+// acc_in/acc_out [B][2][N], a_idx [B][n] int32, bsk [n][8*d2][N], tw [4][N].
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int tfhe_blind_rotate(const void* acc_in, void* acc_out,
                                  const void* a_idx, const void* bsk,

@@ -8,8 +8,9 @@
 // half-length 1 .. N/2 and psi^-brv(m), N^-1 folded into the last stage:
 // entry 0 of the inverse table holds N^-1 and entry 1 psi^-brv(1) N^-1. The
 // stage of half-length 2^b reads entry (N | j) >> (b + 1) for the pair
-// (j, j + 2^b). Tables and their 32-bit Shoup companions are built by
-// tfhe_tpu_torch/ops/rotate_rns_kernel.py:_twiddles.
+// (j, j + 2^b). The tables are tfhe_tpu_torch/ops/ntt.py:merged_tables; the
+// wrappers rotate_kernel._twiddles and rotate_rns_kernel._twiddles upload
+// them with their 32-bit Shoup companions.
 //
 // Ownership. Each thread holds 8 coefficients of a polynomial in registers
 // and runs three radix-2 stages on them, those of the bits C, C-1, C-2 of

@@ -14,7 +14,8 @@ peak. Here, as in the reference, the selected rows of the flat table
 `[N * baseKS * dc, n + 1]` are summed: a float64 table summed by
 `embedding_bag`, which never writes the selected rows out. Every partial sum
 is an integer below 2^53 (2048 rows below 2^14 at STD128, 14336 rows below
-2^35 at the accelerated sets), so the float64 sums are exact in any order.
+2^35 at the accelerated sets; `row_sums` splits the rows where they would
+not be), so the float64 sums are exact in any order.
 On an NVIDIA H100 80GB HBM3 (700 W) at batch 4096 this took 14.3 ms at
 STD128 and 265.6 ms at the accelerated sets, against 28.8 and 736.0 ms for
 gathering the selected rows from an integer table and summing them
@@ -70,10 +71,18 @@ def key_rows(a1: torch.Tensor, N: int, base_ks: int,
 
 def row_sums(table: torch.Tensor, rows: torch.Tensor, q_ks: int) -> torch.Tensor:
     """The sums of the selected rows of the float64 table, [B, n + 1] int64
-    mod qKS."""
-    if rows.shape[1] * (q_ks - 1) >= (1 << 53):
-        raise ValueError("float64 row sums would not be exact")
-    return mod(F.embedding_bag(rows, table, mode="sum").to(torch.int64), q_ks)
+    mod qKS. The rows are summed in chunks small enough that every float64
+    partial sum stays an exact integer below 2^53 (one chunk at every set
+    of the tables; several where N * dc * (qKS - 1) reaches 2^53, as at
+    N = 2048, qKS = 2^39, baseKS = 16); the chunks' sums are added in
+    int64."""
+    chunk = ((1 << 53) - 1) // (q_ks - 1)
+    total = None
+    for i in range(0, rows.shape[1], chunk):
+        part = mod(F.embedding_bag(rows[:, i:i + chunk].contiguous(), table,
+                                   mode="sum").to(torch.int64), q_ks)
+        total = part if total is None else mod(total + part, q_ks)
+    return total
 
 
 def mkm_switch(a_ext: torch.Tensor, b_ext: torch.Tensor, table: torch.Tensor,

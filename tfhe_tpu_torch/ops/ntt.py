@@ -6,8 +6,9 @@ Gentleman-Sande stages with half-length N/2 .. 1, taking natural order to
 **bit-reversed evaluation order**; inverse = Cooley-Tukey stages with
 half-length 1 .. N/2, then untwist by psi^-j / N. The evaluation order is
 the one the packed bootstrapping keys are stored in
-(`rotate_kernel.pack_bsk`, `rotate_rns_kernel.pack_bsk_rns`), and the hand
-kernels read the same `tables`.
+(`rotate_kernel.pack_bsk`, `rotate_rns_kernel.pack_bsk_rns`); the 32-bit
+hand kernels run a negacyclic NTT with merged twiddles (`merged_tables`)
+that gives the same order, and the 64-bit kernel reads `tables`.
 
 Values are int64 residues mod Q on the last axis. Below 2^31 a product of
 two residues is exact in int64 and reduced with `%`; for Q up to 2^54 (the
@@ -43,6 +44,25 @@ def tables(N: int, Q: int) -> np.ndarray:
         h = 1 << k
         inv[h:2 * h] = sch["inv_w"][k][h:2 * h]
     return np.stack([sch["twist"], fwd, inv, sch["untwist"]])
+
+
+def merged_tables(N: int, q: int) -> np.ndarray:
+    """int64 [2, N]: the merged-twiddle NTT's tables mod q (see
+    csrc/register_ntt.cuh), for the hand kernels `rotate_kernel` and
+    `rotate_rns_kernel` launch. Forward: entry m >= 1 is psi^brv(m), the
+    Cooley-Tukey twiddle of block m - m0 at the stage with m0 blocks;
+    entry 0 is 1 (its Shoup companion floor(2^32 / q) reduces the lazy
+    sums). Inverse: entry m >= 2 is psi^-brv(m), the Gentleman-Sande
+    twiddle; entry 1 is psi^-brv(1) N^-1 and entry 0 N^-1, the last
+    stage's two factors. psi is the root of `forward`'s twist, so the
+    merged forward's output order is `forward`'s."""
+    sch = schedule(N, q)
+    psi, brv = int(sch["twist"][1]), sch["bitrev"]
+    psi_inv, n_inv = pow(psi, -1, q), pow(N, -1, q)
+    fwd = [pow(psi, int(e), q) for e in brv]
+    inv = [pow(psi_inv, int(e), q) for e in brv]
+    fwd[0], inv[0], inv[1] = 1, n_inv, inv[1] * n_inv % q
+    return np.array([fwd, inv], dtype=np.int64)
 
 
 @functools.lru_cache(maxsize=None)

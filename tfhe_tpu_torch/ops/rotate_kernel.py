@@ -44,9 +44,11 @@ def pack_bsk(bsk_hat: np.ndarray, Q: int) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _twiddles(N: int, Q: int, device: str) -> torch.Tensor:
-    """int32 [8, N]: each row of ntt.tables followed by its Shoup companions."""
-    t = torch.from_numpy(ntt.tables(N, Q).astype(np.int64))
-    return _with_shoup(t, Q).reshape(8, N).to(device)
+    """int32 [4, N]: the rows forward, forward', inverse, inverse' of
+    `ntt.merged_tables` (x' = Shoup companion, the int32 view of its u32
+    bits)."""
+    t = torch.from_numpy(ntt.merged_tables(N, Q))
+    return _with_shoup(t, Q).reshape(4, N).to(device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -19,6 +19,7 @@ import torch
 
 from . import _build
 from .blindrotate_rns import blind_rotate_rns
+from .ntt import merged_tables
 from .ntt_sched import schedule
 from .rotate_kernel import _with_shoup
 from ..ref import ntt as ref_ntt
@@ -41,24 +42,6 @@ def pack_bsk_rns(bsk_coeff: np.ndarray, q1: int, q2: int) -> torch.Tensor:
         bh = np.swapaxes(bh, 2, 3).reshape(n, 4 * d2, N)     # [n, key*out*d2, N]
         out[:, lane * 4 * d2:(lane + 1) * 4 * d2] = (bh << np.uint64(32)) // np.uint64(qi)
     return torch.from_numpy(out.view(np.int32))
-
-
-def merged_tables(N: int, q: int) -> np.ndarray:
-    """int64 [2, N]: the merged-twiddle NTT's tables mod q (see
-    csrc/register_ntt.cuh). Forward: entry m >= 1 is psi^brv(m), the
-    Cooley-Tukey twiddle of block m - m0 at the stage with m0 blocks;
-    entry 0 is 1 (its Shoup companion floor(2^32 / q) reduces the lazy
-    sums). Inverse: entry m >= 2 is psi^-brv(m), the Gentleman-Sande
-    twiddle; entry 1 is psi^-brv(1) N^-1 and entry 0 N^-1, the last
-    stage's two factors. psi is the root of ntt.forward's twist, so the
-    forward's output order is ntt.forward's."""
-    t = ref_ntt._tables(N, q)
-    psi, brv = int(t["twist"][1]), t["bitrev"]
-    psi_inv, n_inv = pow(psi, -1, q), pow(N, -1, q)
-    fwd = [pow(psi, int(e), q) for e in brv]
-    inv = [pow(psi_inv, int(e), q) for e in brv]
-    fwd[0], inv[0], inv[1] = 1, n_inv, inv[1] * n_inv % q
-    return np.array([fwd, inv], dtype=np.int64)
 
 
 @functools.lru_cache(maxsize=None)
