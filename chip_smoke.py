@@ -51,6 +51,10 @@ EARLIER_RNS_MS = 1925.602
 # stage through shared memory, values and companions read), on an NVIDIA H100
 # 80GB HBM3 at 700 W, by this script
 EARLIER_GATE_MS = 245.621
+# blind_rotate64 at STD128Q, B = 4096, n = 1024 in its earlier design (every
+# NTT stage through shared memory, separate twist and untwist passes, a
+# Barrett pass), on an NVIDIA H100 80GB HBM3 at 700 W, by this script
+EARLIER_R64_MS = 1743.611
 
 
 def check(cond: bool, msg: str) -> None:
@@ -160,6 +164,36 @@ def gate_cases():
                     continue
                 cases += [(N, Q, d2, GATE_BASES[d2], throw) for throw in (0, 1)]
     return cases + [(512, 268369921, 2, 1 << 31, 1)]
+
+
+def rotate64_cases() -> dict:
+    """name -> (N, Q, base, d2, throw) of every case blind_rotate64 is held
+    to: each two-limb row of the 17-set matrix with distinct (N, Q, base,
+    d2), namely STD128Q (Q of 50 bits, base 2^25, d2 = 4), STD192 (37 bits,
+    2^14, d2 = 6), STD192_OPT (2^13), STD192Q (35 bits, 2^14, d2 = 6),
+    STD192Q_OPT (2^12) and STD256 (29 bits, 2^8, d2 = 8), the _OPT rows of
+    STD128Q and STD256 sharing their rows' shapes; the reference's 54-bit
+    prime at the accelerated sets' bases (2^18, d2 = 4, and 2^27, d2 = 2,
+    throw 1); and the smaller rings at 54-bit primes: N = 256 as the
+    accelerated sets' 2^18, N = 512 at base 2^27 with no throw, N = 1024 at
+    base 2^9 with four kept digits and two thrown, and N = 512 at base 2
+    (a 40-bit prime, 36 digits thrown)."""
+    from tfhe_tpu_torch import ParamSet, from_param_set
+    from tfhe_tpu_torch.utils.numtheory import ntt_prime
+
+    cases = {}
+    for ps in (ParamSet.STD128Q, ParamSet.STD192, ParamSet.STD192_OPT, ParamSet.STD192Q,
+               ParamSet.STD192Q_OPT, ParamSet.STD256):
+        rg = from_param_set(ps).rgsw
+        cases[ps.name] = (rg.N, rg.Q, rg.base_g, rg.digits_g2, rg.num_digits_to_throw)
+    q54 = ntt_prime(54, 2 * 2048)
+    cases["Q54, base 2^18"] = (2048, q54, 1 << 18, 4, 1)
+    cases["Q54, base 2^27"] = (2048, q54, 1 << 27, 2, 1)
+    cases["N=256, Q54, base 2^18"] = (256, ntt_prime(54, 2 * 256), 1 << 18, 4, 1)
+    cases["N=512, Q54, base 2^27"] = (512, ntt_prime(54, 2 * 512), 1 << 27, 2, 0)
+    cases["N=1024, Q54, base 2^9"] = (1024, ntt_prime(54, 2 * 1024), 1 << 9, 8, 2)
+    cases["N=512, Q40, base 2"] = (512, ntt_prime(40, 2 * 512), 2, 8, 36)
+    return cases
 
 
 def gate_kernel_vs_plain(rng, Q: int, peak: float) -> dict:
@@ -281,43 +315,35 @@ def rns_kernel_vs_plain(rng, q1: int, q2: int, peak: float) -> dict:
     return {"max_abs_err": worst, **timing}
 
 
-def rotate64_kernel_vs_plain(rng, peak: float) -> dict:
-    """blind_rotate64 against its plain version on the card at N = 2048,
-    with tolerance 0 (torch.equal): STD128Q (Q of 50 bits, base 2^25, d2 =
-    4), the reference's 54-bit prime at the accelerated sets' bases (2^18,
-    d2 = 4, and 2^27, d2 = 2, throw 1), STD192 (37 bits, base 2^14, d2 = 6)
-    and STD256 (29 bits, base 2^8, d2 = 8), and a 54-bit prime at the
-    smallest ring the kernel takes (N = 256), at B = 64 over 16 rounds; then
-    STD128Q at B = 256 over all 1024 rounds (the returned timing). Then the
-    main paths' own shapes, all rounds: STD128Q at B = GATE_BATCH, n = 1024
+def rotate64_kernel_vs_plain(rng, peak: float) -> tuple[dict, dict]:
+    """blind_rotate64 against its plain version on the card with tolerance
+    0 (torch.equal): every case of `rotate64_cases` at B = 64 over 16
+    rounds, rows 0, 1 and 2 of the exponents 0, N and 2N - 1 in all rounds;
+    then STD128Q at B = 256 over all 1024 rounds (the first timing
+    returned). Then the main paths' own shapes, all rounds: STD128Q at B = GATE_BATCH, n = 1024
     (the NAND) and the 54-bit prime at B = SIGN64_BATCH, n = 1305, d2 = 4
     and d2 = 2 (EvalSign); there the plain version runs on ROWS of the same
     inputs (its time over the whole batch would be minutes) and those rows
     of the kernel's output must equal it, and the kernel's own launches are
-    timed against their bound. Last, the kernel alone at the 54-bit prime,
-    B = GATE_BATCH, n = 1305, d2 = 4. The key holds valid companions of
-    random values < Q."""
+    timed against their bound; those timings are returned beside the first.
+    Last, the kernel alone at the 54-bit prime, B = GATE_BATCH, n = 1305,
+    d2 = 4. The key holds valid companions of random values < Q. Returns
+    (the kernels line's numbers, the main shapes' timings)."""
     import numpy as np
     import torch
 
-    from tfhe_tpu_torch import ParamSet, from_param_set
     from tfhe_tpu_torch.ops import blindrotate64, rotate64_kernel
     from tfhe_tpu_torch.ops.modmath import shoup64
-    from tfhe_tpu_torch.utils.numtheory import ntt_prime
 
-    q54 = ntt_prime(54, 2 * 2048)
-    cases = {name: (rg.N, rg.Q, rg.base_g, rg.digits_g2, rg.num_digits_to_throw)
-             for name, rg in ((ps.name, from_param_set(ps).rgsw) for ps in
-                              (ParamSet.STD128Q, ParamSet.STD192, ParamSet.STD256))}
-    cases["Q54, base 2^18"] = (2048, q54, 1 << 18, 4, 1)
-    cases["Q54, base 2^27"] = (2048, q54, 1 << 27, 2, 1)
-    cases["N=256, Q54, base 2^18"] = (256, ntt_prime(54, 2 * 256), 1 << 18, 4, 1)
+    cases = rotate64_cases()
     worst = 0
 
     def inputs(name, B, n, key=None):
         N, Q, base_g, d2, throw = cases[name]
         acc = torch.from_numpy(rng.integers(0, Q, (B, 2, N))).cuda()
-        a_idx = torch.from_numpy(rng.integers(0, 2 * N, (B, n)).astype(np.int32)).cuda()
+        a_np = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
+        a_np[:3] = np.array([0, N, 2 * N - 1], dtype=np.int32)[:, None]
+        a_idx = torch.from_numpy(a_np).cuda()
         if key is None:
             key = torch.from_numpy(shoup64(rng.integers(0, Q, (n, 4 * d2, N)), Q)).cuda()
         return acc, a_idx, key
@@ -370,12 +396,20 @@ def rotate64_kernel_vs_plain(rng, peak: float) -> dict:
             f"{ms:.3f} ms, plain torch on the {len(rows)} rows {plain_ms:.3f} ms, bound "
             f"{b_ms:.3f} ms by {b_by}, kernel at {100 * b_ms / ms:.1f}% of it "
             f"({time.time() - t0:.1f} s)")
+        shapes[f"{name}, B={B}, n={n}"] = {"ms": ms, "first_ms": first_ms,
+                                           "bound_ms": b_ms, "share": b_ms / ms}
         return key
 
+    shapes = {}
     for name in cases:
         compare(name, 64, 16)
     timing = compare("STD128Q", 256, 1024)
     compare_rows("STD128Q", GATE_BATCH, 1024)
+    ms = shapes[f"STD128Q, B={GATE_BATCH}, n=1024"]["ms"]
+    log(f"blind_rotate64 at STD128Q B={GATE_BATCH} n=1024: {ms:.3f} ms; the earlier "
+        f"design (every NTT stage through shared memory, twist and untwist passes, a "
+        f"Barrett pass) took {EARLIER_R64_MS} ms on an NVIDIA H100 80GB HBM3 at 700 W: "
+        f"{EARLIER_R64_MS / ms:.2f}x")
     key = compare_rows("Q54, base 2^18", SIGN64_BATCH, LWE_N_ACC)
     compare_rows("Q54, base 2^27", SIGN64_BATCH, LWE_N_ACC)
     kernel, _ = launchers("Q54, base 2^18", *inputs("Q54, base 2^18", GATE_BATCH,
@@ -385,7 +419,9 @@ def rotate64_kernel_vs_plain(rng, peak: float) -> dict:
     b_ms, b_by = bound(GATE_BATCH, LWE_N_ACC, 2048, 4, 1, peak, word=8)
     log(f"blind_rotate64 alone at Q54, base 2^18 B={GATE_BATCH} n={LWE_N_ACC}: {ms:.3f} "
         f"ms, bound {b_ms:.3f} ms by {b_by}, kernel at {100 * b_ms / ms:.1f}% of it")
-    return {"max_abs_err": worst, **timing}
+    shapes[f"Q54, base 2^18, B={GATE_BATCH}, n={LWE_N_ACC}"] = {
+        "ms": ms, "bound_ms": b_ms, "share": b_ms / ms}
+    return {"max_abs_err": worst, **timing}, shapes
 
 
 def toy_gates(rng) -> None:
@@ -836,9 +872,8 @@ def main() -> int:
     t0 = time.time()
     _build.build()
     for name in _build.KERNELS:
-        for line in _build.LOGS.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"{name}: {line.strip()}")
+        for line in _build.ptxas_report(name):
+            log(f"{name}: {line}")
     log(f"built csrc/{{{','.join(_build.KERNELS)}}}.cu for sm_90a in "
         f"{time.time() - t0:.1f} s")
     peak = int32_peak_per_s()
@@ -848,7 +883,7 @@ def main() -> int:
     gate_timing = gate_kernel_vs_plain(rng, from_param_set(ParamSet.STD128).lwe.Q, peak)
     q1, q2 = from_gpu_style(ParamSet.STD128, True, 12).rgsw.rns_primes
     rns_timing = rns_kernel_vs_plain(rng, q1, q2, peak)
-    r64_timing = rotate64_kernel_vs_plain(rng, peak)
+    r64_timing, _ = rotate64_kernel_vs_plain(rng, peak)
     log(f"kernels against their plain versions: {time.time() - t0:.1f} s")
 
     # the gate path, counts read just after it

@@ -52,8 +52,7 @@ def kernel_only(card: str) -> None:
 
     t0 = time.time()
     _build.build(("blind_rotate",))
-    ptxas = [ln.strip() for ln in _build.LOGS.get("blind_rotate", "").splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = _build.ptxas_report("blind_rotate")
     for ln in ptxas:
         print(f"ptxas: {ln}", flush=True)
     rec = {"phase": "gate_kernel", "card": card, "build_s": time.time() - t0, "ptxas": ptxas}

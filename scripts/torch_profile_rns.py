@@ -189,8 +189,7 @@ def kernel_only(card: str, ncu: bool) -> None:
 
     t0 = time.time()
     _build.build(("blind_rotate_rns",))
-    ptxas = [ln.strip() for ln in _build.LOGS.get("blind_rotate_rns", "").splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = _build.ptxas_report("blind_rotate_rns")
     for ln in ptxas:
         print(f"ptxas: {ln}", flush=True)
     build_s = time.time() - t0

@@ -2,6 +2,7 @@
 """Where the time of the port's two-limb bootstraps goes, on one GPU.
 
     python3 scripts/torch_profile_twolimb.py [--nand-batch B] [--sign-batch B]
+    python3 scripts/torch_profile_twolimb.py --kernel-only
 
 Two phases, each with host keygen, `device_setup("cuda")`, a first call
 checked by decryption, one warm host-clock call, then one call under
@@ -22,14 +23,31 @@ download). Prints one JSON line per phase: walls, the host clocks, device
 busy seconds (kernel self time on the one stream), the idle share 1 - busy
 / profiled wall, and the device time of the rotation (`blind_rotate64`),
 the key switch's row sums (`embedding_bag`), the copies between host and
-device and the rest. Imports no jax.
+device and the rest.
+
+With `--kernel-only` (a few minutes): builds `csrc/blind_rotate64.cu` and
+prints what ptxas says of its registers and spills; counts the SASS
+instructions of one 64-bit lazy Shoup product, of one key value rebuilt
+from its companion (hi64((b' + 1) Q)) and, as a yardstick, of one 32-bit
+Shoup product (`cuobjdump -sass` of chains of 8 and 16 of each, compiled
+from `csrc/register_ntt64.cuh`; the difference over 8), and writes the
+kernel's SASS and its opcode counts to `chiprun_out/blind_rotate64.sass`;
+then runs `chip_smoke.rotate64_kernel_vs_plain`: the kernel held to its
+plain version (`torch.equal`) in every case of `chip_smoke.rotate64_cases`
+(B = 64, n = 16), at STD128Q B = 256 over all 1024 rounds, and at the main
+paths' shapes (STD128Q B = 4096, n = 1024; the 54-bit prime B = 1024,
+n = 1305, d2 = 4 and 2; on 129 rows), each timed with CUDA events against
+`chip_smoke.bound`, on random keys, without keygen. Prints one JSON line.
+Imports no jax.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -161,10 +179,123 @@ def run_phase(phase: str, B: int, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+PROBE = r"""
+#include <cuda_runtime.h>
+#include "register_ntt64.cuh"
+using rntt64::u64;
+template <int K> __global__ void shoup64(u64* o, u64 w, u64 ws, u64 q) {
+  u64 x = o[threadIdx.x];
+#pragma unroll
+  for (int i = 0; i < K; ++i) x = rntt64::mulmod_lazy(x, w, ws, q);
+  o[threadIdx.x] = x;
+}
+template <int K> __global__ void rebuild64(u64* o, u64 q) {
+  u64 x = o[threadIdx.x];
+#pragma unroll
+  for (int i = 0; i < K; ++i) x = __umul64hi(x + 1, q);
+  o[threadIdx.x] = x;
+}
+template <int K> __global__ void shoup32(uint32_t* o, uint32_t w, uint32_t ws, uint32_t q) {
+  uint32_t x = o[threadIdx.x];
+#pragma unroll
+  for (int i = 0; i < K; ++i) x = rntt::mulmod_lazy(x, w, ws, q);
+  o[threadIdx.x] = x;
+}
+template __global__ void shoup64<8>(u64*, u64, u64, u64);
+template __global__ void shoup64<16>(u64*, u64, u64, u64);
+template __global__ void rebuild64<8>(u64*, u64);
+template __global__ void rebuild64<16>(u64*, u64);
+template __global__ void shoup32<8>(uint32_t*, uint32_t, uint32_t, uint32_t);
+template __global__ void shoup32<16>(uint32_t*, uint32_t, uint32_t, uint32_t);
+"""
+# IMAD forms that multiply (IMAD.MOV, .IADD and .SHL are moves, adds, shifts)
+MULTIPLY = re.compile(r"^IMAD(\.WIDE|\.HI|\.X|\.U32|$)")
+
+
+def sass_opcodes(path: str) -> dict[str, collections.Counter]:
+    """Opcode counts (NOPs left out) of each kernel in the cubin or shared
+    library at `path`, by `cuobjdump -sass`."""
+    from tfhe_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and name and not m.group(1).startswith("NOP"):
+            out[name][m.group(1)] += 1
+    return out
+
+
+def probe_costs() -> dict:
+    """SASS instructions (and multiplies among them) per 64-bit lazy Shoup
+    product, per key value rebuilt from its companion, and per 32-bit lazy
+    Shoup product: (chain of 16 - chain of 8) / 8, each op on the result of
+    the one before."""
+    from tfhe_tpu_torch.ops import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(_build.BUILD_DIR, "probe64.cu")
+    cubin = os.path.join(_build.BUILD_DIR, "probe64.cubin")
+    with open(src, "w") as f:
+        f.write(PROBE)
+    subprocess.run([_build._nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-I", _build._CSRC, "-o", cubin, src], check=True)
+    ops = sass_opcodes(cubin)
+    costs = {}
+    for probe in ("shoup64", "rebuild64", "shoup32"):
+        count = {k: next(c for n, c in ops.items() if probe in n and f"ILi{k}E" in n)
+                 for k in (8, 16)}
+        diff = count[16] - count[8]
+        costs[probe] = {
+            "instructions": sum(diff.values()) / 8,
+            "multiplies": sum(v for op, v in diff.items() if MULTIPLY.match(op)) / 8,
+            "by_opcode": {op: v / 8 for op, v in sorted(diff.items())}}
+    return costs
+
+
+def kernel_only(card: str) -> None:
+    """Build, count, check and time blind_rotate64 alone (see the module
+    doc)."""
+    import chip_smoke
+    from tfhe_tpu_torch.ops import _build
+
+    t0 = time.time()
+    _build.build(("blind_rotate64",))
+    ptxas = _build.ptxas_report("blind_rotate64")
+    for ln in ptxas:
+        print(f"ptxas: {ln}", flush=True)
+    rec = {"phase": "rotate64_kernel", "card": card, "build_s": time.time() - t0,
+           "ptxas": ptxas}
+    rng = np.random.default_rng(chip_smoke.SEED)
+    line, rec["shapes"] = chip_smoke.rotate64_kernel_vs_plain(
+        rng, chip_smoke.int32_peak_per_s())
+    rec.update(line)
+    rec["share"] = rec["bound_ms"] / rec["ms"]
+    print(json.dumps(rec), flush=True)
+
+    kernels = sass_opcodes(_build._lib_path("blind_rotate64"))
+    with open(os.path.join(OUT, "blind_rotate64.sass"), "w") as f:
+        for name, ops in kernels.items():
+            mult = sum(v for op, v in ops.items() if MULTIPLY.match(op))
+            f.write(f"{name}: {sum(ops.values())} instructions, {mult} multiplies\n")
+            for op, v in ops.most_common():
+                f.write(f"  {op} {v}\n")
+    print(json.dumps({"sass_per_op": probe_costs(), "sass_instructions": {
+        name: sum(ops.values()) for name, ops in kernels.items()}}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--nand-batch", type=int, default=4096)
     ap.add_argument("--sign-batch", type=int, default=1024)
+    ap.add_argument("--kernel-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
@@ -173,6 +304,8 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     os.makedirs(OUT, exist_ok=True)
+    if args.kernel_only:
+        return kernel_only(card)
     run_phase("nand", args.nand_batch, card)
     run_phase("sign", args.sign_batch, card)
 

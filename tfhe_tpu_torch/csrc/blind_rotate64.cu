@@ -5,65 +5,89 @@
 //
 // Replaces the Pallas TPU kernel
 // tfhe_tpu/ops/pallas_rotate64.py:build_pallas_rotate64 and computes what it
-// computes, bit for bit. Each of n rounds: the accumulator centred (x >= Q/2
-// is negative), numDigitsToThrow balanced base-G digits dropped, each next
-// digit pair through the forward negacyclic NTT, the lazy external product
-// with the round's +s and -s RGSW keys, one exact reduction, the inverse
+// computes, bit for bit: for each of n rounds, the accumulator centred
+// (x >= Q/2 is negative), numDigitsToThrow balanced base-G digits dropped,
+// each kept digit pair through the forward negacyclic NTT, the lazy external
+// product with the round's +s and -s RGSW keys, one reduction, the inverse
 // NTT, the (X^a - 1) and (X^-a - 1) monomials and the accumulation. Every
 // step is exact modular arithmetic, so the result equals the plain torch
 // version (tfhe_tpu_torch/ops/blindrotate64.py) and the JAX package exactly.
+// The TPU's (lo, hi) u32-pair arithmetic is plain 64-bit arithmetic here.
 //
-// Design. As in blind_rotate.cu, one thread block owns one ciphertext for
-// all n rounds, and the loop over rounds inside the block replaces the TPU's
-// sequential `rounds` grid axis. The TPU's (lo, hi) u32-pair arithmetic
-// (_mul64_full, _mulmod_shoup64_lazy, _csub, sra64) is plain 64-bit integer
-// arithmetic here: a lazy Shoup product is a * w - __umul64hi(a, w') * Q in
-// wrapping u64, in [0, 2Q) for any 64-bit a. Values stay below 2Q through
-// the forward NTT; a digit's four external-product terms add two products
-// each, so after d2/2 digits a sum is below 2Q * d2 < 2^62, and one Barrett
-// step (the constant floor(2^(64+s) / Q), s = bits(Q) - 1, and one
-// conditional subtract) makes it canonical before the inverse NTT, whose
-// values stay below 2Q until the untwist. No 64-bit `%`, which the GPU
-// emulates. Shared memory at N = 2048: the accumulator [2][N], one digit
-// pair [2][N] and the four lazy sums [4][N], all u64: 128 KB, one block per
-// SM. The twiddles and their companions ([8][N] u64, 128 KB) are read
-// through the read-only cache. The key holds only the 64-bit companions b'
-// (the layout of pack_bsk64, bit-reversed evaluation order); each value is
-// rebuilt as hi64(b' Q) + (lo64(b' Q) != 0), which halves the key stream:
-// 8 B x 4 d2 x N per round, 256 KB at d2 = 4.
+// Design: blind_rotate.cu's carried to 64-bit words, with each ciphertext's
+// two polynomials on two halves of the block. One thread block of N/4
+// threads owns one ciphertext for all n rounds; the loop over rounds inside
+// the block replaces the TPU's sequential `rounds` grid axis. Half h (N/8
+// threads) owns polynomial h of the accumulator, 8 coefficients a thread,
+// coefficient t + k N/8 of thread t, in registers for all rounds, and runs
+// the NTTs in registers (register_ntt64.cuh): merged twiddles, so no twist
+// or untwist pass, N^-1 folded into the inverse's last stage, three radix-2
+// stages per register group (3 + 3 + 3 + 2 at N = 2048) with one block-wide
+// exchange per transform through swizzled shared memory held as two u32
+// planes. A round:
+// - each thread centres its 8 coefficients, drops the thrown digits once
+//   and keeps the rest in int64 registers, from which each kept digit is
+//   taken in turn: no digit is recomputed;
+// - per kept digit: the forward NTT of polynomial h's digit, its values left
+//   in the forward's buffer, where after one barrier the other half reads
+//   them at the same points; then the lazy external product on the thread's
+//   8 consecutive evaluation points for outputs ko = h (key +s) and 2 + h
+//   (key -s) of output polynomial h (a warp reads 2 KB of each key row, in
+//   16-byte loads). The key holds only the 64-bit companions b'
+//   (pack_bsk64's layout); each value is rebuilt as hi64((b' + 1) Q). The
+//   sums wait in shared memory;
+// - the sums (< 2Q d2 < 2^62) reduced by one Shoup product with the
+//   companion of 1 (forward entry 0), the inverse NTT of the half's two
+//   outputs, written once and read back rotated for the monomials, the
+//   accumulation (< 5Q) reduced by three min-based conditional
+//   subtractions. No runtime `%`, no Barrett pass.
+// Barriers per round at N >= 512: two per digit (the forward's block-wide
+// exchange, the digit's crossing to the other half), one for the inverse's
+// exchange, two around the monomials: 7 at d2 = 4 (about 40 before). Shared
+// memory per half: the forward's buffer [2 parities][2 planes][N] u32,
+// double-buffered by digit parity because the next digit's block-wide
+// exchange would otherwise overwrite words a slower warp (or the other half)
+// still reads, and the inverse's buffer [2][2 planes][N] u32, which also
+// holds the waiting sums and the inverse's output ([2][N] u64, natural
+// order): 64 N bytes a block, 128 KB at N = 2048, so one block of 512
+// threads, 16 warps, per SM at 128 registers a thread. Splitting the
+// polynomials over two halves is what buys those 16 warps: one thread for
+// both polynomials (N/8 threads, 8 warps, 226-250 registers) took 1722.775
+// ms at STD128Q, B = 4096, n = 1024, and 16 warps 1137.118 ms in the same
+// call. Twiddles and keys are read with coherent loads and each transform
+// takes the thread index anew from shared memory, so that ptxas does not
+// hoist one transform's loads or addresses into another's registers.
+// __launch_bounds__(N/4, 1): 128 registers at N = 2048, 146-152 below it
+// (one to three blocks a SM), no spills at any N.
 //
 // What bounds it: counted as 32-bit multiplies (the lo and hi halves of a
 // 32x32 product counted apart, as for the other two kernels), a 64-bit
-// Shoup product costs 15: 7 for the high word of the 128-bit a * w', 4
-// each for the low words of a * w and q_hat * Q. A round at N = 2048 and
-// d2 = 4 needs 122880 of those products per ciphertext (no separate twist
-// or untwist with merged twiddles, no key values rebuilt in a layout that
-// stores them), 1.84e6 multiplies. So it is bound by operations: at STD128Q
-// (B = 4096, n = 1024) the bound over 132 SMs x 64 lanes x the 1980 MHz
-// maximum SM clock is 462.2 ms, and the kernel took 1754.1 ms, 26% of it
-// (chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W), against 12-14% for
-// the 32-bit kernels. That a 32x32 -> 64 product is one instruction
-// (IMAD.WIDE.U32) where the count takes two may explain part of the gap;
-// neither that nor what keeps the kernel at its share (one block per SM,
-// barriers, shared-memory traffic) is measured.
+// Shoup product costs 15: 7 for the high word of the 128-bit a * w', 4 each
+// for the low words of a * w and q_hat * Q. A round at N = 2048 and d2 = 4
+// needs 122880 of those products per ciphertext, 1.84e6 multiplies, so it is
+// bound by operations: at STD128Q (B = 4096, n = 1024) 462.2 ms over 132 SMs
+// x 64 lanes x the 1980 MHz maximum SM clock (chip_smoke.py). In SASS a
+// lazy Shoup product is 17 instructions, 10 of them multiplies (6 of those
+// IMAD.WIDE), and each key value rebuilt from its companion (16 N a round,
+// not in the bound) 9.4 instructions, 4 of them multiplies
+// (scripts/torch_profile_twolimb.py --kernel-only). Measured on an NVIDIA
+// H100 80GB HBM3 at 700 W (scripts/torch_profile_twolimb.py --kernel-only):
+// 1137.118 ms at STD128Q, B = 4096, n = 1024, 40.6% of the bound; the
+// earlier design (every NTT stage through shared memory, separate twist and
+// untwist passes, digits recomputed from the start, a Barrett pass, about 40
+// barriers a round, 16 warps) took 1743.611 ms there, 26.5%.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "register_ntt64.cuh"
+
 namespace {
 
-typedef unsigned long long u64;
-
-constexpr int NT = 512;  // threads per block
-
-__device__ __forceinline__ u64 mulmod_lazy(u64 a, u64 w, u64 w_sh, u64 q) {
-  // (a * w mod q) + {0, q} for any a < 2^64, w < q, w_sh = floor(w 2^64 / q)
-  return a * w - __umul64hi(a, w_sh) * q;
-}
-
-__device__ __forceinline__ u64 csub(u64 x, u64 c) {
-  return x >= c ? x - c : x;
-}
+using rntt64::csub;
+using rntt64::ld_global2;
+using rntt64::mulmod_lazy;
+using rntt64::u64;
 
 // Balanced base-2^g_bits digit of d; d becomes (d - digit) >> g_bits.
 __device__ __forceinline__ int64_t extract(int64_t& d, int g_bits) {
@@ -75,161 +99,197 @@ __device__ __forceinline__ int64_t extract(int64_t& d, int g_bits) {
 }
 
 // acc_in/acc_out: [B][2][N] residues mod Q. bsk: [n][4*d2][N], row
-// (key*2 + out)*d2 + 2l + j, Shoup companions only. tw: [8][N] rows twist,
-// fwd, inv, untwist, then twist', fwd', inv', untwist' (x' = Shoup
-// companion), as `ntt.tables_on` holds them.
-// bar_m, bar_s: Barrett constant floor(2^(64+bar_s) / Q), bar_s = bits(Q)-1.
+// (key*2 + out)*d2 + 2l + j, Shoup companions only, points in the forward
+// NTT's order. tw: [2][N][2] u64, the forward and the inverse table of
+// register_ntt64.cuh, each entry beside its companion; forward entry 0 is 1,
+// so its companion floor(2^64 / Q) reduces the lazy sums.
 template <int LOGN>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__((1 << LOGN) / 4, 1)
 blind_rotate64_kernel(const u64* __restrict__ acc_in, u64* __restrict__ acc_out,
                       const int32_t* __restrict__ a_idx,
                       const u64* __restrict__ bsk, const u64* __restrict__ tw,
-                      int n, u64 Q, u64 bar_m, int bar_s, int g_bits,
-                      int digits, int throw_digits) {
+                      int n, u64 Q, int g_bits, int digits, int throw_digits) {
   constexpr int N = 1 << LOGN;
-  constexpr int HALF = N / 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  u64* acc = reinterpret_cast<u64*>(smem_raw);  // [2][N]
-  u64* x = acc + 2 * N;                         // [2][N]
-  u64* u = x + 2 * N;                           // [4][N]
+  constexpr int TG = N / 8;                 // threads per half
+  constexpr int G = rntt64::groups<LOGN>();
+  extern __shared__ __align__(16) uint32_t smem[];
+  // half h owns polynomial h of the accumulator, its digits' forward NTTs
+  // and the outputs ko = h and 2 + h of the external product
+  const int h = threadIdx.x / TG;
+  uint32_t* fbuf = smem + 4 * N * h;                  // [2 parities][2 planes][N]
+  const uint32_t* fbuf_other = smem + 4 * N * (1 - h);
+  uint32_t* ibuf = smem + 8 * N + 4 * N * h;          // [2][2 planes][N]
+  u64* out = reinterpret_cast<u64*>(ibuf);            // the inverse's output [2][N]
 
-  const u64* twist = tw;
-  const u64* fwd = tw + N;
-  const u64* inv = tw + 2 * N;
-  const u64* untwist = tw + 3 * N;
-  const u64* twist_sh = tw + 4 * N;
-  const u64* fwd_sh = tw + 5 * N;
-  const u64* inv_sh = tw + 6 * N;
-  const u64* untwist_sh = tw + 7 * N;
-
-  const int tid = threadIdx.x;
+  const int t = threadIdx.x % TG;
   const size_t b = blockIdx.x;
   const int d2 = 2 * digits;
-  const u64 two_q = 2 * Q;
+  const u64* fw = tw;
+  const u64* iw = tw + 2 * N;
+  const u64 red_sh = __ldg(fw + 1);         // floor(2^64 / Q)
   const u64 half_q = Q >> 1;
 
-  for (int i = tid; i < 2 * N; i += NT) acc[i] = acc_in[b * 2 * N + i];
+  // fresh(t) is t read anew from shared memory: the addresses each NTT makes
+  // from it are made where it runs, not kept in registers from another
+  // transform that made the same ones
+  __shared__ int zero;
+  auto fresh = [&](int v) { return v + *static_cast<volatile int*>(&zero); };
+
+  // the accumulator stays in registers: coefficient t + k N/8 of
+  // polynomial h in acc[k]
+  u64 acc[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc[k] = acc_in[(b * 2 + h) * N + t + k * TG];
+  if (threadIdx.x == 0) zero = 0;
   __syncthreads();
 
+  // the lazy sums of the digits wait in the half's inverse buffer, among
+  // the 256 words per plane that the warp's own first exchange of the
+  // inverse writes: register k of output i at words 32k + (t mod 32) of its
+  // two planes, so one base and constant offsets address all of them
+  uint32_t* sums = ibuf + 8 * (t & ~31) + (t & 31);
+
   for (int r = 0; r < n; ++r) {
-    const int m_pos = a_idx[b * n + r];
-    const int m_neg = (2 * N - m_pos) & (2 * N - 1);
-    const u64* key = bsk + (size_t)r * 4 * d2 * N;
+    const u64* key = bsk + ((size_t)r * 4 * d2 + h * d2) * N + 8 * t;
+
+    // the accumulator centred, the thrown digits dropped
+    int64_t d[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const u64 a = acc[k];
+      int64_t v = a < half_q ? int64_t(a) : int64_t(a) - int64_t(Q);
+      for (int i = 0; i < throw_digits; ++i) extract(v, g_bits);
+      d[k] = v;
+    }
+
+    // digit l of polynomial h through the forward NTT into x, and that of
+    // polynomial 1 - h from the other half into y: point 8t + k. The values
+    // cross through the forward's buffer, at the words of the thread's own
+    // last group, which the other half reads after a block-wide barrier
+    auto digit_forward = [&](int l, u64 (&x)[1][8], u64 (&y)[1][8]) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int64_t rr = extract(d[k], g_bits);
+        x[0][k] = rr < 0 ? u64(rr + int64_t(Q)) : u64(rr);
+      }
+      const int par = 2 * N * (l & 1);
+      rntt64::forward<LOGN, 0, 1>(x, fbuf + par, fresh(t), fw, Q);
+      __syncwarp();
+      rntt64::store<LOGN, G - 1, 1>(x, fbuf + par, t);
+      __syncthreads();
+      rntt64::load<LOGN, G - 1, 1>(y, fbuf_other + par, t);
+    };
+    // the lazy external product of digit l for output ko = h + 2i:
+    // p[k] = sum_j x_j K[key][out][2l + j] at point 8t + k, < 4Q; row
+    // 2l + h holds the companions for x, 2l + 1 - h those for y
+    auto product = [&](int l, int i, const u64 (&x)[8], const u64 (&y)[8], u64 (&p)[8]) {
+      const u64* ks = key + (size_t)(2 * i * d2 + 2 * l) * N;
+      const u64* k0 = ks + h * N;
+      const u64* k1 = ks + (1 - h) * N;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const ulonglong2 a = ld_global2(k0 + 2 * j), c = ld_global2(k1 + 2 * j);
+        const u64 s0[2] = {a.x, a.y}, s1[2] = {c.x, c.y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 2 * j + e;
+          const u64 v0 = __umul64hi(s0[e] + 1, Q), v1 = __umul64hi(s1[e] + 1, Q);
+          p[k] = mulmod_lazy(x[k], v0, s0[e], Q) + mulmod_lazy(y[k], v1, s1[e], Q);
+        }
+      }
+    };
 
     for (int l = 0; l < digits; ++l) {
-      // digit l of both polynomials, twisted on the way into x
-      for (int i = tid; i < 2 * N; i += NT) {
-        const u64 a = acc[i];
-        int64_t d = a >= half_q ? int64_t(a) - int64_t(Q) : int64_t(a);
-        int64_t rr = 0;
-        for (int k = 0; k <= throw_digits + l; ++k) rr = extract(d, g_bits);
-        const u64 dig = rr < 0 ? u64(rr + int64_t(Q)) : u64(rr);
-        const int j = i & (N - 1);
-        x[i] = mulmod_lazy(dig, __ldg(twist + j), __ldg(twist_sh + j), Q);
-      }
-      __syncthreads();
-      // Gentleman-Sande stages, values lazy in [0, 2Q)
-      for (int h = HALF; h >= 1; h >>= 1) {
-        for (int s = tid; s < 2 * HALF; s += NT) {
-          u64* y = x + (s >> (LOGN - 1)) * N;
-          const int k = s & (HALF - 1);
-          const int lo = k & (h - 1);
-          const int p = ((k - lo) << 1) | lo;
-          const u64 a0 = y[p], c = y[p + h];
-          y[p] = csub(a0 + c, two_q);
-          y[p + h] = mulmod_lazy(a0 + two_q - c, __ldg(fwd + h + lo),
-                                 __ldg(fwd_sh + h + lo), Q);
-        }
-        __syncthreads();
-      }
-      // lazy external product: u[key*2 + out] += sum_j x_j * K[key][out][2l + j]
-      for (int i = tid; i < N; i += NT) {
-        const u64 x0 = x[i], x1 = x[N + i];
-        for (int ko = 0; ko < 4; ++ko) {
-          const u64* ks = key + (size_t)(ko * d2 + 2 * l) * N + i;
-          const u64 s0 = __ldg(ks), s1 = __ldg(ks + N);
-          const u64 v0 = __umul64hi(s0, Q) + (s0 * Q != 0ull);
-          const u64 v1 = __umul64hi(s1, Q) + (s1 * Q != 0ull);
-          const u64 p = mulmod_lazy(x0, v0, s0, Q) + mulmod_lazy(x1, v1, s1, Q);
-          u[ko * N + i] = l == 0 ? p : u[ko * N + i] + p;
+      u64 x[1][8], y[1][8];
+      digit_forward(l, x, y);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        u64 p[8];
+        product(l, i, x[0], y[0], p);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          uint32_t* sp = sums + 2 * i * N + 32 * k;
+          const u64 s = l == 0 ? p[k] : (u64(sp[0]) | (u64(sp[N]) << 32)) + p[k];
+          sp[0] = uint32_t(s);
+          sp[N] = uint32_t(s >> 32);
         }
       }
-      __syncthreads();
     }
-
-    // exact reduction of the lazy sums (< 2Q d2 < 2^62): the Barrett
-    // quotient is floor(v / Q) or one less, so one subtract finishes it
-    for (int i = tid; i < 4 * N; i += NT) {
-      const u64 v = u[i];
-      const u64 t = __umul64hi(v, bar_m) >> bar_s;
-      u[i] = csub(v - t * Q, Q);
-    }
-    __syncthreads();
-    // Cooley-Tukey stages, values lazy in [0, 2Q)
-    for (int h = 1; h < N; h <<= 1) {
-      for (int s = tid; s < 4 * HALF; s += NT) {
-        u64* y = u + (s >> (LOGN - 1)) * N;
-        const int k = s & (HALF - 1);
-        const int lo = k & (h - 1);
-        const int p = ((k - lo) << 1) | lo;
-        const u64 a0 = y[p];
-        const u64 c = mulmod_lazy(y[p + h], __ldg(inv + h + lo),
-                                  __ldg(inv_sh + h + lo), Q);
-        y[p] = csub(a0 + c, two_q);
-        y[p + h] = csub(a0 + two_q - c, two_q);
+    u64 u[2][8];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t* sp = sums + 2 * i * N + 32 * k;
+        u[i][k] = u64(sp[0]) | (u64(sp[N]) << 32);
       }
-      __syncthreads();
-    }
-    for (int i = tid; i < 4 * N; i += NT) {
-      const int j = i & (N - 1);
-      u[i] = csub(mulmod_lazy(u[i], __ldg(untwist + j), __ldg(untwist_sh + j), Q), Q);
-    }
-    __syncthreads();
 
-    // acc[o] += (X^m_pos - 1) u[o] + (X^m_neg - 1) u[2 + o], each partial
-    // sum below 2Q before its conditional subtract
-    for (int i = tid; i < 2 * N; i += NT) {
-      const int o = i >> LOGN;
-      const int j = i & (N - 1);
-      const u64* c0 = u + o * N;
-      const u64* c1 = u + (2 + o) * N;
+    // one Shoup reduction of the lazy sums (< 2^62) to [0, 2Q), then the
+    // inverse NTT of the half's two outputs, N^-1 folded in
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) u[i][k] -= __umul64hi(u[i][k], red_sh) * Q;
+    rntt64::inverse<LOGN, G - 1, 2>(u, ibuf, fresh(t), iw, Q);
+
+    // acc += (X^m_pos - 1) u[0] + (X^m_neg - 1) u[1] (outputs h and 2 + h:
+    // keys +s and -s): write the inverse's output once over its buffer, when
+    // every thread has read its last exchange, and read it rotated
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        u[i][k] = csub(u[i][k], Q);
+        out[i * N + t + k * TG] = u[i][k];
+      }
+    __syncthreads();
+    const int m_pos = a_idx[b * n + r];
+    const int m_neg = (2 * N - m_pos) & (2 * N - 1);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int j = t + k * TG;
       const int r0 = (j - m_pos) & (2 * N - 1);
       const int r1 = (j - m_neg) & (2 * N - 1);
-      const u64 v0 = r0 < N ? c0[r0] : Q - c0[r0 - N];  // in [0, Q]
-      const u64 v1 = r1 < N ? c1[r1] : Q - c1[r1 - N];
-      u64 t = csub(acc[i] + v0, Q);
-      t = csub(t + (Q - c0[j]), Q);
-      t = csub(t + v1, Q);
-      acc[i] = csub(t + (Q - c1[j]), Q);
+      const u64 c0 = out[r0 & (N - 1)];
+      const u64 c1 = out[N + (r1 & (N - 1))];
+      const u64 v0 = r0 < N ? c0 : Q - c0;  // in [0, Q]
+      const u64 v1 = r1 < N ? c1 : Q - c1;
+      const u64 s = acc[k] + v0 + (Q - u[0][k]) + v1 + (Q - u[1][k]);
+      acc[k] = csub(csub(csub(s, 4 * Q), 2 * Q), Q);  // s < 5Q
     }
-    __syncthreads();
+    // the next round's sums and inverse overwrite the output only after its
+    // first digit's exchange with the other half (a block-wide barrier)
   }
 
-  for (int i = tid; i < 2 * N; i += NT) acc_out[b * 2 * N + i] = acc[i];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc_out[(b * 2 + h) * N + t + k * TG] = acc[k];
 }
 
 template <int LOGN>
 cudaError_t launch(const void* acc_in, void* acc_out, const void* a_idx,
-                   const void* bsk, const void* tw, int B, u64 Q, u64 bar_m,
-                   int bar_s, int n, int g_bits, int digits, int throw_digits,
-                   cudaStream_t stream) {
-  const size_t smem = 8 * (size_t(1) << LOGN) * sizeof(u64);
+                   const void* bsk, const void* tw, int B, u64 Q, int n,
+                   int g_bits, int digits, int throw_digits, cudaStream_t stream) {
+  const size_t N = size_t(1) << LOGN;
+  const size_t smem = 16 * N * sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
       blind_rotate64_kernel<LOGN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  blind_rotate64_kernel<LOGN><<<B, NT, smem, stream>>>(
+  blind_rotate64_kernel<LOGN><<<B, N / 4, smem, stream>>>(
       static_cast<const u64*>(acc_in), static_cast<u64*>(acc_out),
       static_cast<const int32_t*>(a_idx), static_cast<const u64*>(bsk),
-      static_cast<const u64*>(tw), n, Q, bar_m, bar_s, g_bits, digits,
-      throw_digits);
+      static_cast<const u64*>(tw), n, Q, g_bits, digits, throw_digits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // acc_in/acc_out [B][2][N] u64, a_idx [B][n] int32, bsk [n][4*d2][N] u64,
-// tw [8][N] u64. Returns the launch's cudaError_t (0 on success).
+// tw [2][N][2] u64. bar_m and bar_s are not read: the lazy sums are reduced
+// with the companion of forward entry 0 (they held a Barrett constant in an
+// earlier design, and stay so that the entry point is unchanged). Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int tfhe_blind_rotate64(const void* acc_in, void* acc_out,
                                    const void* a_idx, const void* bsk,
                                    const void* tw, int B, int N,
@@ -237,16 +297,18 @@ extern "C" int tfhe_blind_rotate64(const void* acc_in, void* acc_out,
                                    unsigned long long bar_m, int bar_s, int n,
                                    int g_bits, int digits, int throw_digits,
                                    void* stream) {
+  (void)bar_m;
+  (void)bar_s;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (N) {
     case 256:
-      return launch<8>(acc_in, acc_out, a_idx, bsk, tw, B, Q, bar_m, bar_s, n, g_bits, digits, throw_digits, s);
+      return launch<8>(acc_in, acc_out, a_idx, bsk, tw, B, Q, n, g_bits, digits, throw_digits, s);
     case 512:
-      return launch<9>(acc_in, acc_out, a_idx, bsk, tw, B, Q, bar_m, bar_s, n, g_bits, digits, throw_digits, s);
+      return launch<9>(acc_in, acc_out, a_idx, bsk, tw, B, Q, n, g_bits, digits, throw_digits, s);
     case 1024:
-      return launch<10>(acc_in, acc_out, a_idx, bsk, tw, B, Q, bar_m, bar_s, n, g_bits, digits, throw_digits, s);
+      return launch<10>(acc_in, acc_out, a_idx, bsk, tw, B, Q, n, g_bits, digits, throw_digits, s);
     case 2048:
-      return launch<11>(acc_in, acc_out, a_idx, bsk, tw, B, Q, bar_m, bar_s, n, g_bits, digits, throw_digits, s);
+      return launch<11>(acc_in, acc_out, a_idx, bsk, tw, B, Q, n, g_bits, digits, throw_digits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

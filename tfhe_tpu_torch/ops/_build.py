@@ -79,6 +79,15 @@ def build(names=KERNELS) -> None:
             raise RuntimeError("\n".join(failed))
 
 
+def ptxas_report(name: str) -> list[str]:
+    """What ptxas said of each kernel in the last build of csrc/<name>.cu:
+    the line naming the function, then its stack and spill line and its
+    register line."""
+    keep = ("Function properties for", "spill", "registers")
+    return [ln.strip() for ln in LOGS.get(name, "").splitlines()
+            if any(k in ln for k in keep)]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library built from csrc/<name>.cu, compiling it if needed."""
     if name not in _libs:

@@ -6,9 +6,9 @@ Gentleman-Sande stages with half-length N/2 .. 1, taking natural order to
 **bit-reversed evaluation order**; inverse = Cooley-Tukey stages with
 half-length 1 .. N/2, then untwist by psi^-j / N. The evaluation order is
 the one the packed bootstrapping keys are stored in
-(`rotate_kernel.pack_bsk`, `rotate_rns_kernel.pack_bsk_rns`); the 32-bit
-hand kernels run a negacyclic NTT with merged twiddles (`merged_tables`)
-that gives the same order, and the 64-bit kernel reads `tables`.
+(`rotate_kernel.pack_bsk`, `rotate_rns_kernel.pack_bsk_rns`,
+`rotate64_kernel.pack_bsk64`); the hand kernels run a negacyclic NTT with
+merged twiddles (`merged_tables`) that gives the same order.
 
 Values are int64 residues mod Q on the last axis. Below 2^31 a product of
 two residues is exact in int64 and reduced with `%`; for Q up to 2^54 (the
@@ -48,10 +48,11 @@ def tables(N: int, Q: int) -> np.ndarray:
 
 def merged_tables(N: int, q: int) -> np.ndarray:
     """int64 [2, N]: the merged-twiddle NTT's tables mod q (see
-    csrc/register_ntt.cuh), for the hand kernels `rotate_kernel` and
-    `rotate_rns_kernel` launch. Forward: entry m >= 1 is psi^brv(m), the
-    Cooley-Tukey twiddle of block m - m0 at the stage with m0 blocks;
-    entry 0 is 1 (its Shoup companion floor(2^32 / q) reduces the lazy
+    csrc/register_ntt.cuh), for the hand kernels `rotate_kernel`,
+    `rotate_rns_kernel` and `rotate64_kernel` launch (exact up to q < 2^54:
+    Python ints). Forward: entry m >= 1 is psi^brv(m), the Cooley-Tukey
+    twiddle of block m - m0 at the stage with m0 blocks; entry 0 is 1 (its
+    Shoup companion, floor(2^32 / q) or floor(2^64 / q), reduces the lazy
     sums). Inverse: entry m >= 2 is psi^-brv(m), the Gentleman-Sande
     twiddle; entry 1 is psi^-brv(1) N^-1 and entry 0 N^-1, the last
     stage's two factors. psi is the root of `forward`'s twist, so the
@@ -68,8 +69,7 @@ def merged_tables(N: int, q: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def tables_on(N: int, Q: int, device: str) -> torch.Tensor:
     """int64 [8, N] on `device`: the four rows of `tables`, then their
-    64-bit Shoup companions (`modmath.shoup64`, the int64 view of u64).
-    The 64-bit kernel (`rotate64_kernel`) reads this block as it is."""
+    64-bit Shoup companions (`modmath.shoup64`, the int64 view of u64)."""
     tab = tables(N, Q)
     both = np.concatenate([tab.astype(np.int64), mm.shoup64(tab, Q)])
     return torch.from_numpy(both).to(device)

@@ -6,7 +6,8 @@ Port of `tfhe_tpu/ops/pallas_rotate64.py`. `rotate64` launches
 (`blindrotate64.blind_rotate64`) for CPU tensors; both read the key in
 `pack_bsk64`'s layout. Values cross the kernel boundary as int64: residues
 are < Q < 2^54, and the Shoup companions are the int64 view of their u64
-bits.
+bits. The kernel's twiddles are `_twiddles`: `ntt.merged_tables` with their
+64-bit companions.
 """
 
 from __future__ import annotations
@@ -35,6 +36,15 @@ def pack_bsk64(bsk_hat: np.ndarray, Q: int) -> torch.Tensor:
     b = np.asarray(bsk_hat, dtype=np.uint64)[..., schedule(N, Q)["bitrev"]]
     b = np.swapaxes(b, 2, 3)                       # [n, key, out, d2, N]
     return torch.from_numpy(np.ascontiguousarray(shoup64(b, Q)).reshape(n, 4 * d2, N))
+
+
+@functools.lru_cache(maxsize=None)
+def _twiddles(N: int, Q: int, device: str) -> torch.Tensor:
+    """int64 [2, N, 2]: the forward and the inverse row of
+    `ntt.merged_tables`, each entry beside its 64-bit Shoup companion (the
+    int64 view of its u64 bits), as `csrc/register_ntt64.cuh` reads them."""
+    t = ntt.merged_tables(N, Q)
+    return torch.from_numpy(np.stack([t, shoup64(t, Q)], axis=-1)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,14 +92,13 @@ def rotate64(acc: torch.Tensor, a_idx: torch.Tensor, key: torch.Tensor,
     out = torch.empty_like(acc)
     if B == 0:
         return out
-    # Barrett constant for the exact reduction of the lazy sums (< 2^62)
-    s_bits = Q.bit_length() - 1
-    barrett = (1 << (64 + s_bits)) // Q
-    tw = ntt.tables_on(N, Q, str(acc.device))
+    tw = _twiddles(N, Q, str(acc.device))
     with torch.cuda.device(acc.device):
+        # 0, 0: the entry point's Barrett arguments, which the kernel no
+        # longer reads
         err = _kernel()(
             acc.data_ptr(), out.data_ptr(), a_idx.data_ptr(), key.data_ptr(),
-            tw.data_ptr(), B, N, Q, barrett, s_bits, n,
+            tw.data_ptr(), B, N, Q, 0, 0, n,
             base_g.bit_length() - 1, d2 // 2, throw,
             torch.cuda.current_stream(acc.device).cuda_stream)
     if err:
