@@ -21,7 +21,16 @@ its main path gives it. Then it drives the port's paths through
   EvalSign and EvalDecomp on the TOY accelerated sets at the single 54-bit
   prime bit for bit against the oracle, and EvalSign at full width on the
   STD128 accelerated set with that prime at batch 1024, checked by
-  decryption.
+  decryption;
+- the mixed logQ = 11 path (blind_rotate with the 35-bit key switch): the
+  8 gates, EvalFloor and EvalFunc at TOY against the oracle, then at STD128
+  width (N = 1024, n = 1305) EvalFloor at batch 4096 and the CHES
+  256-ciphertext AND, checked by decryption and on their first 8 outputs
+  against the oracle;
+- CiphertextMulMatrix at 1024 x 1024 mod 2^35 against the host product,
+  and the DM/AP accumulator: the 8 gates at TOY AP against the oracle and
+  a batch-1024 STD128_AP NAND, checked by decryption and on its first 8
+  outputs against the oracle.
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. At the end no jax or JAX-package module may be loaded.
 Exits non-zero on any failure. The line before the last is a JSON record
@@ -39,6 +48,11 @@ SEED = 20261016
 GATE_BATCH = 4096
 FUNC_BATCH = 4096
 SIGN64_BATCH = 1024         # single-prime EvalSign batch
+CHES_BATCH = 256            # the CHES AND's batch (examples/ches_experiments.py)
+CHES_ITERS = 20             # warm iterations of the CHES AND timed
+GEMM_DIM = 1024             # K = M of the ciphertext-matrix product (examples/gemm.py)
+GEMM_ITERS = 5
+DM_BATCH = 1024             # STD128_AP NAND batch on the DM path
 LWE_N_ACC = 1305           # rounds of the accelerated sets' rotation
 ROWS = list(range(128))     # rows held to the plain version at a main path's batch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
@@ -196,14 +210,18 @@ def rotate64_cases() -> dict:
     return cases
 
 
-def gate_kernel_vs_plain(rng, Q: int, peak: float) -> dict:
+def gate_kernel_vs_plain(rng, Q: int, peak: float) -> tuple[dict, dict]:
     """blind_rotate against its plain version on the card with tolerance 0
     (torch.equal: the arithmetic is exact and modular), each case timed: at
     STD128 shapes (N = 1024, d2 = 8, baseG = 2^7) B = 64 over 16 rounds;
     then every case of `gate_cases` at a small odd batch (B = 5, the ragged
     edge of a batch) over 8 rounds, rows 0, 1 and 2 of the exponents 0, N
     and 2N - 1 in all rounds; then the main path's B = GATE_BATCH over all
-    512 rounds, which is returned and set beside EARLIER_GATE_MS."""
+    512 rounds, which is returned and set beside EARLIER_GATE_MS. Last, the
+    mixed logQ = 11 shape of EvalFloor (B = GATE_BATCH, n = LWE_N_ACC,
+    N = 1024, d2 = 10: base 2^5, one digit thrown): the kernel over the whole
+    batch, the plain version on ROWS and the last row of the same inputs,
+    whose timing is returned second."""
     import numpy as np
     import torch
 
@@ -247,7 +265,34 @@ def gate_kernel_vs_plain(rng, Q: int, peak: float) -> dict:
         f"(every NTT stage through shared memory, values and companions read) took "
         f"{EARLIER_GATE_MS} ms ({100 * timing['bound_ms'] / EARLIER_GATE_MS:.1f}%) on an "
         f"NVIDIA H100 80GB HBM3 at 700 W: {EARLIER_GATE_MS / timing['ms']:.2f}x")
-    return {"max_abs_err": worst, **timing}
+
+    t0 = time.time()
+    B, n, N, d2, base_g, throw = GATE_BATCH, LWE_N_ACC, 1024, 10, 1 << 5, 1
+    acc = torch.from_numpy(rng.integers(0, Q, (B, 2, N)).astype(np.int32)).cuda()
+    a_np = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
+    a_np[:3] = np.array([0, N, 2 * N - 1], dtype=np.int32)[:, None]
+    a_idx = torch.from_numpy(a_np).cuda()
+    bsk = rotate_kernel.pack_bsk(rng.integers(0, Q, (n, 2, d2, 2, N)).astype(np.uint64),
+                                 Q).cuda()
+    kernel = lambda: rotate_kernel.rotate(acc, a_idx, bsk, Q, base_g, throw)  # noqa: E731
+    got, first_ms = timed_once(kernel)
+    rows = ROWS + [B - 1]
+    want, plain_ms = timed_once(lambda: blindrotate.blind_rotate(
+        acc[rows], a_idx[rows], bsk, Q, base_g, throw))
+    err = max_err(got[rows], want)
+    worst = max(worst, err)
+    check(torch.equal(got[rows], want), f"blind_rotate != plain at the mixed shape B={B}, "
+          f"n={n}, d2={d2}, rows 0..{len(ROWS) - 1} and {B - 1} (max abs err {err})")
+    ms = cuda_ms(kernel, reps=2)
+    b_ms, b_by = bound(B, n, N, d2, 1, peak)
+    log(f"blind_rotate == plain at the mixed logQ=11 shape N={N} Q={Q} d2={d2} base 2^5 "
+        f"throw={throw} B={B} n={n} on rows 0..{len(ROWS) - 1} and {B - 1} (torch.equal, "
+        f"tolerance 0): max_abs_err {err}; kernel over all {B} rows {first_ms:.3f} ms (first "
+        f"launch) and {ms:.3f} ms, plain torch on the {len(rows)} rows {plain_ms:.3f} ms, "
+        f"bound {b_ms:.3f} ms by {b_by}, kernel at {100 * b_ms / ms:.1f}% of it "
+        f"({time.time() - t0:.1f} s)")
+    mixed = {"ms": ms, "plain_ms_rows": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    return {"max_abs_err": worst, **timing}, mixed
 
 
 def rns_kernel_vs_plain(rng, q1: int, q2: int, peak: float) -> dict:
@@ -424,33 +469,46 @@ def rotate64_kernel_vs_plain(rng, peak: float) -> tuple[dict, dict]:
     return {"max_abs_err": worst, **timing}, shapes
 
 
-def toy_gates(rng) -> None:
-    """All eight gates at TOY on the GPU, bit for bit against the oracle."""
+GATE_TRUTH = {
+    "OR": lambda a, b: a | b, "AND": lambda a, b: a & b, "NOR": lambda a, b: 1 - (a | b),
+    "NAND": lambda a, b: 1 - (a & b), "XOR_FAST": lambda a, b: a ^ b,
+    "XNOR_FAST": lambda a, b: 1 - (a ^ b), "XOR": lambda a, b: a ^ b,
+    "XNOR": lambda a, b: 1 - (a ^ b),
+}
+
+
+def gates_against_oracle(cc, sk, rng, label: str) -> None:
+    """All eight gates of `cc` at batch 16 on the card, each decrypted and
+    held bit for bit against the host oracle."""
     import numpy as np
 
-    from tfhe_tpu_torch import BinFHEContext, Gate, ParamSet
+    from tfhe_tpu_torch import Gate
+
+    m1, m2 = rng.integers(0, 2, 16), rng.integers(0, 2, 16)
+    ct1, ct2 = cc.encrypt(sk, m1), cc.encrypt(sk, m2)
+    outs = {g: cc.eval_bin_gate(g, ct1, ct2) for g in Gate}      # on the card
+    check(cc.backend.device.type == "cuda", f"the {label} context does not run on the card")
+    cc.device_clean()
+    for g in Gate:
+        check(np.array_equal(cc.decrypt(sk, outs[g]), GATE_TRUTH[g.name](m1, m2)),
+              f"{label} {g.name} truth table")
+        check(same(outs[g], cc.eval_bin_gate(g, ct1, ct2)),
+              f"{label} {g.name} differs from the host oracle")
+
+
+def toy_gates(rng, method_name: str = "GINX") -> None:
+    """All eight gates at TOY on the GPU (CGGI, or the DM accumulator with
+    method_name "AP"), bit for bit against the oracle."""
+    from tfhe_tpu_torch import BinFHEContext, Method, ParamSet
 
     t0 = time.time()
     cc = BinFHEContext(seed=SEED)
-    cc.generate_binfhe_context(ParamSet.TOY)
+    cc.generate_binfhe_context(ParamSet.TOY, Method[method_name])
     sk = cc.key_gen()
     cc.bt_key_gen(sk)
-    m1 = rng.integers(0, 2, 16)
-    m2 = rng.integers(0, 2, 16)
-    ct1, ct2 = cc.encrypt(sk, m1), cc.encrypt(sk, m2)
-    truth = {Gate.OR: m1 | m2, Gate.AND: m1 & m2, Gate.NOR: 1 - (m1 | m2),
-             Gate.NAND: 1 - (m1 & m2), Gate.XOR_FAST: m1 ^ m2,
-             Gate.XNOR_FAST: 1 - (m1 ^ m2), Gate.XOR: m1 ^ m2,
-             Gate.XNOR: 1 - (m1 ^ m2)}
-    outs = {g: cc.eval_bin_gate(g, ct1, ct2) for g in truth}   # on the card
-    check(cc.backend.device.type == "cuda", "the TOY context does not run on the card")
-    cc.device_clean()
-    for g, want in truth.items():
-        ref = cc.eval_bin_gate(g, ct1, ct2)
-        check(np.array_equal(cc.decrypt(sk, outs[g]), want), f"TOY {g.name} truth table")
-        check(np.array_equal(outs[g].a, ref.a) and np.array_equal(outs[g].b, ref.b),
-              f"TOY {g.name} differs from the host oracle")
-    log(f"TOY: all 8 gates decrypt right and equal the host oracle bit for bit "
+    label = "TOY" if method_name == "GINX" else f"TOY {method_name}"
+    gates_against_oracle(cc, sk, rng, label)
+    log(f"{label}: all 8 gates decrypt right and equal the host oracle bit for bit "
         f"({time.time() - t0:.1f} s)")
 
 
@@ -669,6 +727,237 @@ def std128_accelerated(rng, card: str) -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def floor_inputs(cc, sk, rng, B):
+    """EvalFloor with roundbits 1 (bench.py's floor row): m // 2 in p / 2."""
+    p = cc.get_max_plaintext_space()
+    m = rng.integers(0, p, B)
+    return cc.encrypt(sk, m, "FRESH", p), m, p
+
+
+def floor_ok(cc, sk, out, m, p) -> bool:
+    import numpy as np
+
+    return np.array_equal(np.asarray(cc.decrypt(sk, out, p // 2), dtype=np.int64), m // 2)
+
+
+def head(ct, rows: int = 8):
+    return type(ct)(ct.a[:rows], ct.b[:rows], ct.modulus)
+
+
+def mixed_contexts(param_set, throws=(0, 1), arb_func=False):
+    """`from_gpu_style(param_set, arb_func, 11, num_digits_to_throw=t)` for
+    each t of `throws`, keys made on the host once per LWE block: the
+    contexts share the LWE secret, the ring secret and the switching key.
+    Returns ({throw: context}, sk, keygen seconds)."""
+    from tfhe_tpu_torch import BinFHEContext
+
+    t0 = time.time()
+    out, sk, shared = {}, None, {}
+    for t in throws:
+        cc = BinFHEContext(seed=SEED + t)
+        cc.generate_binfhe_context(param_set, arb_func=arb_func, log_q=11,
+                                   num_digits_to_throw=t)
+        if sk is None:
+            sk = cc.key_gen()
+        cc.bt_key_gen(sk, **shared)
+        shared = {"sk_n": cc.bt_key.sk_n, "ksk": cc.bt_key.ksk}
+        out[t] = cc
+    return out, sk, time.time() - t0
+
+
+def toy_mixed(rng) -> None:
+    """The mixed logQ = 11 path at TOY (N = 1024, n = 32, Q = 134215681,
+    qKS = 2^35) on the card, bit for bit against the host oracle: all eight
+    gates at `from_gpu_style(TOY, False, 11)` (q = 2N), EvalFloor there,
+    with one digit thrown, and EvalFunc at `from_gpu_style(TOY, True, 11)`."""
+    import numpy as np
+
+    from tfhe_tpu_torch import ParamSet
+
+    t0 = time.time()
+
+    ctxs, sk, _ = mixed_contexts(ParamSet.TOY)
+    gates_against_oracle(ctxs[0], sk, rng, "TOY logQ=11")
+    cc = ctxs[1]
+    ct, m, p = floor_inputs(cc, sk, rng, 16)
+    out = cc.eval_floor(ct, 1)
+    check(cc.backend.device.type == "cuda" and cc.backend._path(cc.params) == "mixed",
+          "TOY logQ=11 EvalFloor is not on the card's mixed path")
+    check(floor_ok(cc, sk, out, m, p), "TOY logQ=11 EvalFloor decryption")
+    cc.device_clean()
+    check(same(out, cc.eval_floor(ct, 1)), "TOY logQ=11 EvalFloor differs from the host oracle")
+
+    fctx, fsk, _ = mixed_contexts(ParamSet.TOY, throws=(0,), arb_func=True)
+    cc = fctx[0]
+    ct, lut, want, p = func_inputs(cc, fsk, rng, 16)
+    out = cc.eval_func(ct, lut)
+    check(cc.backend.device.type == "cuda", "TOY logQ=11 EvalFunc is not on the card")
+    check(np.array_equal(np.asarray(cc.decrypt(fsk, out, p), dtype=np.int64), want),
+          "TOY logQ=11 EvalFunc decryption")
+    cc.device_clean()
+    check(same(out, cc.eval_func(ct, lut)), "TOY logQ=11 EvalFunc differs from the host oracle")
+    log(f"TOY logQ=11 (N=1024, n=32, qKS=2^35): all 8 gates, EvalFloor (throw 1) and "
+        f"EvalFunc (arbFunc, cube LUT) at B=16 decrypt right and equal the host oracle bit "
+        f"for bit ({time.time() - t0:.1f} s)")
+
+
+def std128_mixed(rng, card: str) -> None:
+    """The mixed path at full width: `from_gpu_style(STD128, False, 11)`,
+    N = 1024, n = 1305, Q = 134215681, q = 2048, qKS = 2^35, baseKS = 32,
+    baseG = 2^5. EvalFloor at batch GATE_BATCH with one digit thrown
+    (bench.py's floor row, d2 = 10) and the CHES 256-ciphertext AND with
+    none (examples/ches_experiments.py, d2 = 12): every output decrypts
+    right, the first 8 equal the host oracle bit for bit; a first and a
+    warm EvalFloor are timed, and CHES_ITERS warm ANDs."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import Gate, ParamSet
+
+    ctxs, sk, keygen_s = mixed_contexts(ParamSet.STD128)
+    p = ctxs[0].params.lwe
+    log(f"STD128 logQ=11: N={p.N} n={p.n} Q={p.Q} q={p.q} qKS=2^35 baseKS={p.base_ks} "
+        f"baseG=2^5 (d2 12, and 10 with one digit thrown); host keygen (two bootstrapping "
+        f"keys, one switching key) {keygen_s:.1f} s")
+    floor_cc, and_cc = ctxs[1], ctxs[0]
+    ct_f, m_f, p_f = floor_inputs(floor_cc, sk, rng, GATE_BATCH)
+    m1, m2 = rng.integers(0, 2, CHES_BATCH), rng.integers(0, 2, CHES_BATCH)
+    ct1, ct2 = and_cc.encrypt(sk, m1), and_cc.encrypt(sk, m2)
+    t0 = time.time()
+    for cc in ctxs.values():
+        cc.device_clean()
+    ref_f = floor_cc.eval_floor(head(ct_f), 1)
+    ref_and = and_cc.eval_bin_gate(Gate.AND, head(ct1), head(ct2))
+    log(f"host oracle EvalFloor and AND on 8 ciphertexts each {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    floor_cc.device_setup("cuda")
+    and_cc.device_setup("cuda")
+    torch.cuda.synchronize()
+    log(f"device_setup of both contexts (pack_bsk, one switching-key table) "
+        f"{time.time() - t0:.1f} s, device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    for call in ("first", "warm"):
+        t0 = time.time()
+        out = floor_cc.eval_floor(ct_f, 1)
+        s = time.time() - t0
+        check(out.a.shape == (GATE_BATCH, p.n), f"EvalFloor output shape {out.a.shape}")
+        check(floor_ok(floor_cc, sk, out, m_f, p_f),
+              f"STD128 logQ=11 EvalFloor decryption at B={GATE_BATCH}")
+        check(same(head(out), ref_f), "STD128 logQ=11 EvalFloor: first 8 outputs differ "
+              "from the host oracle")
+        log(f"STD128 logQ=11 EvalFloor B={GATE_BATCH} (throw 1) {call} call: all decrypt to "
+            f"m // 2, first 8 equal the host oracle; {s:.4f} s = {s / GATE_BATCH * 1e3:.4f} "
+            f"ms/ciphertext on {card}")
+
+    out = and_cc.eval_bin_gate(Gate.AND, ct1, ct2)
+    check(np.array_equal(and_cc.decrypt(sk, out), m1 & m2), "CHES AND decryption")
+    check(same(head(out), ref_and), "CHES AND: first 8 outputs differ from the host oracle")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(CHES_ITERS):
+        out = and_cc.eval_bin_gate(Gate.AND, ct1, ct2)
+    s = (time.time() - t0) / CHES_ITERS
+    check(np.array_equal(and_cc.decrypt(sk, out), m1 & m2), "CHES AND decryption (warm)")
+    log(f"CHES AND B={CHES_BATCH} (STD128 logQ=11, no throw, d2=12): all decrypt to m1&m2, "
+        f"first 8 equal the host oracle; {s * 1e3:.3f} ms/iteration over {CHES_ITERS} warm "
+        f"iterations, {CHES_BATCH / s:.1f} gates/s on {card}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def gemm(rng, card: str) -> None:
+    """CiphertextMulMatrix on the card at examples/gemm.py's config: TOY
+    logQ 12 ciphertexts (n = 32) mod qKS = 2^35, K = M = GEMM_DIM, a matrix
+    in [-100, 100]; element for element against the host product, one
+    big-int spot check, and the warm time. Then a ragged shape (K = 5,
+    M = 3) that `torch._int_mm` takes only padded."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import BinFHEContext, ParamSet
+    from tfhe_tpu_torch.ops import lweops
+
+    cc = BinFHEContext(seed=SEED)
+    cc.generate_binfhe_context(ParamSet.TOY, arb_func=True, log_q=12)
+    sk = cc.key_gen()
+    mod, K = cc.params.lwe.q_ks, GEMM_DIM
+    p = cc.get_max_plaintext_space()
+    cts = cc.encrypt(sk, np.arange(K) % p, "FRESH", p, mod)
+    matrix = rng.integers(-100, 101, (K, K))
+    t0 = time.time()
+    want = lweops.ciphertext_mul_matrix(cts, matrix, mod)
+    host_s = time.time() - t0
+    t0 = time.time()
+    out = cc.ciphertext_mul_matrix(cts, matrix, mod)      # no keys: on the context's card
+    first_s = time.time() - t0
+    check(np.array_equal(out.a, want.a) and np.array_equal(out.b, want.b),
+          "GEMM differs from the host product")
+    j = 7
+    check(int(out.b[j]) == sum(int(matrix[k, j]) * int(cts.b[k]) for k in range(K)) % mod
+          and int(out.a[j, 0]) == sum(int(matrix[k, j]) * int(cts.a[k, 0])
+                                      for k in range(K)) % mod, "GEMM big-int spot check")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(GEMM_ITERS):
+        cc.ciphertext_mul_matrix(cts, matrix, mod)
+    s = (time.time() - t0) / GEMM_ITERS
+    small = type(cts)(cts.a[:5], cts.b[:5], mod)
+    got = lweops.ciphertext_mul_matrix_device(small, matrix[:5, :3], mod, "cuda")
+    ref = lweops.ciphertext_mul_matrix(small, matrix[:5, :3], mod)
+    check(np.array_equal(got.a, ref.a) and np.array_equal(got.b, ref.b),
+          "GEMM K=5, M=3 differs from the host product")
+    log(f"GEMM {K}x{K} mod 2^35 (n+1=33): equal to the host product element for element, "
+        f"big-int spot check right, K=5 M=3 equal too; host {host_s:.3f} s, card first "
+        f"call {first_s:.4f} s, warm {s * 1e3:.3f} ms/call over {GEMM_ITERS} (host clock, "
+        f"limb split and copies included) on {card}")
+
+
+def std128_ap_nand(rng, card: str) -> None:
+    """DM at full width: STD128_AP (N = 1024, n = 512, q = 1024, baseR = 32,
+    digitsR = 2, baseG = 2^9, d2 = 6, qKS = 2^14, baseKS = 128) NAND at batch
+    DM_BATCH: every output decrypts, the first 8 equal the host oracle; a
+    first and a warm call timed, with the peak device memory."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import BinFHEContext, Gate, Method, ParamSet
+
+    t0 = time.time()
+    cc = BinFHEContext(seed=SEED)
+    cc.generate_binfhe_context(ParamSet.STD128_AP, Method.AP)
+    sk = cc.key_gen()
+    cc.bt_key_gen(sk)
+    p = cc.params.lwe
+    log(f"STD128_AP: N={p.N} n={p.n} q={p.q} Q={p.Q} baseR={cc.params.rgsw.base_r} "
+        f"digitsR={len(cc.params.rgsw.digits_r)} d2={2 * cc.params.rgsw.digits_g} "
+        f"qKS={p.q_ks} baseKS={p.base_ks}; host keygen {time.time() - t0:.1f} s")
+    m1, m2 = rng.integers(0, 2, DM_BATCH), rng.integers(0, 2, DM_BATCH)
+    ct1, ct2 = cc.encrypt(sk, m1), cc.encrypt(sk, m2)
+    t0 = time.time()
+    cc.device_clean()
+    ref = cc.eval_bin_gate(Gate.NAND, head(ct1), head(ct2))
+    log(f"host oracle NAND on 8 ciphertexts {time.time() - t0:.1f} s")
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    cc.device_setup("cuda")
+    torch.cuda.synchronize()
+    table = cc.backend._device_key(cc.params, cc.bt_key)["dm_table"]
+    log(f"device_setup (DM table {tuple(table.shape)} int32, switching-key table) "
+        f"{time.time() - t0:.1f} s, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    check(cc.backend._path(cc.params) == "dm", "STD128_AP does not take the DM path")
+    for call in ("first", "warm"):
+        t0 = time.time()
+        out = cc.eval_bin_gate(Gate.NAND, ct1, ct2)
+        s = time.time() - t0
+        check(np.array_equal(cc.decrypt(sk, out), 1 - (m1 & m2)), "STD128_AP NAND decryption")
+        check(same(head(out), ref), "STD128_AP NAND: first 8 outputs differ from the oracle")
+        log(f"STD128_AP NAND B={DM_BATCH} {call} call: all decrypt to 1-(m1&m2), first 8 "
+            f"equal the host oracle; {s:.4f} s, {DM_BATCH / s:.1f} bootstraps/s on {card}")
+    log(f"STD128_AP NAND peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 class KernelClock:
     """Device time of every call of `module.name` (a kernel wrapper that
     launches one kernel) while the clock is entered: CUDA events around
@@ -880,7 +1169,7 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     t0 = time.time()
-    gate_timing = gate_kernel_vs_plain(rng, from_param_set(ParamSet.STD128).lwe.Q, peak)
+    gate_timing, _ = gate_kernel_vs_plain(rng, from_param_set(ParamSet.STD128).lwe.Q, peak)
     q1, q2 = from_gpu_style(ParamSet.STD128, True, 12).rgsw.rns_primes
     rns_timing = rns_kernel_vs_plain(rng, q1, q2, peak)
     r64_timing, _ = rotate64_kernel_vs_plain(rng, peak)
@@ -931,6 +1220,24 @@ def main() -> int:
     log(f"single-prime functional path: blind_rotate64 launches {prime_launches} "
         f"({time.time() - t0:.1f} s)")
 
+    # the mixed logQ = 11 path (blind_rotate with the 35-bit key switch),
+    # counts read just after it
+    reset_counts()
+    t0 = time.time()
+    toy_mixed(rng)
+    std128_mixed(rng, card)
+    mixed_launches = rotate_kernel.LAUNCHES
+    check(mixed_launches > 0, "the mixed path did not launch blind_rotate")
+    log(f"mixed logQ=11 path: blind_rotate launches {mixed_launches} "
+        f"({time.time() - t0:.1f} s)")
+
+    # CiphertextMulMatrix and the DM accumulator: torch ops, no hand kernel
+    t0 = time.time()
+    gemm(rng, card)
+    toy_gates(rng, "AP")
+    std128_ap_nand(rng, card)
+    log(f"GEMM and DM phases {time.time() - t0:.1f} s")
+
     loaded = [m for m in sys.modules if m in ("jax", "tfhe_tpu")
               or m.startswith(("jax.", "tfhe_tpu."))]
     check(not loaded, f"JAX or the JAX package was loaded: {loaded[:5]}")
@@ -940,7 +1247,7 @@ def main() -> int:
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate.py:253",
-         "launches": gate_launches, **gate_timing, "library_ms": None},
+         "launches": gate_launches + mixed_launches, **gate_timing, "library_ms": None},
         {"name": "blind_rotate_rns", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate_rns.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate_rns.py:278",

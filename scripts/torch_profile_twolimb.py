@@ -17,7 +17,7 @@ Both calls of a phase also clock the host functions of the two-limb route
 (host clock, summed over the call's bootstraps): the scheme's test
 polynomials (`_gate_test_poly`/`_func_test_poly`, Python ints for Q >=
 2^31), `_acc_init`, `TorchBackend._host_acc` (object array -> int64,
-upload, scaled indices) and `TorchBackend.bootstrap_pipeline` as a whole
+upload) and `TorchBackend.bootstrap_pipeline` as a whole
 (which waits for the device: the rotation, extract, key switch and the
 download). Prints one JSON line per phase: walls, the host clocks, device
 busy seconds (kernel self time on the one stream), the idle share 1 - busy

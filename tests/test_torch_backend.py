@@ -21,6 +21,8 @@ import tfhe_tpu_torch
 from tfhe_tpu_torch import TorchBackend, convert
 from tfhe_tpu_torch import params as params_mod
 from tfhe_tpu_torch import scheme as torch_scheme
+from tfhe_tpu_torch.ops.lweops import ciphertext_mul_matrix
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -137,10 +139,10 @@ def test_scaled_indices_match_jax(q, N):
 
 @pytest.mark.parametrize("params", [
     params_mod.from_param_set(params_mod.ParamSet.STD192, params_mod.Method.AP),
-    params_mod.from_gpu_style(params_mod.ParamSet.TOY, False, 11),  # 27-bit Q, qKS 2^35
-    params_mod.from_param_set(params_mod.ParamSet.TOY, params_mod.Method.AP),
+    params_mod.from_gpu_style(params_mod.ParamSet.TOY, False, 11, N=4096),  # mixed, N = 4096
+    params_mod.from_gpu_style(params_mod.ParamSet.TOY, True, 12, N=4096),   # RNS, N = 4096
     params_mod.from_param_set(params_mod.ParamSet.STD128Q, params_mod.Method.AP),
-], ids=["std192-AP", "accelerated-logQ11", "toy-AP", "std128q-AP"])
+], ids=["std192-AP", "logQ11-N4096", "logQ12-N4096", "std128q-AP"])
 def test_unsupported_params_raise(params):
     be = TorchBackend("cpu")
     assert not be.supports(params)
@@ -171,8 +173,10 @@ def test_supported_sets():
 
 
 def test_context_device_setup_refuses_unsupported():
+    """A ring dimension the kernels do not take (N = 4096) raises in
+    setup, never on the card, and never runs on the oracle."""
     cc = tfhe_tpu_torch.BinFHEContext(seed=1, device="cpu")
-    cc.generate_binfhe_context(params_mod.ParamSet.TOY, arb_func=False, log_q=11)
+    cc.generate_binfhe_context(params_mod.ParamSet.TOY, arb_func=False, log_q=11, N=4096)
     cc.bt_key_load(torch_scheme.BTKey(bsk_coeff=np.zeros(1), ksk=None,
                                       base_g=cc.params.rgsw.base_g))
     with pytest.raises(NotImplementedError):
@@ -190,8 +194,10 @@ def test_context_device_setup_runs_gates(toy, port):
     out = cc.eval_bin_gate(params_mod.Gate.AND, ct1, ct2)
     assert isinstance(cc.backend, TorchBackend) and cc.backend.device.type == "cpu"
     assert np.array_equal(cc0.decrypt(sk, out), m1 & m2)
-    with pytest.raises(NotImplementedError):
-        cc.ciphertext_mul_matrix(ct1, np.eye(8, dtype=np.int64), 512)
+    mat = np.random.default_rng(13).integers(-9, 10, (8, 5))
+    got = cc.ciphertext_mul_matrix(ct1, mat, 512)
+    want = ciphertext_mul_matrix(ct1, mat, 512)
+    assert np.array_equal(got.a, want.a) and np.array_equal(got.b, want.b)
 
 
 def test_cuda_backend_needs_a_card():

@@ -19,6 +19,7 @@ from tfhe_tpu.utils.numtheory import ntt_prime, previous_prime
 import tfhe_tpu_torch
 from tfhe_tpu_torch import convert, scheme
 from tfhe_tpu_torch.ops import backend as torch_backend
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def make_pair(q: int, seed: int):

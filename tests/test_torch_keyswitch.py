@@ -19,6 +19,7 @@ from tfhe_tpu.ops import keyswitch64 as ks64
 from tfhe_tpu.ops import modmath64 as mm64
 from tfhe_tpu.params import ParamSet, _digit_count, from_gpu_style, from_param_set
 from tfhe_tpu_torch.ops import keyswitch
+from torch_threads import one_torch_thread  # noqa: F401
 
 Q_TOY = from_param_set(ParamSet.TOY).lwe.Q
 Q_STD128 = from_param_set(ParamSet.STD128).lwe.Q

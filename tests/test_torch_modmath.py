@@ -17,6 +17,7 @@ from tfhe_tpu.ops.backend import _crt_combine_pair
 from tfhe_tpu.ref import modmath as ref_mm
 from tfhe_tpu.params import ParamSet, from_gpu_style, from_param_set
 from tfhe_tpu_torch.ops import modmath as mm
+from torch_threads import one_torch_thread  # noqa: F401
 
 Q_STD128 = from_param_set(ParamSet.STD128).lwe.Q
 Q_TOY = from_param_set(ParamSet.TOY).lwe.Q

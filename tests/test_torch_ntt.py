@@ -9,6 +9,7 @@ from tfhe_tpu.ops import ntt_sched as ns
 from tfhe_tpu.ref import ntt as ref_ntt
 from tfhe_tpu.utils.numtheory import ntt_prime
 from tfhe_tpu_torch.ops import ntt
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("N", [16, 256])

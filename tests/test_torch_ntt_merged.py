@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tfhe_tpu_torch.ops import _build, blindrotate_rns, ntt, rotate_rns_kernel
+from torch_threads import one_torch_thread  # noqa: F401
 
 Q1, Q2 = 134176769, 134111233          # the accelerated sets' primes (N = 2048)
 M32 = (1 << 32) - 1

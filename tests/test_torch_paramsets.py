@@ -26,6 +26,7 @@ from tfhe_tpu.utils.rng import BinFHERng
 import tfhe_tpu_torch
 from tfhe_tpu_torch import TorchBackend, convert
 from tfhe_tpu_torch import params as torch_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 _MINI_N = 12
 TWO_LIMB = (ParamSet.STD192, ParamSet.STD192_OPT, ParamSet.STD256, ParamSet.STD256_OPT,
@@ -91,13 +92,30 @@ def test_two_limb_set_matches_jax_backend(param_set):
 
 
 @pytest.mark.parametrize("param_set", list(ParamSet), ids=lambda s: s.name)
-def test_classic_set_ap_raises(param_set):
+def test_classic_set_ap_matches_jax(param_set):
+    """AP on every classic row: TorchBackend takes exactly the sets
+    JaxBackend takes (Q and qKS below 2^31, the DM table under its size
+    guard, at the full LWE dimension). A taken set, its LWE dimension cut to
+    12, matches the host oracle's eval_acc on two accumulators; the others
+    raise NotImplementedError in setup."""
     params = torch_params.from_param_set(torch_params.ParamSet(int(param_set)),
                                          torch_params.Method.AP)
     be = TorchBackend("cpu")
-    assert not be.supports(params)
-    with pytest.raises(NotImplementedError):
-        be.setup(params, None)
+    assert be.supports(params) == JaxBackend().supports(
+        params_mod.from_param_set(param_set, Method.AP))
+    if not be.supports(params):
+        with pytest.raises(NotImplementedError):
+            be.setup(params, None)
+        return
+    jparams = _mini_params(param_set, Method.AP)
+    p = jparams.lwe
+    rng = BinFHERng(2000 + int(param_set))
+    key = jax_scheme.key_gen(rng, jparams, lwe.key_gen(rng, p.n, p.q_ks))
+    nprng = np.random.default_rng(int(param_set))
+    acc = nprng.integers(0, p.Q, (2, 2, p.N)).astype(np.uint64)
+    a = nprng.integers(0, p.q, (2, p.n)).astype(np.uint64)
+    got = be.eval_acc(convert.params_from(jparams), convert.key_from(key), acc.copy(), a, p.q)
+    assert np.array_equal(got, RefBackend().eval_acc(jparams, key, acc.copy(), a, p.q))
 
 
 def carry(ct):

@@ -17,6 +17,7 @@ from tfhe_tpu.ops.blindrotate64 import build_blind_rotate64
 from tfhe_tpu.ref import ntt as ref_ntt
 from tfhe_tpu.utils.numtheory import ntt_prime, previous_prime
 from tfhe_tpu_torch.ops import modmath, rotate_rns_kernel
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, n, B = 128, 5, 8
 Q1 = ntt_prime(27, 2 * N)

@@ -16,6 +16,7 @@ from tfhe_tpu.ops import pallas_rotate as pr
 from tfhe_tpu.ref import ntt as ref_ntt
 from tfhe_tpu.utils.numtheory import ntt_prime
 from tfhe_tpu_torch.ops import blindrotate, rotate_kernel
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, n, B = 128, 6, 16
 Q = ntt_prime(27, 2 * N)

@@ -24,6 +24,7 @@ from tfhe_tpu.ref import ntt as ref_ntt
 from tfhe_tpu.utils.numtheory import ntt_prime
 from tfhe_tpu_torch.ops import keyswitch, ntt, rotate64_kernel
 from tfhe_tpu_torch.ops import modmath as mm
+from torch_threads import one_torch_thread  # noqa: F401
 
 Q54 = ntt_prime(54, 4096)                       # the reference's 54-bit prime
 PRIMES = [Q54, from_param_set(ParamSet.STD128Q).lwe.Q,

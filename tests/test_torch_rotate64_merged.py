@@ -23,6 +23,7 @@ from test_torch_ntt_merged import exchange as exchange32
 
 from tfhe_tpu_torch.ops import blindrotate64, ntt, rotate64_kernel
 from tfhe_tpu_torch.ops.modmath import mulhi64, shoup64, shoup64_values
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = rotate64_cases()                        # name -> (N, Q, base, d2, throw)
 MODULI = sorted({(Q, N) for N, Q, *_ in CASES.values()})

@@ -22,6 +22,7 @@ from test_torch_ntt_merged import (M32, csub, extract, forward_regs, groups,
                                    umulhi)
 
 from tfhe_tpu_torch.ops import blindrotate, ntt, rotate_kernel
+from torch_threads import one_torch_thread  # noqa: F401
 
 CASES = gate_cases()                                  # (N, Q, d2, base, throw)
 GATE_MODULI = sorted({(Q, N) for N, Q, *_ in CASES})

@@ -14,9 +14,8 @@ Differences from the JAX package's context:
   NotImplementedError there and never run on the host oracle;
 - the exact host oracle (`RefBackend`) runs only when asked for, through
   `device_clean()` or `use_backend(RefBackend())`;
-- the seeded (threefry) switching key (ROADMAP queue 1, item 10),
-  CiphertextMulMatrix on the torch backend (item 12) and `save`/`load`
-  (item 15) are not ported yet and raise NotImplementedError.
+- the seeded (threefry) switching key (ROADMAP queue 1, item 10) and
+  `save`/`load` (item 15) are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -192,15 +191,14 @@ class BinFHEContext:
                               matrix: np.ndarray, modulus: int) -> lwe.LWECiphertext:
         """Batched LWE x integer-matrix product (lwe-operation.cu:50-141):
         K input ciphertexts x [K, M] int64 matrix -> M output ciphertexts,
-        component-wise mod `modulus`. Exact on the host oracle backend; not
-        ported to the torch backend yet (ROADMAP queue 1, item 12)."""
-        if not isinstance(self._backend, RefBackend):
-            raise NotImplementedError(
-                "CiphertextMulMatrix is not ported to the torch backend yet "
-                "(ROADMAP queue 1, item 12); device_clean() runs it on the "
-                "host oracle")
-        from .ops.lweops import ciphertext_mul_matrix
-        return ciphertext_mul_matrix(cts, matrix, modulus)
+        component-wise mod `modulus`, exact. Runs on the device of the
+        backend (the context's device before one is set up; no keys are
+        needed), or on the host when the backend is the oracle."""
+        from .ops.lweops import ciphertext_mul_matrix, ciphertext_mul_matrix_device
+        if isinstance(self._backend, RefBackend):
+            return ciphertext_mul_matrix(cts, matrix, modulus)
+        return ciphertext_mul_matrix_device(
+            cts, matrix, modulus, getattr(self._backend, "device", self.device))
 
     # -- helpers -----------------------------------------------------------
 

@@ -1,14 +1,15 @@
 """Device keys of the port, and the carry-across from the JAX package.
 
 `device_key` is the counterpart of `JaxBackend._get_device_key`
-(`tfhe_tpu/ops/backend.py:675-740`) for the port's three paths: the
-single-limb key of the gate slice (host NTT mod Q, `pack_bsk`), the RNS
-key of the accelerated sets (`pack_bsk_rns`, one NTT per prime straight
-from `bsk_coeff`) and the 64-bit key of the two-limb sets (host NTT mod Q,
-`pack_bsk64`). The switching-key table is memoised on the
-switching-key object, as `JaxBackend._packed_ksk` does (551-573): every
-gadget base of a time-optimization map and every context that shares the
-LWE block share one device table.
+(`tfhe_tpu/ops/backend.py:675-740`) for the port's paths: the single-limb
+key of the gate and mixed slices (host NTT mod Q, `pack_bsk`), the RNS key
+of the accelerated sets (`pack_bsk_rns`, one NTT per prime straight from
+`bsk_coeff`), the 64-bit key of the two-limb sets (host NTT mod Q,
+`pack_bsk64`) and the DM table of the AP sets (`pack_dm_table`). The
+switching-key table is memoised on the switching-key object, as
+`JaxBackend._packed_ksk` does (551-573): every gadget base of a
+time-optimization map and every context that shares the LWE block share
+one device table.
 
 `params_from`, `key_from` and `ciphertext_from` carry the JAX package's
 parameters, keys and ciphertexts (read as plain attributes and numpy
@@ -25,6 +26,7 @@ from . import lwe
 from .params import BinFHEParams, LWEParams, Method, RGSWParams
 from .ref import ntt as ref_ntt
 from .scheme import BTKey
+from .ops.blindrotate_dm import pack_dm_table
 from .ops.keyswitch import ksk_table
 from .ops.rotate64_kernel import pack_bsk64
 from .ops.rotate_kernel import pack_bsk
@@ -42,13 +44,16 @@ def switching_table(ksk: lwe.LWESwitchingKey, device: torch.device) -> torch.Ten
 
 def device_key(params: BinFHEParams, key: BTKey, device: torch.device,
                path: str) -> dict[str, torch.Tensor]:
-    """BTKey -> {"bsk_pack" or "bsk_rns": int32 [n, 8*d2, N], or "bsk64":
-    int64 [n, 4*d2, N]; "ksk": [N*baseKS*dc, n + 1]} on `device`. The CGGI
-    key `bsk_coeff` [n, 2, d2, 2, N] goes to the layout of the kernel that
-    `path` names: "rns", one NTT per prime of Q = q1*q2; "gate" or "two_limb",
-    the host NTT mod Q."""
+    """BTKey -> {"bsk_pack" or "bsk_rns": int32 [n, 8*d2, N], "bsk64":
+    int64 [n, 4*d2, N], or "dm_table": int32 [n*digitsR, baseR, d2, 2, N];
+    "ksk": [N*baseKS*dc, n + 1]} on `device`. The CGGI key `bsk_coeff`
+    [n, 2, d2, 2, N] goes to the layout of the kernel that `path` names:
+    "rns", one NTT per prime of Q = q1*q2; "gate", "mixed" or "two_limb",
+    the host NTT mod Q. "dm": the DM key [n, baseR, digitsR, d2, 2, N]."""
     p = params.lwe
-    if path == "rns":
+    if path == "dm":
+        bsk = {"dm_table": pack_dm_table(key.bsk_coeff, p.Q, device)}
+    elif path == "rns":
         q1, q2 = params.rgsw.rns_primes
         bsk = {"bsk_rns": pack_bsk_rns(key.bsk_coeff, q1, q2).to(device)}
     else:

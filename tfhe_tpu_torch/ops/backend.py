@@ -1,11 +1,16 @@
 """TorchBackend: the `scheme.Backend` of the port.
 
-Port of three branches of `tfhe_tpu/ops/backend.py` (`JaxBackend`):
+Port of the branches of `tfhe_tpu/ops/backend.py` (`JaxBackend`):
 - the single-limb gate slice (`build_full_gate_pipeline`): a gate bootstrap
   runs on one device from the raw u16 ciphertexts to the u16 result: the
   gate's LWE combination, the scaled indices and test polynomial of
   `_gate_core`, the blind rotation (`rotate_kernel.rotate`), transpose/
   extract, +Q/8, and the fused MKM switch;
+- the mixed logQ = 11 sets (`_is_mixed`, a 27-bit Q with qKS = 2^35): the
+  same rotation kernel and layout, followed by the MKM switch that scales
+  the extracted ciphertext up from Q to qKS (`build_full_gate_pipeline`'s
+  `mixed` branch, `build_func_acc32` and `build_tail64_from32`), with the
+  gate fast path and the device chain of EvalFunc/EvalFloor;
 - the RNS functional path of the accelerated sets (Q = q1*q2, qKS = 2^35):
   the device-built functional test polynomial (`build_func_acc_rns`), the
   two-lane blind rotation (`rotate_rns_kernel.rotate_rns`), Garner CRT,
@@ -16,14 +21,16 @@ Port of three branches of `tfhe_tpu/ops/backend.py` (`JaxBackend`):
   sets STD192, STD128Q, STD192Q and their _OPT rows, STD256/STD256_OPT,
   and the accelerated sets at the reference's single 54-bit prime): the
   64-bit rotation (`rotate64_kernel.rotate64`), transpose/extract and the
-  MKM switch from the big Q.
-The rotations are hand-written kernels on CUDA and their plain versions on
-the CPU. Configurations outside the slices raise NotImplementedError in
-`setup`. Every operation without a fast path here (gates on the RNS and
-two-limb sets, every function on the two-limb sets, functions that are not
-a value table) reaches `bootstrap_pipeline` from `scheme` with a host-built
-accumulator, as in the JAX package, and stays on the device from the
-rotation to the key switch.
+  MKM switch from the big Q;
+- the DM/AP accumulator on the small-modulus sets (`blindrotate_dm`, torch
+  ops: the JAX package runs it as XLA code, outside any Pallas kernel).
+The CGGI rotations are hand-written kernels on CUDA and their plain
+versions on the CPU. Configurations outside the slices raise
+NotImplementedError in `setup`. Every operation without a fast path here
+(gates on the RNS, two-limb and DM sets, every function on the two-limb and
+DM sets, functions that are not a value table) reaches `bootstrap_pipeline`
+from `scheme` with a host-built accumulator, as in the JAX package, and
+stays on the device from the rotation to the key switch.
 """
 
 from __future__ import annotations
@@ -35,13 +42,15 @@ from .. import lwe
 from ..convert import device_key
 from ..params import BinFHEParams, Gate, Method
 from .blindrotate import transpose_extract
+from .blindrotate_dm import dm_digits, dm_limbs, dm_rotate
 from .keyswitch import mkm_switch
 from .modmath import addmod, crt_combine, mod, negmod, submod
 from .rotate64_kernel import rotate64
 from .rotate_kernel import rotate
 from .rotate_rns_kernel import rotate_rns
 
-_FUNC_CHUNK = 8192   # ciphertexts per functional bootstrap on the device
+_FUNC_CHUNK = 8192   # ciphertexts per functional or DM bootstrap on the device
+_RING_DIMS = (256, 512, 1024, 2048)   # the rotation kernels' ring dimensions
 
 
 class DeviceLWE:
@@ -76,7 +85,21 @@ class TorchBackend:
         p, rg = params.lwe, params.rgsw
         return (rg.method == Method.GINX and p.Q < (1 << 28)
                 and p.q_ks < (1 << 31) and (2 * p.Q - 1) * rg.digits_g2 < (1 << 32)
-                and p.q <= (1 << 16))
+                and p.q <= (1 << 16) and rg.N in _RING_DIMS)
+
+    @staticmethod
+    def _is_mixed_set(params: BinFHEParams) -> bool:
+        """Q < 2^28 for the single-limb rotation with a power-of-two qKS in
+        (2^32, 2^40) and baseKS: the accelerated logQ = 11 sets
+        (`JaxBackend._is_mixed`), with the conditions of the kernel they
+        run (the JAX package's `pallas_ok`)."""
+        p, rg = params.lwe, params.rgsw
+        return (rg.method == Method.GINX and p.Q < (1 << 28)
+                and (1 << 32) < p.q_ks < (1 << 40)
+                and p.q_ks & (p.q_ks - 1) == 0
+                and p.base_ks & (p.base_ks - 1) == 0
+                and (2 * p.Q - 1) * rg.digits_g2 < (1 << 32)
+                and rg.N in _RING_DIMS and p.q <= (1 << 16))
 
     @staticmethod
     def _is_rns_set(params: BinFHEParams) -> bool:
@@ -89,23 +112,23 @@ class TorchBackend:
         q1, q2 = pr
         return (q2 < q1 < (1 << 28) and (2 * q1 - 1) * rg.digits_g2 < (1 << 32)
                 and rg.base_g <= (1 << 27) and (rg.base_g >> 1) < q2
-                and rg.N in (256, 512, 1024, 2048)
+                and rg.N in _RING_DIMS
                 and (1 << 32) < p.q_ks < (1 << 40)
                 and p.q_ks & (p.q_ks - 1) == 0
                 and p.base_ks & (p.base_ks - 1) == 0)
 
     @classmethod
     def _is_two_limb_set(cls, params: BinFHEParams) -> bool:
-        """One ring modulus 2^28 <= Q < 2^54 that the other two predicates
-        do not take, with qKS < 2^31 (the big-Q classic sets and STD256) or
-        a power-of-two qKS in (2^32, 2^40) and baseKS (the accelerated sets
+        """One ring modulus 2^28 <= Q < 2^54 that the RNS predicate does
+        not take, with qKS < 2^31 (the big-Q classic sets and STD256) or a
+        power-of-two qKS in (2^32, 2^40) and baseKS (the accelerated sets
         with `rns_modulus=False`): GINX as in `JaxBackend.supports`. Below
-        2^28 a Q with qKS = 2^35 is the mixed logQ = 11 path, not ported."""
+        2^28 a Q with qKS = 2^35 is the mixed path."""
         p, rg = params.lwe, params.rgsw
         if (rg.method != Method.GINX or cls._is_gate_set(params)
                 or cls._is_rns_set(params)):
             return False
-        if not ((1 << 28) <= p.Q < (1 << 54) and rg.N in (256, 512, 1024, 2048)
+        if not ((1 << 28) <= p.Q < (1 << 54) and rg.N in _RING_DIMS
                 and 2 * p.Q * rg.digits_g2 < (1 << 62) and rg.base_g <= (1 << 27)):
             return False
         if p.q_ks < (1 << 31):
@@ -113,12 +136,26 @@ class TorchBackend:
         return ((1 << 32) < p.q_ks < (1 << 40) and p.q_ks & (p.q_ks - 1) == 0
                 and p.base_ks & (p.base_ks - 1) == 0)
 
+    @staticmethod
+    def _is_dm_set(params: BinFHEParams) -> bool:
+        """AP with Q and qKS below 2^31 and a DM key table under the JAX
+        package's guard, computed with its formula (the bytes of its
+        7-bit-limb bf16 table), so both packages take the same sets
+        (`JaxBackend.supports`)."""
+        p, rg = params.lwe, params.rgsw
+        if rg.method != Method.AP or p.Q >= (1 << 31) or p.q_ks >= (1 << 31):
+            return False
+        table_bytes = (p.n * len(rg.digits_r) * rg.base_r * dm_limbs(rg.Q)
+                       * 2 * rg.digits_g * 2 * rg.N * 2)
+        return table_bytes < 6e9
+
     @classmethod
     def _path(cls, params: BinFHEParams) -> str | None:
-        """"gate", "rns" or "two_limb": the slice that runs these
-        parameters; None when none does."""
-        for path, pred in (("gate", cls._is_gate_set), ("rns", cls._is_rns_set),
-                           ("two_limb", cls._is_two_limb_set)):
+        """"gate", "mixed", "rns", "two_limb" or "dm": the slice that runs
+        these parameters; None when none does."""
+        for path, pred in (("gate", cls._is_gate_set), ("mixed", cls._is_mixed_set),
+                           ("rns", cls._is_rns_set), ("two_limb", cls._is_two_limb_set),
+                           ("dm", cls._is_dm_set)):
             if pred(params):
                 return path
         return None
@@ -137,14 +174,20 @@ class TorchBackend:
         path = self._path(params)
         if path is None:
             raise NotImplementedError(
-                "TorchBackend runs GINX with Q < 2^28, qKS < 2^31, "
-                "(2Q - 1) * d2 < 2^32 and q <= 2^16 (the classic gate sets), "
-                "Q = q1*q2 with q2 < q1 < 2^28 and a power-of-two qKS in "
-                "(2^32, 2^40) (the accelerated RNS sets), or one modulus "
-                "2^28 <= Q < 2^54 with qKS < 2^31 or a power-of-two qKS in "
-                "(2^32, 2^40) (the two-limb sets); these parameters are not "
-                "ported")
-        if np.shape(key.bsk_coeff)[2] != params.rgsw.digits_g2:
+                "TorchBackend runs GINX at N in {256, ..., 2048} with Q < 2^28, "
+                "(2Q - 1) * d2 < 2^32, q <= 2^16 and qKS < 2^31 (the classic "
+                "gate sets) or a power-of-two qKS in (2^32, 2^40) (the mixed "
+                "logQ = 11 sets), Q = q1*q2 with q2 < q1 < 2^28 and a "
+                "power-of-two qKS in (2^32, 2^40) (the accelerated RNS sets), "
+                "or one modulus 2^28 <= Q < 2^54 with qKS < 2^31 or a "
+                "power-of-two qKS in (2^32, 2^40) (the two-limb sets); and AP "
+                "with Q, qKS < 2^31 and a DM table under the JAX package's "
+                "guard; these parameters are not ported")
+        rg = params.rgsw
+        # CGGI keys [n, 2, d2, 2, N]; DM keys [n, baseR, digitsR, d2, 2, N]
+        # with every digit (DM throws none)
+        if (np.shape(key.bsk_coeff)[-3] != (2 * rg.digits_g if path == "dm"
+                                            else rg.digits_g2)):
             raise ValueError("the key's digit count does not match the "
                              "current gadget base")
         cache_id = id(key.bsk_coeff)
@@ -169,23 +212,46 @@ class TorchBackend:
         return rotate(acc.to(torch.int32), a_idx, dk["bsk_pack"], rg.Q,
                       rg.base_g, throw).to(torch.int64)
 
-    def _host_acc(self, params: BinFHEParams, acc_init: np.ndarray,
-                  a_batch: np.ndarray, a_modulus: int):
+    def _dm_rotate(self, params: BinFHEParams, dk, acc: torch.Tensor,
+                   a: torch.Tensor, a_modulus: int) -> torch.Tensor:
+        """The DM accumulation of acc [B, 2, N] int64 residues mod Q by the
+        LWE a-vectors a [B, n] (any representatives mod a_modulus), in
+        slices of _FUNC_CHUNK ciphertexts -> int64 [B, 2, N]. DM takes the
+        base-R digits of (q - a), never the CGGI exponents, and every
+        gadget digit (`build_dm_rotate` is built with none thrown)."""
+        rg = params.rgsw
+        digits = dm_digits(a, a_modulus, rg.base_r, len(rg.digits_r))
+        return torch.cat([dm_rotate(acc[i:i + _FUNC_CHUNK], digits[i:i + _FUNC_CHUNK],
+                                    dk["dm_table"], rg.Q, rg.base_g, rg.digits_g)
+                          for i in range(0, acc.shape[0], _FUNC_CHUNK)])
+
+    def _host_acc(self, acc_init: np.ndarray, a_batch: np.ndarray):
         """A host-built accumulator batch (uint64, or Python ints for
-        Q >= 2^31) and its LWE a-vectors -> (acc int64 [B, 2, N], a_idx int32
-        [B, n]) on the device."""
-        acc = np.asarray(acc_init, dtype=np.uint64).astype(np.int64)
+        Q >= 2^31) and its LWE a-vectors -> (acc [B, 2, N], a [B, n]) int64
+        on the device."""
+        acc = torch.from_numpy(np.asarray(acc_init, dtype=np.uint64).astype(np.int64))
         a = torch.from_numpy(np.asarray(a_batch, dtype=np.uint64).astype(np.int64))
-        return (torch.from_numpy(acc).to(self.device),
-                self._scaled_indices(a.to(self.device), a_modulus, params.rgsw.N))
+        return acc.to(self.device), a.to(self.device)
+
+    def _accumulate(self, params: BinFHEParams, key, acc_init: np.ndarray,
+                    a_batch: np.ndarray, a_modulus: int) -> torch.Tensor:
+        """The blind rotation of a host-built accumulator batch by its LWE
+        a-vectors on the device, by the key's path: the DM accumulation, or
+        a CGGI kernel on the scaled exponents -> int64 [B, 2, N] residues
+        mod Q."""
+        dk = self._device_key(params, key)
+        acc, a = self._host_acc(acc_init, a_batch)
+        if "dm_table" in dk:
+            return self._dm_rotate(params, dk, acc, a, a_modulus)
+        return self._rotate(params, dk, acc,
+                            self._scaled_indices(a, a_modulus, params.rgsw.N))
 
     # -- protocol ----------------------------------------------------------
 
     def eval_acc(self, params: BinFHEParams, key, acc_init: np.ndarray,
                  a_batch: np.ndarray, a_modulus: int) -> np.ndarray:
-        dk = self._device_key(params, key)
-        acc, a_idx = self._host_acc(params, acc_init, a_batch, a_modulus)
-        return self._rotate(params, dk, acc, a_idx).cpu().numpy().astype(np.uint64)
+        acc = self._accumulate(params, key, acc_init, a_batch, a_modulus)
+        return acc.cpu().numpy().astype(np.uint64)
 
     def mkm_switch(self, params: BinFHEParams, key, a_ext: np.ndarray,
                    b_ext: np.ndarray, fmod: int) -> lwe.LWECiphertext:
@@ -208,11 +274,13 @@ class TorchBackend:
         the rotation, transpose/extract, +Q/8 when `add_q8` and the MKM
         switch to fmod, on the device from the rotation to the key switch
         (the reference pays a round trip between EvalAcc_CUDA and
-        MKMSwitch_CUDA, binfhe-base-scheme.cpp:659-675)."""
+        MKMSwitch_CUDA, binfhe-base-scheme.cpp:659-675). The DM branch
+        stays there too, where the JAX package takes its host round trip
+        (`tfhe_tpu/ops/backend.py:1173-1180`): the values are the same."""
         dk = self._device_key(params, key)
         p, Q = params.lwe, params.rgsw.Q
-        acc, a_idx = self._host_acc(params, acc_init, a_batch, a_modulus)
-        a_t, b = transpose_extract(self._rotate(params, dk, acc, a_idx), Q)
+        acc = self._accumulate(params, key, acc_init, a_batch, a_modulus)
+        a_t, b = transpose_extract(acc, Q)
         if add_q8:
             b = addmod(b, Q // 8 + 1, Q)
         a_out, b_out = mkm_switch(a_t, b, dk["ksk"], Q, p.q_ks, p.base_ks,
@@ -224,7 +292,7 @@ class TorchBackend:
     # -- fused gate bootstrap ----------------------------------------------
 
     def _gate_ok(self, params: BinFHEParams, q: int, fmod: int) -> bool:
-        return (self._is_gate_set(params) and q == params.lwe.q
+        return (self._path(params) in ("gate", "mixed") and q == params.lwe.q
                 and (2 * params.rgsw.N) % q == 0 and int(fmod) == q)
 
     def gate_bootstrap(self, params: BinFHEParams, key, gate: Gate,
@@ -316,11 +384,11 @@ class TorchBackend:
                        ct: lwe.LWECiphertext, fmod: int):
         """Functional bootstrap of a host batch with the test polynomial
         built on the device from the value table fv; None on the two-limb
-        sets (the JAX package's `_func_path` has no such path for them) and
-        when the ciphertext modulus does not divide 2N or exceeds 2^16 (the
-        caller then builds the accumulators on the host)."""
+        and DM sets (the JAX package's `_func_path` has no such path for
+        them) and when the ciphertext modulus does not divide 2N or exceeds
+        2^16 (the caller then builds the accumulators on the host)."""
         ct_mod = int(ct.modulus)
-        if (self._path(params) == "two_limb"
+        if (not self.chain_supported(params, key)
                 or (2 * params.rgsw.N) % ct_mod or ct_mod > (1 << 16)):
             return None
         dk = self._device_key(params, key)
@@ -336,11 +404,12 @@ class TorchBackend:
 
     def chain_supported(self, params: BinFHEParams, key) -> bool:
         """True when scheme may keep the ciphertext on the device between
-        the bootstraps of EvalFunc/EvalFloor/EvalSign/EvalDecomp: the gate
-        and RNS sets, not the two-limb sets (whose functions take the host
-        route of the JAX package). Decided from the parameters alone: the
-        key of another gadget base is converted when its base is current."""
-        return self._path(params) in ("gate", "rns")
+        the bootstraps of EvalFunc/EvalFloor/EvalSign/EvalDecomp: the gate,
+        mixed and RNS sets, not the two-limb and DM sets (whose functions
+        take the host route of the JAX package). Decided from the parameters
+        alone: the key of another gadget base is converted when its base is
+        current."""
+        return self._path(params) in ("gate", "mixed", "rns")
 
     def lwe_upload(self, ct: lwe.LWECiphertext) -> DeviceLWE:
         """Host LWECiphertext batch -> int64 device tensors, values kept."""
