@@ -30,7 +30,14 @@ its main path gives it. Then it drives the port's paths through
 - CiphertextMulMatrix at 1024 x 1024 mod 2^35 against the host product,
   and the DM/AP accumulator: the 8 gates at TOY AP against the oracle and
   a batch-1024 STD128_AP NAND, checked by decryption and on its first 8
-  outputs against the oracle.
+  outputs against the oracle;
+- device RNS-CKKS (`tfhe_tpu_torch.pke`, torch ops, no hand kernel) at
+  bench.py's `run_ckks` width (N = 4096, L = 8 limbs of 28 bits, scale
+  2^28, dnum = 3, 28-bit special limbs): `eval_mult` (tensor product,
+  hybrid key-switch relinearization, rescale) at batch 8 and 64, a slot
+  rotation and a hoisted one at batch 8, add and sub; every slot decrypts
+  within 1e-3, and two ciphertexts of each batch are `torch.equal` to the
+  host `CKKSRnsContext`. Its timings are a JSON line of their own.
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. At the end no jax or JAX-package module may be loaded.
 Exits non-zero on any failure. The line before the last is a JSON record
@@ -69,6 +76,10 @@ EARLIER_GATE_MS = 245.621
 # NTT stage through shared memory, separate twist and untwist passes, a
 # Barrett pass), on an NVIDIA H100 80GB HBM3 at 700 W, by this script
 EARLIER_R64_MS = 1743.611
+CKKS_SEED = 20260817        # bench.py's run_ckks context seed
+CKKS_N, CKKS_L, CKKS_BITS = 4096, 8, 28
+CKKS_BATCHES = (8, 64)      # bench.py's --ckks-batch default, and a wide batch
+CKKS_ITERS = 5              # warm calls timed per measurement
 
 
 def check(cond: bool, msg: str) -> None:
@@ -958,6 +969,121 @@ def std128_ap_nand(rng, card: str) -> None:
     log(f"STD128_AP NAND peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def ckks_contexts():
+    """bench.py's run_ckks configuration in the port: CKKSParams(N=4096,
+    DCRTParams.create(4096, 8, 28), scale 2^28), seed 20260817, hybrid keys
+    with dnum = 3 and 28-bit special limbs (one full-chain relin key and the
+    rotation-by-1 Galois key), on the card. Returns (ctx, rctx, dctx, sk,
+    pk, rlk, gk)."""
+    from tfhe_tpu_torch.pke import (CKKSContext, CKKSDeviceContext, CKKSParams,
+                                    CKKSRnsContext, DCRTParams)
+
+    p = CKKSParams(N=CKKS_N, dcrt=DCRTParams.create(CKKS_N, CKKS_L, CKKS_BITS),
+                   scale=float(1 << CKKS_BITS))
+    ctx = CKKSContext(p, seed=CKKS_SEED)
+    sk, pk = ctx.key_gen()
+    rctx = CKKSRnsContext(ctx, dnum=3, ks_limb_bits=CKKS_BITS)
+    rlk = rctx.relin_key_gen_single(sk)
+    gk = rctx.galois_key_gen_single(sk, 1)
+    dctx = CKKSDeviceContext(rctx)
+    dctx.load_relin_keys(rlk)
+    dctx.load_galois_keys(1, gk)
+    return ctx, rctx, dctx, sk, pk, rlk, gk
+
+
+def ckks(rng, card: str) -> dict:
+    """Device CKKS at full width (`ckks_contexts`): eval_mult at each batch
+    of CKKS_BATCHES, eval_rotate and a hoisted rotation by one slot at batch
+    8, eval_add and eval_sub; every tower on the card, every slot of every
+    result within 1e-3 of its expected value, the first and last ciphertext
+    of each result torch.equal to the host CKKSRnsContext. Returns the
+    timings (CUDA events over CKKS_ITERS warm calls)."""
+    import numpy as np
+    import torch
+
+    t0 = time.time()
+    ctx, rctx, dctx, sk, pk, rlk, gk = ckks_contexts()
+    p = ctx.params
+    log(f"CKKS N={p.N} L={p.dcrt.L} ({CKKS_BITS}-bit limbs) dnum=3, PQ limbs "
+        f"{len(rlk.pq_params.moduli)}, groups {rlk.groups}; host keygen {time.time() - t0:.1f} s")
+    t0 = time.time()
+    zs = [rng.uniform(0.1, 0.9, p.slots) for _ in range(max(CKKS_BATCHES))]
+    cts = [ctx.encrypt(pk, z) for z in zs]
+    log(f"CKKS: {len(cts)} encryptions on the host {time.time() - t0:.1f} s")
+
+    def on_card(dct) -> bool:
+        return dct.c0.is_cuda and dct.c1.is_cuda
+
+    def holds(dct, want, host_fn, what: str) -> None:
+        """Every slot of dct within 1e-3 of want(b); ciphertexts 0 and B-1
+        torch.equal to host_fn(b)."""
+        check(on_card(dct), f"CKKS {what}: towers not on the card")
+        outs = dctx.download_batch(dct)
+        err = max(np.abs(ctx.decrypt(sk, o) - want(b)).max() for b, o in enumerate(outs))
+        check(err < 1e-3, f"CKKS {what}: decryption error {err}")
+        for b in (0, len(outs) - 1):
+            host = host_fn(b)
+            check(host.scale == dct.scale, f"CKKS {what}: scale differs from the host")
+            for i, poly in enumerate(host.polys):
+                tower = torch.from_numpy(poly.to_eval().rns.astype(np.int64))
+                check(torch.equal((dct.c0, dct.c1)[i][:, b].cpu(), tower),
+                      f"CKKS {what}: ciphertext {b} differs from the host CKKSRnsContext")
+        log(f"CKKS {what}: {len(outs)} ciphertexts on the card, every slot within "
+            f"{err:.2e} of the expected value, ciphertexts 0 and {len(outs) - 1} "
+            "torch.equal to the host CKKSRnsContext")
+
+    out = {"card": card, "N": p.N, "L": p.dcrt.L, "dnum": 3}
+    for B in CKKS_BATCHES:
+        d = dctx.upload_batch(cts[:B])
+        check(on_card(d) and tuple(d.c0.shape) == (p.dcrt.L, B, p.N),
+              "CKKS upload_batch: towers not [L, B, N] on the card")
+        t0 = time.time()
+        prod = dctx.eval_mult(d, d)
+        torch.cuda.synchronize()
+        first = time.time() - t0
+        holds(prod, lambda b: zs[b] ** 2,
+              lambda b: rctx.eval_mult(cts[b], cts[b], rlk), f"eval_mult B={B}")
+        ms = cuda_ms(lambda: dctx.eval_mult(d, d), CKKS_ITERS)
+        out[f"mult_ms_per_ctx_B{B}"] = ms / B
+        log(f"CKKS eval_mult B={B}: first call {first:.4f} s, warm {ms:.3f} ms a call, "
+            f"{ms / B:.4f} ms/ctx on {card}")
+    B = CKKS_BATCHES[0]
+    d = dctx.upload_batch(cts[:B])
+    rot = dctx.eval_rotate(d, 1)
+    holds(rot, lambda b: np.roll(zs[b], -1),
+          lambda b: rctx.eval_rotate(cts[b], 1, gk), f"eval_rotate B={B}")
+    pre = dctx.rotation_precompute(d)
+    hoisted = dctx.eval_rotate_hoisted(d, 1, pre)
+    check(torch.equal(hoisted.c0, rot.c0) and torch.equal(hoisted.c1, rot.c1),
+          "CKKS hoisted rotation differs from eval_rotate")
+    holds(hoisted, lambda b: np.roll(zs[b], -1),
+          lambda b: rctx.eval_rotate_hoisted(cts[b], 1, gk, rctx.rotation_precompute(cts[b], gk)),
+          f"eval_rotate_hoisted B={B}")
+    e = cts[B:2 * B]
+    d2 = dctx.upload_batch(e)
+    holds(dctx.eval_add(d, d2), lambda b: zs[b] + zs[B + b],
+          lambda b: rctx.eval_add(cts[b], e[b]), f"eval_add B={B}")
+    diff = dctx.eval_sub(d, d2)
+    check(on_card(diff), "CKKS eval_sub: towers not on the card")
+    err = max(np.abs(ctx.decrypt(sk, o) - (zs[b] - zs[B + b])).max()
+              for b, o in enumerate(dctx.download_batch(diff)))
+    check(err < 1e-3, f"CKKS eval_sub: decryption error {err}")
+    back = dctx.eval_add(diff, d2)
+    check(torch.equal(back.c0, d.c0) and torch.equal(back.c1, d.c1),
+          "CKKS eval_sub then eval_add does not give the input back")
+    log(f"CKKS eval_sub B={B}: every slot within {err:.2e}; adding back gives the input")
+    out[f"rotate_ms_B{B}"] = cuda_ms(lambda: dctx.eval_rotate(d, 1), CKKS_ITERS)
+    out[f"precompute_ms_B{B}"] = cuda_ms(lambda: dctx.rotation_precompute(d), CKKS_ITERS)
+    out[f"hoisted_rotate_ms_B{B}"] = cuda_ms(lambda: dctx.eval_rotate_hoisted(d, 1, pre),
+                                             CKKS_ITERS)
+    out[f"add_ms_B{B}"] = cuda_ms(lambda: dctx.eval_add(d, d2), CKKS_ITERS)
+    log(f"CKKS B={B}: eval_rotate {out[f'rotate_ms_B{B}']:.3f} ms, rotation_precompute "
+        f"{out[f'precompute_ms_B{B}']:.3f} ms, eval_rotate_hoisted "
+        f"{out[f'hoisted_rotate_ms_B{B}']:.3f} ms, eval_add {out[f'add_ms_B{B}']:.3f} ms "
+        f"a call on {card}")
+    return out
+
+
 class KernelClock:
     """Device time of every call of `module.name` (a kernel wrapper that
     launches one kernel) while the clock is entered: CUDA events around
@@ -1238,11 +1364,17 @@ def main() -> int:
     std128_ap_nand(rng, card)
     log(f"GEMM and DM phases {time.time() - t0:.1f} s")
 
+    # device RNS-CKKS: torch ops, no hand kernel
+    t0 = time.time()
+    ckks_timing = ckks(rng, card)
+    log(f"CKKS phase {time.time() - t0:.1f} s")
+
     loaded = [m for m in sys.modules if m in ("jax", "tfhe_tpu")
               or m.startswith(("jax.", "tfhe_tpu."))]
     check(not loaded, f"JAX or the JAX package was loaded: {loaded[:5]}")
     log(f"no jax or tfhe_tpu module loaded; {time.time() - t_start:.1f} s in all")
 
+    print(json.dumps({"ckks": ckks_timing}), flush=True)
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",

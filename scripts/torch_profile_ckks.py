@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Where the time of the port's device CKKS multiplication goes, on one GPU.
+
+    python3 scripts/torch_profile_ckks.py
+
+The cell: bench.py's run_ckks configuration (`chip_smoke.ckks_contexts`:
+N = 4096, L = 8 limbs of 28 bits, dnum = 3, 28-bit special limbs),
+`CKKSDeviceContext.eval_mult` (tensor product, hybrid key-switch
+relinearization, rescale) at batch 8 and 64. For each batch: a first call
+checked by decryption, three warm host-clock timings (each ends in a
+synchronize), then one warm call under `torch.profiler`. The limb-stacked
+NTT's transforms (`NTTL.forward`/`inverse`) and the fast base conversions
+(`_make_fbc`'s closures) are wrapped in `record_function` ranges for this
+run only, so the device time of the kernels launched under each is read
+off the trace; the rest (tensor product, key inner product, ModDown and
+rescale arithmetic, gathers) is the elementwise remainder. Prints one JSON
+line per batch: the warm walls, the profiled wall, device busy (kernel
+self time on the one stream), the idle share 1 - busy / profiled wall, the
+kernel launches, the device seconds and shares of the NTT, the FBC and the
+remainder, and the top kernels by name; the profiler's table goes to
+`chiprun_out/profile_ckks_B<batch>.txt`. Imports no jax.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+from tfhe_tpu_torch.ops import nttl  # noqa: E402
+from tfhe_tpu_torch.pke import ckks_device  # noqa: E402
+
+OUT_DIR = "chiprun_out"
+RANGES = ("ckks::ntt", "ckks::fbc")
+
+
+def annotated(name: str, fn):
+    def wrapped(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def annotate_layers() -> None:
+    """Open a profiler range around every NTT and every FBC. Must run before
+    the first `build_*` call: those are cached with their closures."""
+    cls = nttl.NTTL.__wrapped__            # the class under its lru_cache
+    cls.forward = annotated(RANGES[0], cls.forward)
+    cls.inverse = annotated(RANGES[0], cls.inverse)
+    make_fbc = ckks_device._make_fbc
+    ckks_device._make_fbc = lambda *args: annotated(RANGES[1], make_fbc(*args))
+
+
+def device_us(evt) -> float:
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def measure(B: int, fn, card: str) -> None:
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    # the ranges also appear on the device's timeline, as spans that hold
+    # kernels and the gaps between them: they are no kernels of their own
+    kernels = {e.key: (device_us(e) / 1e6, e.count) for e in avgs
+               if e.device_type.name == "CUDA" and device_us(e) > 0
+               and e.key not in RANGES}
+    busy = sum(s for s, _ in kernels.values())
+    launches = sum(n for _, n in kernels.values())
+    # device time of the kernels launched under each range, from the CPU-side
+    # range events (the ranges do not nest in each other)
+    layer = {name: sum(e.device_time_total for e in prof.events()
+                       if e.name == name and e.device_type.name == "CPU") / 1e6
+             for name in RANGES}
+    rest = busy - sum(layer.values())
+    with open(os.path.join(OUT_DIR, f"profile_ckks_B{B}.txt"), "w") as f:
+        f.write(f"{card}\neval_mult B={B}, profiled wall {prof_wall:.6f} s\n")
+        f.write(avgs.table(sort_by="self_device_time_total", row_limit=40))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    print(json.dumps({
+        "cell": f"ckks_mult_B{B}", "wall_s": walls, "ms_per_ctx": min(walls) / B * 1e3,
+        "profiled_wall_s": prof_wall, "device_busy_s": busy,
+        "idle_share": 1 - busy / prof_wall, "kernel_launches": launches,
+        "ntt_s": layer[RANGES[0]], "fbc_s": layer[RANGES[1]], "rest_s": rest,
+        "ntt_share": layer[RANGES[0]] / busy, "fbc_share": layer[RANGES[1]] / busy,
+        "rest_share": rest / busy,
+        "top_kernels_s": {k[:80]: v[0] for k, v in top}, "card": card}), flush=True)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    annotate_layers()
+    rng = np.random.default_rng(chip_smoke.SEED)
+    ctx, _, dctx, sk, pk, _, _ = chip_smoke.ckks_contexts()
+    zs = [rng.uniform(0.1, 0.9, ctx.params.slots) for _ in range(max(chip_smoke.CKKS_BATCHES))]
+    cts = [ctx.encrypt(pk, z) for z in zs]
+    for B in chip_smoke.CKKS_BATCHES:
+        d = dctx.upload_batch(cts[:B])
+        outs = dctx.download_batch(dctx.eval_mult(d, d))
+        err = max(np.abs(ctx.decrypt(sk, o) - zs[b] ** 2).max() for b, o in enumerate(outs))
+        if err >= 1e-3:
+            raise SystemExit(f"wrong CKKS product at B={B}: error {err}")
+        measure(B, lambda: dctx.eval_mult(d, d), card)
+
+
+if __name__ == "__main__":
+    main()

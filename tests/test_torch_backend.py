@@ -230,7 +230,8 @@ def test_context_evaluates_on_the_card_by_default(port):
 
 def test_port_never_imports_jax():
     """The port alone, in a fresh interpreter (this process has jax and the
-    JAX package loaded): a TOY NAND and a small RNS EvalSign on the CPU,
+    JAX package loaded): a TOY NAND, a small RNS EvalSign and a device CKKS
+    multiplication (`tfhe_tpu_torch.pke`, `pke.ckks_device`) on the CPU,
     and no jax, tfhe_tpu or tfhe_tpu.* module afterwards."""
     script = textwrap.dedent("""
         import sys
@@ -261,6 +262,18 @@ def test_port_never_imports_jax():
         ct = cc.encrypt(sk, (P // 2 + delta) % P, "FRESH", P, 1 << 11)
         out = cc.eval_sign(ct)
         assert np.array_equal(cc.decrypt(sk, out, 2), (delta >= 0).astype(np.uint64))
+        import tfhe_tpu_torch.pke
+        from tfhe_tpu_torch.pke import ckks_device
+        p = tfhe_tpu_torch.pke.CKKSParams(
+            N=32, dcrt=tfhe_tpu_torch.pke.DCRTParams.create(32, 3, 28), scale=float(1 << 28))
+        ctx = tfhe_tpu_torch.pke.CKKSContext(p, seed=7)
+        csk, cpk = ctx.key_gen()
+        rctx = tfhe_tpu_torch.pke.CKKSRnsContext(ctx, dnum=2, ks_limb_bits=28)
+        dctx = ckks_device.CKKSDeviceContext(rctx, device="cpu")
+        dctx.load_relin_keys(rctx.relin_key_gen_single(csk))
+        z = np.linspace(0.1, 0.9, 16)
+        d = dctx.upload(ctx.encrypt(cpk, z))
+        assert np.abs(ctx.decrypt(csk, dctx.download(dctx.eval_mult(d, d))) - z * z).max() < 1e-3
         bad = [m for m in sys.modules if m in ("jax", "tfhe_tpu")
                or m.startswith(("jax.", "tfhe_tpu."))]
         assert not bad, bad

@@ -14,7 +14,8 @@ one device table.
 `params_from`, `key_from` and `ciphertext_from` carry the JAX package's
 parameters, keys and ciphertexts (read as plain attributes and numpy
 arrays, without importing that package) into the port's own types, so the
-two packages can be compared on identical inputs.
+two packages can be compared on identical inputs; the `ckks_*_from` and
+`hybrid_key_from` functions do the same for its CKKS objects.
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ from .ops.keyswitch import ksk_table
 from .ops.rotate64_kernel import pack_bsk64
 from .ops.rotate_kernel import pack_bsk
 from .ops.rotate_rns_kernel import pack_bsk_rns
+from .pke.ckks import CKKSCiphertext, CKKSParams
+from .pke.ckks_rns import RnsHybridKey
+from .pke.dcrt import DCRTParams, DCRTPoly
 
 
 def switching_table(ksk: lwe.LWESwitchingKey, device: torch.device) -> torch.Tensor:
@@ -92,3 +96,55 @@ def key_from(other) -> BTKey:
 def ciphertext_from(other) -> lwe.LWECiphertext:
     return lwe.LWECiphertext(np.asarray(other.a).copy(),
                              np.copy(other.b), int(other.modulus))
+
+
+def _dcrt_params_from(other) -> DCRTParams:
+    return DCRTParams(N=int(other.N), moduli=tuple(int(m) for m in other.moduli))
+
+
+def _dcrt_poly_from(other) -> DCRTPoly:
+    return DCRTPoly(_dcrt_params_from(other.params),
+                    np.asarray(other.rns, dtype=np.uint64).copy(),
+                    bool(other.eval_form))
+
+
+def ckks_params_from(other) -> CKKSParams:
+    """A JAX-package CKKSParams -> the port's (same chain, scale, noise)."""
+    return CKKSParams(N=int(other.N), dcrt=_dcrt_params_from(other.dcrt),
+                      scale=float(other.scale), std=float(other.std),
+                      relin_window=int(other.relin_window))
+
+
+def ckks_secret_from(other) -> tuple:
+    """A JAX-package CKKS secret key (s tower, signed coefficients) -> the
+    port's."""
+    s, s_signed = other
+    return _dcrt_poly_from(s), np.asarray(s_signed, dtype=np.int64).copy()
+
+
+def ckks_public_from(other) -> tuple:
+    """A JAX-package CKKS public key (b, a) -> the port's."""
+    return tuple(_dcrt_poly_from(p) for p in other)
+
+
+def hybrid_key_from(other) -> RnsHybridKey:
+    """A JAX-package RnsHybridKey -> the port's, its Galois element kept."""
+    key = RnsHybridKey(bs=[_dcrt_poly_from(p) for p in other.bs],
+                       as_=[_dcrt_poly_from(p) for p in other.as_],
+                       pq_params=_dcrt_params_from(other.pq_params),
+                       q_moduli=tuple(int(m) for m in other.q_moduli),
+                       p_moduli=tuple(int(m) for m in other.p_moduli),
+                       groups=[tuple(int(x) for x in g) for g in other.groups],
+                       t=int(other.t))
+    if hasattr(other, "galois_k"):
+        key.galois_k = int(other.galois_k)
+    return key
+
+
+def ckks_ciphertext_from(other, params: CKKSParams | None = None) -> CKKSCiphertext:
+    """A JAX-package CKKSCiphertext -> the port's (towers copied); `params`
+    defaults to the carried-across parameters of the ciphertext."""
+    return CKKSCiphertext([_dcrt_poly_from(p) for p in other.polys],
+                          float(other.scale),
+                          ckks_params_from(other.params) if params is None else params,
+                          int(other.noise_deg))
