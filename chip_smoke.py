@@ -37,7 +37,17 @@ its main path gives it. Then it drives the port's paths through
   hybrid key-switch relinearization, rescale) at batch 8 and 64, a slot
   rotation and a hoisted one at batch 8, add and sub; every slot decrypts
   within 1e-3, and two ciphertexts of each batch are `torch.equal` to the
-  host `CKKSRnsContext`. Its timings are a JSON line of their own.
+  host `CKKSRnsContext`;
+- CKKS bootstrapping (`CKKSBootstrapFFTDevice`, torch ops) at bench.py's
+  `run_ckksboot` width (N = 1024, L = 18 limbs of 30 bits, sparse secret,
+  level budget (2, 2), degree 44, 31 Galois keys) at batch 8: every stage
+  on the card, every slot within 2e-2, ciphertexts 0 and 7 `torch.equal`
+  to a CPU evaluator on the same keys; and the BSGS `CKKSBootstrapDevice`
+  at N = 64, checked by decryption;
+- the advanced SHE layer on the device evaluator at the CKKS width:
+  `eval_sum`, `eval_linear_wsum` and `eval_logistic` at batch 8, checked
+  by decryption and on ciphertext 0 against a CPU evaluator.
+The CKKS timings are a JSON line of their own.
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. At the end no jax or JAX-package module may be loaded.
 Exits non-zero on any failure. The line before the last is a JSON record
@@ -80,6 +90,14 @@ CKKS_SEED = 20260817        # bench.py's run_ckks context seed
 CKKS_N, CKKS_L, CKKS_BITS = 4096, 8, 28
 CKKS_BATCHES = (8, 64)      # bench.py's --ckks-batch default, and a wide batch
 CKKS_ITERS = 5              # warm calls timed per measurement
+BOOT_SEED = 20260818        # bench.py's run_ckksboot context seed
+BOOT_N, BOOT_BITS, BOOT_HW = 1024, 30, 64
+BOOT_BUDGET, BOOT_K, BOOT_DEG = (2, 2), 28.0, 44
+BOOT_BATCH = 8              # bench.py's --ckks-batch default
+BOOT_ITERS = 2              # warm bootstraps timed
+SHE_BATCH = 8
+SHE_DEG = 15                # eval_logistic's degree: 5 of the 7 levels below L = 8
+SHE_ITERS = 3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -991,8 +1009,8 @@ def ckks_contexts():
     return ctx, rctx, dctx, sk, pk, rlk, gk
 
 
-def ckks(rng, card: str) -> dict:
-    """Device CKKS at full width (`ckks_contexts`): eval_mult at each batch
+def ckks(rng, card: str, contexts) -> dict:
+    """Device CKKS at full width (`ckks_contexts`, passed in): eval_mult at each batch
     of CKKS_BATCHES, eval_rotate and a hoisted rotation by one slot at batch
     8, eval_add and eval_sub; every tower on the card, every slot of every
     result within 1e-3 of its expected value, the first and last ciphertext
@@ -1001,11 +1019,10 @@ def ckks(rng, card: str) -> dict:
     import numpy as np
     import torch
 
-    t0 = time.time()
-    ctx, rctx, dctx, sk, pk, rlk, gk = ckks_contexts()
+    ctx, rctx, dctx, sk, pk, rlk, gk = contexts
     p = ctx.params
     log(f"CKKS N={p.N} L={p.dcrt.L} ({CKKS_BITS}-bit limbs) dnum=3, PQ limbs "
-        f"{len(rlk.pq_params.moduli)}, groups {rlk.groups}; host keygen {time.time() - t0:.1f} s")
+        f"{len(rlk.pq_params.moduli)}, groups {rlk.groups}")
     t0 = time.time()
     zs = [rng.uniform(0.1, 0.9, p.slots) for _ in range(max(CKKS_BATCHES))]
     cts = [ctx.encrypt(pk, z) for z in zs]
@@ -1081,6 +1098,193 @@ def ckks(rng, card: str) -> dict:
         f"{out[f'precompute_ms_B{B}']:.3f} ms, eval_rotate_hoisted "
         f"{out[f'hoisted_rotate_ms_B{B}']:.3f} ms, eval_add {out[f'add_ms_B{B}']:.3f} ms "
         f"a call on {card}")
+    return out
+
+
+def exhausted(ctx, pk, z):
+    """z encrypted on the host and dropped to one limb (a bootstrap's
+    input), as bench.py's run_ckksboot does."""
+    from tfhe_tpu_torch.pke.ckks_boot import mult_const
+
+    ct = ctx.encrypt(pk, z)
+    while ct.level_params.L > 1:
+        ct = ctx.rescale(mult_const(ctx, ct, 1.0, rescale=False))
+    return ct
+
+
+def ckksboot_contexts():
+    """bench.py's run_ckksboot configuration in the port: CKKSParams(N=1024,
+    DCRTParams.create(1024, 18, 30), scale 2^30) with 18 = bootstrap_depth
+    + 2, seed 20260818, a sparse ternary secret of weight 64, hybrid keys
+    with dnum = 3 and 28-bit special limbs, eval_bootstrap_setup_fft with
+    level budget (2, 2), K = 28 and Chebyshev degree 44, and the FFT
+    bootstrap's relin and Galois keys. Returns (ctx, sk, pk, bd)."""
+    from tfhe_tpu_torch.pke import (CKKSBootstrapFFTDevice, CKKSContext, CKKSParams,
+                                    CKKSRnsContext, DCRTParams, bootstrap_depth,
+                                    eval_bootstrap_setup_fft)
+
+    L = bootstrap_depth(BOOT_BUDGET, cheb_deg=BOOT_DEG, double_angles=3) + 2
+    p = CKKSParams(N=BOOT_N, dcrt=DCRTParams.create(BOOT_N, L, BOOT_BITS),
+                   scale=float(1 << BOOT_BITS))
+    ctx = CKKSContext(p, seed=BOOT_SEED)
+    sk, pk = ctx.key_gen(secret_dist="sparse", hamming_weight=BOOT_HW)
+    pre = eval_bootstrap_setup_fft(ctx, level_budget=BOOT_BUDGET, K=BOOT_K, cheb_deg=BOOT_DEG)
+    bd = CKKSBootstrapFFTDevice(CKKSRnsContext(ctx, dnum=3, ks_limb_bits=28), pre)
+    bd.keygen(sk)
+    return ctx, sk, pk, bd
+
+
+def ckksboot(card: str) -> dict:
+    """The batched FFT-factored device bootstrap at bench.py's run_ckksboot
+    width (`ckksboot_contexts`, batch BOOT_BATCH, inputs uniform in +-0.04
+    from default_rng(5)): every stage's towers on the card, every slot of
+    every refreshed ciphertext within 2e-2 (bench.py's check), ciphertexts
+    0 and BOOT_BATCH-1 torch.equal to the same bootstrap on a CPU evaluator
+    with the same keys; the first call and BOOT_ITERS warm calls timed by
+    CUDA events. Then the BSGS CKKSBootstrapDevice once at N = 64, checked
+    by decryption. Returns the timings."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.pke import (CKKSBootstrapDevice, CKKSBootstrapFFTDevice, CKKSContext,
+                                    CKKSParams, CKKSRnsContext, DCRTParams, eval_bootstrap_setup)
+
+    t0 = time.time()
+    ctx, sk, pk, bd = ckksboot_contexts()
+    keygen_s = time.time() - t0
+    p = ctx.params
+    log(f"CKKS bootstrap N={p.N} L={p.dcrt.L} ({BOOT_BITS}-bit limbs) budget {BOOT_BUDGET}, "
+        f"{len(bd.galois_keys)} Galois keys; host context and keygen {keygen_s:.1f} s")
+    rng = np.random.default_rng(5)
+    zs = [rng.uniform(-0.04, 0.04, p.slots) for _ in range(BOOT_BATCH)]
+    t0 = time.time()
+    cts = [exhausted(ctx, pk, z) for z in zs]
+    log(f"CKKS bootstrap: {len(cts)} encryptions dropped to one limb on the host "
+        f"{time.time() - t0:.1f} s")
+
+    def staged(ev, batch):
+        """The bootstrap stage by stage; the last stage's device towers."""
+        out = {}
+        for name, d in ev.stages(batch):
+            out[name] = d
+        return out
+
+    t0 = time.time()
+    stages = staged(bd, cts)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    check(all(d.c0.is_cuda and d.c1.is_cuda for d in stages.values()),
+          "CKKS bootstrap: a stage's towers are not on the card")
+    last = stages[list(stages)[-1]]
+    check(tuple(last.c0.shape)[1:] == (BOOT_BATCH, p.N),
+          f"CKKS bootstrap: output towers of shape {tuple(last.c0.shape)}")
+    fresh = bd.dctx.download_batch(last)
+    err = max(float(np.abs(ctx.decrypt(sk, f).real - z).max()) for f, z in zip(fresh, zs))
+    check(err < 2e-2 and all(f.level_params.L >= 2 for f in fresh),
+          f"CKKS bootstrap: decryption error {err}")
+    log(f"CKKS bootstrap B={BOOT_BATCH}: stages {list(stages)} on the card, refreshed to "
+        f"{fresh[0].level_params.L} limbs, every slot within {err:.3e} (bound 2e-2)")
+
+    t0 = time.time()
+    cpu = CKKSBootstrapFFTDevice(bd.rns, bd.pre, device="cpu")
+    cpu.load_keys(bd.relin_key, bd.galois_keys)
+    ends = (0, BOOT_BATCH - 1)
+    ref = staged(cpu, [cts[b] for b in ends])
+    ref_last = ref[list(ref)[-1]]
+    for i, b in enumerate(ends):
+        check(torch.equal(last.c0[:, b].cpu(), ref_last.c0[:, i])
+              and torch.equal(last.c1[:, b].cpu(), ref_last.c1[:, i])
+              and last.scale == ref_last.scale,
+              f"CKKS bootstrap: ciphertext {b} differs from the CPU evaluator's")
+    log(f"CKKS bootstrap: ciphertexts {ends} torch.equal to the CPU evaluator on the same "
+        f"keys ({time.time() - t0:.1f} s on the host's CPU)")
+
+    ms = cuda_ms(lambda: bd.bootstrap_batch(cts), BOOT_ITERS)
+    out = {"card": card, "N": p.N, "L": p.dcrt.L, "batch": BOOT_BATCH,
+           "level_budget": list(BOOT_BUDGET), "galois_keys": len(bd.galois_keys),
+           "max_err": err, "keygen_s": keygen_s, "first_call_s": first_s,
+           "ms_per_call": ms, "ms_per_ctx": ms / BOOT_BATCH}
+    log(f"CKKS bootstrap B={BOOT_BATCH}: first call {first_s:.3f} s, warm {ms:.3f} ms a call, "
+        f"{ms / BOOT_BATCH:.3f} ms/ctx on {card}")
+
+    # the BSGS driver once, at a smaller ring
+    t0 = time.time()
+    p = CKKSParams(N=64, dcrt=DCRTParams.create(64, 16, 28), scale=float(1 << 28))
+    ctx = CKKSContext(p, seed=BOOT_SEED)
+    sk, pk = ctx.key_gen(secret_dist="sparse", hamming_weight=8)
+    bsgs = CKKSBootstrapDevice(CKKSRnsContext(ctx, dnum=3, ks_limb_bits=28),
+                               eval_bootstrap_setup(ctx, cheb_deg=22))
+    bsgs.keygen(sk)
+    zs = [np.linspace(-0.04, 0.04, p.slots), np.linspace(0.03, -0.03, p.slots)]
+    fresh = bsgs.bootstrap_batch([exhausted(ctx, pk, z) for z in zs])
+    err = max(float(np.abs(ctx.decrypt(sk, f).real - z).max()) for f, z in zip(fresh, zs))
+    check(err < 5e-3 and all(f.level_params.L >= 2 for f in fresh),
+          f"BSGS CKKS bootstrap N=64: decryption error {err}")
+    log(f"BSGS CKKS bootstrap N=64 L=16 B=2: every slot within {err:.3e} (bound 5e-3), "
+        f"{time.time() - t0:.1f} s with keygen")
+    out["bsgs_n64_max_err"] = err
+    return out
+
+
+def advancedshe(rng, card: str, contexts) -> dict:
+    """The advanced SHE layer on the device evaluator at `ckks_contexts`'
+    width (N = 4096, L = 8) on batch SHE_BATCH: eval_sum over every slot,
+    eval_linear_wsum of two batches and eval_logistic (degree SHE_DEG on
+    [-4, 4]); each checked slot by slot by decryption against numpy, and on
+    ciphertext 0 torch.equal to a CPU evaluator with the same keys; each
+    timed by CUDA events. Returns the timings."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.pke import CKKSDeviceEvaluator
+    from tfhe_tpu_torch.pke import advancedshe_device as ashd
+    from tfhe_tpu_torch.pke.ckks_boot import galois_element
+
+    ctx, rctx, dctx, sk, pk, rlk, gk = contexts
+    p = ctx.params
+    t0 = time.time()
+    ev = CKKSDeviceEvaluator(rctx)
+    ev.load_keys(rlk, {galois_element(1, p.N): gk})
+    ev.load_galois_elements(sk, [galois_element(1 << j, p.N)
+                                 for j in range(1, p.slots.bit_length() - 1)])
+    log(f"advanced SHE N={p.N} L={p.dcrt.L}: {len(ev.galois_keys)} Galois keys, host "
+        f"keygen {time.time() - t0:.1f} s")
+    t0 = time.time()
+    za = [rng.uniform(-1, 1, p.slots) / 64 for _ in range(SHE_BATCH)]
+    zb = [rng.uniform(-3.5, 3.5, p.slots) for _ in range(SHE_BATCH)]
+    a_cts, b_cts = [ctx.encrypt(pk, z) for z in za], [ctx.encrypt(pk, z) for z in zb]
+    log(f"advanced SHE: {2 * SHE_BATCH} encryptions on the host {time.time() - t0:.1f} s")
+    a, b = ev.dctx.upload_batch(a_cts), ev.dctx.upload_batch(b_cts)
+    cpu = CKKSDeviceEvaluator(rctx, device="cpu")
+    cpu.load_keys(ev.relin_key, ev.galois_keys)
+    a0, b0 = cpu.dctx.upload_batch(a_cts[:1]), cpu.dctx.upload_batch(b_cts[:1])
+    w = (0.5, -1.25)
+    runs = {
+        # the sum carries every slot's encryption noise and 11 key switches'
+        "eval_sum": (lambda e, x, y: ashd.eval_sum(e, x),
+                     lambda bi: np.full(p.slots, za[bi].sum()), 1e-2),
+        "eval_linear_wsum": (lambda e, x, y: ashd.eval_linear_wsum(e, [x, y], w),
+                             lambda bi: w[0] * za[bi] + w[1] * zb[bi], 1e-3),
+        "eval_logistic": (lambda e, x, y: ashd.eval_logistic(e, y, -4.0, 4.0, SHE_DEG),
+                          lambda bi: 1.0 / (1.0 + np.exp(-zb[bi])), 1e-2),
+    }
+    out = {"card": card, "N": p.N, "L": p.dcrt.L, "batch": SHE_BATCH}
+    for name, (fn, want, bound) in runs.items():
+        got = fn(ev, a, b)
+        check(got.c0.is_cuda and got.c1.is_cuda, f"{name}: towers not on the card")
+        err = max(float(np.abs(ctx.decrypt(sk, o).real - want(bi)).max())
+                  for bi, o in enumerate(ev.dctx.download_batch(got)))
+        check(err < bound, f"{name}: decryption error {err}")
+        ref = fn(cpu, a0, b0)
+        check(torch.equal(got.c0[:, 0].cpu(), ref.c0[:, 0])
+              and torch.equal(got.c1[:, 0].cpu(), ref.c1[:, 0]) and got.scale == ref.scale,
+              f"{name}: ciphertext 0 differs from the CPU evaluator's")
+        ms = cuda_ms(lambda: fn(ev, a, b), SHE_ITERS)
+        out[f"{name}_ms"] = ms
+        out[f"{name}_max_err"] = err
+        log(f"{name} B={SHE_BATCH}: {len(got.moduli)} limbs left, every slot within "
+            f"{err:.3e} (bound {bound:g}), ciphertext 0 torch.equal to the CPU evaluator; "
+            f"{ms:.3f} ms a call on {card}")
     return out
 
 
@@ -1366,15 +1570,28 @@ def main() -> int:
 
     # device RNS-CKKS: torch ops, no hand kernel
     t0 = time.time()
-    ckks_timing = ckks(rng, card)
+    contexts = ckks_contexts()
+    log(f"CKKS host keygen {time.time() - t0:.1f} s")
+    t0 = time.time()
+    ckks_timing = ckks(rng, card, contexts)
     log(f"CKKS phase {time.time() - t0:.1f} s")
+
+    # CKKS bootstrapping and the advanced SHE layer on the device evaluator:
+    # torch ops, no hand kernel
+    t0 = time.time()
+    boot_timing = ckksboot(card)
+    log(f"CKKS bootstrap phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    she_timing = advancedshe(rng, card, contexts)
+    log(f"advanced SHE phase {time.time() - t0:.1f} s")
 
     loaded = [m for m in sys.modules if m in ("jax", "tfhe_tpu")
               or m.startswith(("jax.", "tfhe_tpu."))]
     check(not loaded, f"JAX or the JAX package was loaded: {loaded[:5]}")
     log(f"no jax or tfhe_tpu module loaded; {time.time() - t_start:.1f} s in all")
 
-    print(json.dumps({"ckks": ckks_timing}), flush=True)
+    print(json.dumps({"ckks": ckks_timing, "ckksboot": boot_timing,
+                      "advancedshe": she_timing}), flush=True)
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",

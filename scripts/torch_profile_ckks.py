@@ -19,6 +19,20 @@ self time on the one stream), the idle share 1 - busy / profiled wall, the
 kernel launches, the device seconds and shares of the NTT, the FBC and the
 remainder, and the top kernels by name; the profiler's table goes to
 `chiprun_out/profile_ckks_B<batch>.txt`. Imports no jax.
+
+    python3 scripts/torch_profile_ckks.py --boot
+
+profiles the FFT-factored device bootstrap instead, at bench.py's
+run_ckksboot width (`chip_smoke.ckksboot_contexts`: N = 1024, L = 18 limbs
+of 30 bits, budget (2, 2), Chebyshev degree 44, 31 Galois keys) on batch
+8: a first call checked by decryption, three warm host-clock timings, then
+one warm call under `torch.profiler` with a `record_function` range around
+each stage of `CKKSBootstrapFFTDevice.stages` (ModRaise with the upload,
+CoeffsToSlots, EvalMod, SlotsToCoeffs, the download), opened for this run
+only. Prints one JSON line: the walls, device busy and idle share, the
+kernel launches, each stage's device seconds and host wall, and the host
+seconds spent in ModRaise and in plaintext encoding (first call and warm
+call); the table goes to `chiprun_out/profile_ckksboot_B8.txt`.
 """
 
 from __future__ import annotations
@@ -105,6 +119,115 @@ def measure(B: int, fn, card: str) -> None:
         "top_kernels_s": {k[:80]: v[0] for k, v in top}, "card": card}), flush=True)
 
 
+BOOT_RANGES = ("boot::mod_raise", "boot::coeffs_to_slots", "boot::eval_mod",
+               "boot::slots_to_coeffs", "boot::download")
+
+
+class HostClock:
+    """Host seconds spent in `module.name` while installed (the function
+    wrapped with a timer; `seconds` summed over calls, reset by the
+    caller)."""
+
+    def __init__(self, module, name: str):
+        self.seconds = 0.0
+        orig = getattr(module, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        setattr(module, name, timed)
+
+
+def boot_stage_range(name: str) -> str:
+    if name == "raise":
+        return BOOT_RANGES[0]
+    if name.startswith("cts") or name == "partial_sum":
+        return BOOT_RANGES[1]
+    return BOOT_RANGES[2] if name == "eval_mod" else BOOT_RANGES[3]
+
+
+def boot_call(bd, cts):
+    """One bootstrap_batch, stage by stage, each stage in its range."""
+    pre = bd.pre
+    names = ["raise"] + (["partial_sum"] if pre.sparse_slots < bd.params.slots else []) \
+        + [f"cts{i}" for i in range(len(pre.cts_groups))] + ["eval_mod"] \
+        + [f"stc{i}" for i in range(len(pre.stc_groups))]
+    stages = bd.stages(cts)
+    for name in names:
+        with record_function(boot_stage_range(name)):
+            got, out = next(stages)
+        assert got == name, (got, name)
+    with record_function(BOOT_RANGES[4]):
+        return bd.dctx.download_batch(out)
+
+
+def profile_boot(card: str) -> None:
+    from tfhe_tpu_torch.pke import ckks_boot_device, ckks_boot_fft_device
+
+    raise_clock = HostClock(ckks_boot_device, "mod_raise")
+    encode_clocks = [HostClock(ckks_boot_device, "encode"),
+                     HostClock(ckks_boot_fft_device, "encode")]
+    ctx, sk, pk, bd = chip_smoke.ckksboot_contexts()
+    rng = np.random.default_rng(5)
+    B = chip_smoke.BOOT_BATCH
+    zs = [rng.uniform(-0.04, 0.04, ctx.params.slots) for _ in range(B)]
+    cts = [chip_smoke.exhausted(ctx, pk, z) for z in zs]
+
+    def host_s():
+        return raise_clock.seconds, sum(c.seconds for c in encode_clocks)
+
+    t0 = time.perf_counter()
+    fresh = boot_call(bd, cts)
+    first_wall = time.perf_counter() - t0
+    first_raise, first_encode = host_s()
+    err = max(np.abs(ctx.decrypt(sk, f).real - z).max() for f, z in zip(fresh, zs))
+    if err >= 2e-2:
+        raise SystemExit(f"wrong CKKS bootstrap: error {err}")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        boot_call(bd, cts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    r0, e0 = host_s()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        boot_call(bd, cts)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    r1, e1 = host_s()
+    avgs = prof.key_averages()
+    kernels = {e.key: (device_us(e) / 1e6, e.count) for e in avgs
+               if e.device_type.name == "CUDA" and device_us(e) > 0
+               and e.key not in BOOT_RANGES}
+    busy = sum(v for v, _ in kernels.values())
+    launches = sum(n for _, n in kernels.values())
+    ranges = [e for e in prof.events()
+              if e.name in BOOT_RANGES and e.device_type.name == "CPU"]
+    stage_dev = {n: sum(e.device_time_total for e in ranges if e.name == n) / 1e6
+                 for n in BOOT_RANGES}
+    stage_host = {n: sum(e.cpu_time_total for e in ranges if e.name == n) / 1e6
+                  for n in BOOT_RANGES}
+    with open(os.path.join(OUT_DIR, f"profile_ckksboot_B{B}.txt"), "w") as f:
+        f.write(f"{card}\nbootstrap_batch B={B}, profiled wall {prof_wall:.6f} s\n")
+        f.write(avgs.table(sort_by="self_device_time_total", row_limit=40))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    print(json.dumps({
+        "cell": f"ckksboot_B{B}", "N": ctx.params.N, "L": ctx.params.dcrt.L,
+        "max_err": float(err), "first_wall_s": first_wall, "wall_s": walls,
+        "ms_per_ctx": min(walls) / B * 1e3, "profiled_wall_s": prof_wall,
+        "device_busy_s": busy, "idle_share": 1 - busy / prof_wall,
+        "kernel_launches": launches,
+        "stage_device_s": stage_dev, "stage_host_wall_s": stage_host,
+        "mod_raise_host_s": {"first": first_raise, "profiled": r1 - r0},
+        "encode_host_s": {"first": first_encode, "profiled": e1 - e0},
+        "top_kernels_s": {k[:80]: v[0] for k, v in top}, "card": card}), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
@@ -113,6 +236,9 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
+    if "--boot" in sys.argv[1:]:
+        profile_boot(card)
+        return
     annotate_layers()
     rng = np.random.default_rng(chip_smoke.SEED)
     ctx, _, dctx, sk, pk, _, _ = chip_smoke.ckks_contexts()

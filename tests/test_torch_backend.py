@@ -231,8 +231,9 @@ def test_context_evaluates_on_the_card_by_default(port):
 def test_port_never_imports_jax():
     """The port alone, in a fresh interpreter (this process has jax and the
     JAX package loaded): a TOY NAND, a small RNS EvalSign and a device CKKS
-    multiplication (`tfhe_tpu_torch.pke`, `pke.ckks_device`) on the CPU,
-    and no jax, tfhe_tpu or tfhe_tpu.* module afterwards."""
+    multiplication (`tfhe_tpu_torch.pke`, `pke.ckks_device`) and a weighted
+    sum on the device evaluator (`pke.advancedshe_device`, with the CKKS
+    bootstrapping modules imported) on the CPU, and no jax, tfhe_tpu or tfhe_tpu.* module afterwards."""
     script = textwrap.dedent("""
         import sys
         import numpy as np
@@ -270,10 +271,17 @@ def test_port_never_imports_jax():
         csk, cpk = ctx.key_gen()
         rctx = tfhe_tpu_torch.pke.CKKSRnsContext(ctx, dnum=2, ks_limb_bits=28)
         dctx = ckks_device.CKKSDeviceContext(rctx, device="cpu")
-        dctx.load_relin_keys(rctx.relin_key_gen_single(csk))
+        rlk = rctx.relin_key_gen_single(csk)
+        dctx.load_relin_keys(rlk)
         z = np.linspace(0.1, 0.9, 16)
         d = dctx.upload(ctx.encrypt(cpk, z))
         assert np.abs(ctx.decrypt(csk, dctx.download(dctx.eval_mult(d, d))) - z * z).max() < 1e-3
+        from tfhe_tpu_torch.pke import (advancedshe, advancedshe_device, ckks_boot,
+                                        ckks_boot_device, ckks_boot_fft, ckks_boot_fft_device)
+        ev = ckks_boot_device.CKKSDeviceEvaluator(rctx, device="cpu")
+        ev.load_keys(rlk, {})
+        w = advancedshe_device.eval_linear_wsum(ev, [d, d], [0.5, -2.0])
+        assert np.abs(ctx.decrypt(csk, ev.dctx.download(w)) + 1.5 * z).max() < 1e-3
         bad = [m for m in sys.modules if m in ("jax", "tfhe_tpu")
                or m.startswith(("jax.", "tfhe_tpu."))]
         assert not bad, bad

@@ -68,7 +68,7 @@ def eq(t, j) -> bool:
 
 def test_modmathv_matches_modmath32v():
     rng = np.random.default_rng(10)
-    lm, jlm = mv.LimbModuli(MODULI, "cpu"), jax_mv.LimbModuli(MODULI)
+    lm, jlm = mv.LimbModuli(MODULI, device="cpu"), jax_mv.LimbModuli(MODULI)
     a, b = residues(rng, MODULI, (3, 40)), residues(rng, MODULI, (3, 40))[:, ::-1]
     x = rng.integers(0, 1 << 32, (len(MODULI), 3, 40), dtype=np.int64)
     x[:, 0, :4] = [0, 1, (1 << 32) - 1, (1 << 31)]
@@ -88,7 +88,7 @@ def test_modmathv_matches_modmath32v():
               jax_mv.mulmod_shoup_v(jx(a), jlm.bc(jx(np.arange(1, 6)), 3),
                                     jlm.bc(jx(lm.shoup(np.arange(1, 6))), 3), jlm))
     with pytest.raises(ValueError):
-        mv.LimbModuli((1 << 31,), "cpu")
+        mv.LimbModuli((1 << 31,), device="cpu")
 
 
 @pytest.mark.parametrize("N", [32, 64])
@@ -96,7 +96,7 @@ def test_nttl_matches_jax_and_ref(N):
     moduli = _moduli_chain(N, 2, 28) + (_moduli_chain(N, 1, 30)[0],)
     rng = np.random.default_rng(N)
     x = residues(rng, moduli, (3, N))
-    ntt, jntt = NTTL(N, moduli, "cpu"), jax_nttl.NTTL(N, moduli)
+    ntt, jntt = NTTL(N, moduli, device="cpu"), jax_nttl.NTTL(N, moduli)
     fwd = ntt.forward(torch.from_numpy(x))
     assert eq(fwd, jax.jit(jntt.forward)(jx(x)))
     assert all(np.array_equal(fwd[i].numpy(), ref_ntt.forward(x[i].astype(np.uint64), q)

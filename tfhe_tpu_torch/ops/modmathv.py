@@ -27,7 +27,7 @@ import torch
 class LimbModuli:
     """Per-limb constants for a tuple of moduli < 2^31, on one device."""
 
-    def __init__(self, moduli: tuple, device: str = "cpu"):
+    def __init__(self, moduli: tuple, *, device: str):
         self.moduli = tuple(int(m) for m in moduli)
         if not all(0 < m < (1 << 31) for m in self.moduli):
             raise ValueError(f"limb moduli must lie in (0, 2^31): {self.moduli}")

@@ -27,10 +27,10 @@ from . import modmathv as mv
 class NTTL:
     """Stacked tables for (N, moduli tuple) on one device."""
 
-    def __init__(self, N: int, moduli: tuple, device: str = "cpu"):
+    def __init__(self, N: int, moduli: tuple, *, device: str):
         self.N = N
         self.moduli = tuple(int(m) for m in moduli)
-        self.lm = lm = mv.LimbModuli(self.moduli, device)
+        self.lm = lm = mv.LimbModuli(self.moduli, device=device)
         tabs = [ref_ntt._tables(N, m) for m in self.moduli]
 
         def stacked(rows):

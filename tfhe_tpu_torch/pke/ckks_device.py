@@ -1,7 +1,7 @@
 """Device-resident RNS-CKKS: the homomorphic hot loop on torch tensors.
 
-Port of `tfhe_tpu/pke/ckks_device.py` (its mult, rotate, add and plaintext
-`build_*` functions and `CKKSDeviceContext`):
+Port of `tfhe_tpu/pke/ckks_device.py` (its mult, rotate, add, plaintext
+and bootstrapping `build_*` functions and `CKKSDeviceContext`):
 
 - `eval_mult`: tensor product -> hybrid key-switch relinearization (per-group
   HPS fast base conversion, inner product with the key towers, ModDown by P)
@@ -21,9 +21,10 @@ host CKKSRnsContext and to the JAX package's device towers on every input.
 
 The JAX package's ops here are XLA graphs, not Pallas kernels; here they
 are torch ops, each `build_*` cached per (chain, key layout, device). The
-BGV variants of ModDown and ModReduce (`t` > 1) and the bootstrapping
-functions (`build_bsgs_inner`, `build_diag_inner`, `build_diag_factor_lazy`)
-are not ported yet (ROADMAP item 14).
+bootstrapping builders (`build_bsgs_inner`, `build_diag_inner`,
+`build_diag_factor_lazy`) serve `ckks_boot_device.py` and
+`ckks_boot_fft_device.py`. The BGV variants of ModDown and ModReduce
+(`t` > 1) are not ported yet (ROADMAP item 14).
 
 Reference parity anchors: rns-leveledshe.cpp (EvalMultCore/ModReduce),
 keyswitch-hybrid.cpp:1-484 (KeySwitchCore/EvalKeySwitchPrecomputeCore),
@@ -65,8 +66,8 @@ def _make_fbc(src: tuple, dst: tuple, device: str):
     """HPS fast base conversion: stacked [s, ..., N] rows over `src` ->
     [d, ..., N] over `dst`. Bit-identical to ckks_rns.fast_base_convert
     (shared integer fixed-point alpha)."""
-    lm_s = mv.LimbModuli(tuple(src), device)
-    lm_d = mv.LimbModuli(tuple(dst), device)
+    lm_s = mv.LimbModuli(tuple(src), device=device)
+    lm_d = mv.LimbModuli(tuple(dst), device=device)
     F, _, t = alpha_fixed_tables(tuple(src))  # shifts are 0: limbs < 2^31
     # alpha's sum: each term y_i * t_i < 2^F, so s terms fit int64 exactly
     if len(src) << F >= 1 << 63:
@@ -109,9 +110,9 @@ def _make_keyswitch(N: int, lvl: tuple, p_moduli: tuple, groups: tuple,
     level key)."""
     pq = lvl + p_moduli
     n_q = len(lvl)
-    lm_pq = mv.LimbModuli(tuple(pq), device)
-    lm_lvl = mv.LimbModuli(tuple(lvl), device)
-    ntt_pq = NTTL(N, tuple(pq), device)
+    lm_pq = mv.LimbModuli(tuple(pq), device=device)
+    lm_lvl = mv.LimbModuli(tuple(lvl), device=device)
+    ntt_pq = NTTL(N, tuple(pq), device=device)
     fbcs = [_make_fbc(lvl[g0:g1], pq, device) for (g0, g1) in groups]
     fbc_p = _make_fbc(p_moduli, lvl, device)
     P = 1
@@ -167,6 +168,7 @@ def _make_keyswitch(N: int, lvl: tuple, p_moduli: tuple, groups: tuple,
     ks.inner = inner
     ks.ip = ip
     ks.finish = finish
+    ks.lm_pq = lm_pq
     return ks
 
 
@@ -175,7 +177,7 @@ def _make_rescale(lvl: tuple, device: str):
     with the centered correction; same math as ckks_rns.rescale_rns)."""
     q_last = lvl[-1]
     keep = tuple(lvl[:-1])
-    lm_k = mv.LimbModuli(keep, device)
+    lm_k = mv.LimbModuli(keep, device=device)
     inv = np.array([pow(q_last, -1, m) for m in keep], dtype=np.int64)
     inv_t, inv_sh = lm_k.tensor(inv), lm_k.tensor(lm_k.shoup(inv))
     ql_mod = lm_k.tensor([q_last % m for m in keep])
@@ -201,9 +203,9 @@ def build_mult_relin_rescale(N: int, lvl: tuple, p_moduli: tuple,
     round trip (rns-leveledshe.cpp EvalMultCore + keyswitch-hybrid.cpp +
     ModReduce). `rescale=False` keeps the product at [L, ..., N] / noise
     degree 2 — the lazy rescale of the automatic scaling techniques."""
-    lm = mv.LimbModuli(tuple(lvl), device)
-    ntt = NTTL(N, tuple(lvl), device)
-    ntt_out = NTTL(N, tuple(lvl[:-1]), device) if rescale else None
+    lm = mv.LimbModuli(tuple(lvl), device=device)
+    ntt = NTTL(N, tuple(lvl), device=device)
+    ntt_out = NTTL(N, tuple(lvl[:-1]), device=device) if rescale else None
     ks = _make_keyswitch(N, lvl, p_moduli, groups, key_rows, device)
     resc = _make_rescale(lvl, device) if rescale else None
 
@@ -247,8 +249,8 @@ def build_rotate(N: int, lvl: tuple, p_moduli: tuple, groups: tuple, k: int,
                  key_rows: tuple | None = None, *, device: str):
     """Per (level chain, Galois element): (c0,c1) eval [L, ..., N] + galois
     key towers -> rotated (o0,o1) eval [L, ..., N]."""
-    lm = mv.LimbModuli(tuple(lvl), device)
-    ntt = NTTL(N, tuple(lvl), device)
+    lm = mv.LimbModuli(tuple(lvl), device=device)
+    ntt = NTTL(N, tuple(lvl), device=device)
     ks = _make_keyswitch(N, lvl, p_moduli, groups, key_rows, device)
     auto = _automorphism(N, k, lm)
 
@@ -268,7 +270,7 @@ def build_ks_precompute(N: int, lvl: tuple, p_moduli: tuple, groups: tuple,
     """c1 eval towers [L, ..., N] -> stacked hoisting digits
     [G, L_pq, ..., N] (eval form over PQ) — EvalFastRotationPrecompute.
     Key-independent; reusable by every rotation of the same ciphertext."""
-    ntt = NTTL(N, tuple(lvl), device)
+    ntt = NTTL(N, tuple(lvl), device=device)
     ks = _make_keyswitch(N, lvl, p_moduli, groups, None, device)
 
     def f(c1):
@@ -286,8 +288,8 @@ def build_rotate_hoisted(N: int, lvl: tuple, p_moduli: tuple, groups: tuple,
     modulus-independent), so the per-rotation cost is gathers + the key
     inner product + ModDown (EvalFastRotation, HS18 hoisting)."""
     perm = torch.as_tensor(eval_auto_perm(N, k, lvl[0]), device=device)
-    lm = mv.LimbModuli(tuple(lvl), device)
-    ntt = NTTL(N, tuple(lvl), device)
+    lm = mv.LimbModuli(tuple(lvl), device=device)
+    ntt = NTTL(N, tuple(lvl), device=device)
     ks = _make_keyswitch(N, lvl, p_moduli, groups, key_rows, device)
 
     def f(c0, dps, kb, kb_sh, ka, ka_sh):
@@ -305,10 +307,10 @@ def build_mult_plain(N: int, lvl: tuple, rescale: bool = True, *, device: str):
     multiplied towers, optionally rescaled to [L-1] (EvalMultPlain +
     ModReduce). The plaintext NTT runs on the device, stacked. Towers may
     carry a batch axis [L, B, N]; the plaintext broadcasts."""
-    lm = mv.LimbModuli(tuple(lvl), device)
-    ntt = NTTL(N, tuple(lvl), device)
+    lm = mv.LimbModuli(tuple(lvl), device=device)
+    ntt = NTTL(N, tuple(lvl), device=device)
     resc = _make_rescale(lvl, device) if rescale else None
-    ntt_out = NTTL(N, tuple(lvl[:-1]), device) if rescale else None
+    ntt_out = NTTL(N, tuple(lvl[:-1]), device=device) if rescale else None
 
     def f(c0, c1, pt_coeff):
         pt = ntt.forward(pt_coeff)
@@ -327,10 +329,10 @@ def build_mult_plain(N: int, lvl: tuple, rescale: bool = True, *, device: str):
 def build_mult_scalar(N: int, lvl: tuple, rescale: bool = True, *, device: str):
     """Towers x a per-limb scalar [L] (a big-integer constant's residues) ->
     scaled towers, optionally rescaled (EvalMultConst)."""
-    lm = mv.LimbModuli(tuple(lvl), device)
-    ntt = NTTL(N, tuple(lvl), device)
+    lm = mv.LimbModuli(tuple(lvl), device=device)
+    ntt = NTTL(N, tuple(lvl), device=device)
     resc = _make_rescale(lvl, device) if rescale else None
-    ntt_out = NTTL(N, tuple(lvl[:-1]), device) if rescale else None
+    ntt_out = NTTL(N, tuple(lvl[:-1]), device=device) if rescale else None
 
     def f(c0, c1, ks):
         out = []
@@ -344,12 +346,130 @@ def build_mult_scalar(N: int, lvl: tuple, rescale: bool = True, *, device: str):
     return f
 
 
+def _bc_stacked(pt: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Stacked plaintexts [L, nb, N] against baby stacks [L, nb, ..., N]
+    of `ndim` dims: broadcast over the batch axes."""
+    if ndim <= 3:
+        return pt
+    return pt.reshape(pt.shape[:2] + (1,) * (ndim - 3) + pt.shape[-1:])
+
+
+def _stack_sum(x: torch.Tensor, n: int, lm: mv.LimbModuli) -> torch.Tensor:
+    """The exact mod-sum over axis 1 of x [L, n, ...] (in the JAX
+    package's order: term 0, then 1 .. n-1)."""
+    r = x[:, 0]
+    for k in range(1, n):
+        r = mv.addmod_v(r, x[:, k], lm)
+    return r
+
+
+@functools.lru_cache(maxsize=None)
+def build_bsgs_inner(N: int, lvl: tuple, b: int, *, device: str):
+    """A whole BSGS giant row: babies stacked on a new axis ([L, b, ..., N])
+    x their coeff-form diagonal plaintexts ([L, b, N], NTT'd here) -> the
+    exact mod-sum over the b terms, for the plain babies (p0, p1) with ptP
+    and the conjugated ones (c0, c1) with ptC. One call per giant row
+    instead of ~2b plain-mult and add calls."""
+    lm = mv.LimbModuli(tuple(lvl), device=device)
+    ntt = NTTL(N, tuple(lvl), device=device)
+
+    def f(p0, p1, c0, c1, ptP, ptC):
+        ptPe = ntt.forward(ptP)
+        ptCe = ntt.forward(ptC)
+        outs = [mv.barrett_mulmod_v(x, _bc_stacked(pt, x.ndim), lm)
+                for x, pt in ((p0, ptPe), (p1, ptPe), (c0, ptCe), (c1, ptCe))]
+        acc0 = mv.addmod_v(outs[0], outs[2], lm)
+        acc1 = mv.addmod_v(outs[1], outs[3], lm)
+        return _stack_sum(acc0, b, lm), _stack_sum(acc1, b, lm)
+
+    return f
+
+
+@functools.lru_cache(maxsize=None)
+def build_diag_inner(N: int, lvl: tuple, nb: int, *, device: str):
+    """C-linear variant of build_bsgs_inner for the FFT-factored transforms
+    (ckks_boot_fft.py): the grouped butterfly factors act on z alone (no
+    conjugated half), so one call mod-sums baby stacks [L, nb, ..., N]
+    against their coeff-form diagonal plaintexts [L, nb, N]."""
+    lm = mv.LimbModuli(tuple(lvl), device=device)
+    ntt = NTTL(N, tuple(lvl), device=device)
+
+    def f(p0, p1, pt):
+        pt_b = _bc_stacked(ntt.forward(pt), p0.ndim)
+        a0 = mv.barrett_mulmod_v(p0, pt_b, lm)
+        a1 = mv.barrett_mulmod_v(p1, pt_b, lm)
+        return _stack_sum(a0, nb, lm), _stack_sum(a1, nb, lm)
+
+    return f
+
+
+@functools.lru_cache(maxsize=None)
+def build_diag_factor_lazy(N: int, lvl: tuple, p_moduli: tuple,
+                           groups: tuple, nb: int, elements: tuple,
+                           key_rows: tuple | None = None, *, device: str):
+    """A WHOLE grouped FFT-transform factor with double-hoisted giant steps
+    (lazy ModDown, the BSGS-accumulation idea of the double/triple-hoisting
+    line of work, cf. DM21/Lattigo): per giant row, the fused diagonal sum
+    over the `nb` baby stacks, rescale, coeff-domain automorphism, digit
+    decompose/FBC and key inner product, with every row's keyed result
+    ACCUMULATED IN THE EXTENDED PQ BASIS. One shared inverse PQ NTT +
+    ModDown closes the factor, so a row costs digits + inner products +
+    gathers (the eager path pays a full ModDown and output NTT pair per
+    giant).
+
+    `elements`: the Galois element per giant row (1 = no rotation).
+    `groups`/`key_rows` describe the POST-rescale level chain lvl[:-1].
+    Args: baby stacks p0/p1 [L, nb, (B,) N] EVAL over lvl; plaintext
+    stacks pt [Gg, L, nb, N] COEFF; per-giant key towers (4 lists).
+    Returns (c0, c1) EVAL towers over lvl[:-1]."""
+    lvl2 = lvl[:-1]
+    lm = mv.LimbModuli(tuple(lvl), device=device)
+    lm2 = mv.LimbModuli(tuple(lvl2), device=device)
+    ntt = NTTL(N, tuple(lvl), device=device)
+    ntt2 = NTTL(N, tuple(lvl2), device=device)
+    resc = _make_rescale(lvl, device)
+    ks = _make_keyswitch(N, lvl2, p_moduli, groups, key_rows, device)
+    autos = {k: _automorphism(N, k, lm2) for k in set(elements) if k != 1}
+
+    def add(acc, x, lmx):
+        return x if acc is None else mv.addmod_v(acc, x, lmx)
+
+    def f(p0, p1, pt, kbs, kbshs, kas, kashs):
+        # [Gg, L, nb, N] -> [L, Gg, nb, N]: the stacked NTT wants the limb
+        # axis leading (twiddles broadcast over the trailing dims)
+        pte = ntt.forward(pt.movedim(0, 1))
+        acc_c0 = acc_c1 = None                      # lvl2 coeff (unkeyed)
+        acc_q0 = acc_q1 = None                      # PQ eval (keyed)
+        for gi, k in enumerate(elements):
+            ptg_b = _bc_stacked(pte[:, gi], p0.ndim)
+            r0 = _stack_sum(mv.barrett_mulmod_v(p0, ptg_b, lm), nb, lm)
+            r1 = _stack_sum(mv.barrett_mulmod_v(p1, ptg_b, lm), nb, lm)
+            r0c = resc(ntt.inverse(r0))             # coeff over lvl2
+            r1c = resc(ntt.inverse(r1))
+            if k == 1:
+                acc_c0 = add(acc_c0, r0c, lm2)
+                acc_c1 = add(acc_c1, r1c, lm2)
+                continue
+            acc_c0 = add(acc_c0, autos[k](r0c), lm2)
+            i0, i1 = ks.ip(ks.precompute(autos[k](r1c)),
+                           kbs[gi], kbshs[gi], kas[gi], kashs[gi])
+            acc_q0 = add(acc_q0, i0, ks.lm_pq)
+            acc_q1 = add(acc_q1, i1, ks.lm_pq)
+        if acc_q0 is not None:
+            d0, d1 = ks.finish(acc_q0, acc_q1)
+            acc_c0 = mv.addmod_v(acc_c0, d0, lm2)
+            acc_c1 = add(acc_c1, d1, lm2)
+        return ntt2.forward(acc_c0), ntt2.forward(acc_c1)
+
+    return f
+
+
 @functools.lru_cache(maxsize=None)
 def build_rescale_only(N: int, lvl: tuple, *, device: str):
     """Towers [L, ..., N] -> [L-1, ..., N], RNS rescale by 1/q_last
     (standalone ModReduce)."""
-    ntt = NTTL(N, tuple(lvl), device)
-    ntt_out = NTTL(N, tuple(lvl[:-1]), device)
+    ntt = NTTL(N, tuple(lvl), device=device)
+    ntt_out = NTTL(N, tuple(lvl[:-1]), device=device)
     resc = _make_rescale(lvl, device)
 
     def f(c0, c1):
@@ -363,8 +483,8 @@ def build_rescale_only(N: int, lvl: tuple, *, device: str):
 def build_add_plain(N: int, lvl: tuple, sub: bool = False, *, device: str):
     """c0 + plaintext COEFF rows [L, N] (NTT'd on the device) — EvalAddPlain
     for vector plaintexts; c1 passes through untouched."""
-    lm = mv.LimbModuli(tuple(lvl), device)
-    ntt = NTTL(N, tuple(lvl), device)
+    lm = mv.LimbModuli(tuple(lvl), device=device)
+    ntt = NTTL(N, tuple(lvl), device=device)
     op = mv.submod_v if sub else mv.addmod_v
 
     def f(c0, pt_coeff):
@@ -378,7 +498,7 @@ def build_add_plain(N: int, lvl: tuple, sub: bool = False, *, device: str):
 def build_add_scalar(lvl: tuple, *, device: str):
     """c0 + per-limb scalar [L] (a constant polynomial is constant in the
     evaluation domain) — EvalAddConst; c1 unchanged by the caller."""
-    lm = mv.LimbModuli(tuple(lvl), device)
+    lm = mv.LimbModuli(tuple(lvl), device=device)
 
     def f(c0, ks):
         return mv.addmod_v(c0, _bc_key(ks, c0.ndim), lm)
@@ -389,7 +509,7 @@ def build_add_scalar(lvl: tuple, *, device: str):
 @functools.lru_cache(maxsize=None)
 def build_add(lvl: tuple, sub: bool = False, *, device: str):
     op = mv.submod_v if sub else mv.addmod_v
-    lm = mv.LimbModuli(tuple(lvl), device)
+    lm = mv.LimbModuli(tuple(lvl), device=device)
 
     def add(a0, a1, b0, b1):
         return op(a0, b0, lm), op(a1, b1, lm)

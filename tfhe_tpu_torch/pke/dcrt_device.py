@@ -30,13 +30,13 @@ def _check(params: DCRTParams) -> None:
 @functools.lru_cache(maxsize=None)
 def build_to_eval(params: DCRTParams, device: str):
     _check(params)
-    return NTTL(params.N, tuple(params.moduli), device).forward
+    return NTTL(params.N, tuple(params.moduli), device=device).forward
 
 
 @functools.lru_cache(maxsize=None)
 def build_to_coeff(params: DCRTParams, device: str):
     _check(params)
-    return NTTL(params.N, tuple(params.moduli), device).inverse
+    return NTTL(params.N, tuple(params.moduli), device=device).inverse
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,7 +44,7 @@ def build_tensor_mult(params: DCRTParams, device: str):
     """(a0, a1, b0, b1) eval-form towers -> (d0, d1, d2) of the CKKS tensor
     product: d0 = a0*b0, d1 = a0*b1 + a1*b0, d2 = a1*b1."""
     _check(params)
-    lm = mv.LimbModuli(tuple(params.moduli), device)
+    lm = mv.LimbModuli(tuple(params.moduli), device=device)
 
     def tensor(a0, a1, b0, b1):
         d0 = mv.barrett_mulmod_v(a0, b0, lm)
@@ -64,7 +64,7 @@ def build_rescale(params: DCRTParams, device: str):
     _check(params)
     q_last = params.moduli[-1]
     keep = tuple(params.moduli[:-1])
-    lm = mv.LimbModuli(keep, device)
+    lm = mv.LimbModuli(keep, device=device)
     inv = np.array([pow(q_last, -1, m) for m in keep], dtype=np.int64)
     inv_t, inv_sh = lm.tensor(inv), lm.tensor(lm.shoup(inv))
     q_last_mod = lm.tensor([q_last % m for m in keep])
