@@ -15,6 +15,11 @@ its main path gives it. Then it drives the port's paths through
   accelerated TOY sets bit for bit against the oracle, then at full width
   on the STD128 accelerated sets (N = 2048, n = 1305, Q = q1*q2 of 54 bits,
   qKS = 2^35) at batch 4096, checked by decryption;
+- the same path with bench.py's seeded (threefry) switching key: its
+  <A, s> summed on the card at keygen and its table regenerated there; TOY
+  bit for bit against the oracle on the A block materialized on the host,
+  STD128 at batch 4096 checked by decryption, the table's rows 0-63, the
+  first chunk boundary and the last row torch.equal to the host threefry;
 - the 17 GINX classic sets (LWE dimension cut to 12) against the oracle;
 - the two-limb paths: a batch-4096 STD128Q NAND checked by decryption and,
   for its first 8 outputs, bit for bit against the oracle; EvalFunc,
@@ -46,8 +51,18 @@ its main path gives it. Then it drives the port's paths through
   at N = 64, checked by decryption;
 - the advanced SHE layer on the device evaluator at the CKKS width:
   `eval_sum`, `eval_linear_wsum` and `eval_logistic` at batch 8, checked
-  by decryption and on ciphertext 0 against a CPU evaluator.
-The CKKS timings are a JSON line of their own.
+  by decryption and on ciphertext 0 against a CPU evaluator;
+- the automatic-scaling CKKS layer (`CKKSAutoDeviceContext`) on the CKKS
+  contexts under FLEXIBLEAUTO and FIXEDAUTO at batch 8: a lazily rescaled
+  chain, a mixed-level add and a plaintext multiply and add, every slot
+  within 1e-3 (FIXEDAUTO 5e-3), ciphertexts 0 and 7 torch.equal to the host
+  `CKKSAutoContext`; one noise-flooded decryption on the host;
+- BGV on the card (`BGVDeviceContext`, N = 4096, t = 257, 8 limbs of 27-28
+  bits): eval_mult at batch 8 and 64, eval_rotate, eval_add and eval_sub,
+  every result decrypted, ciphertexts 0 and B-1 torch.equal to the host
+  `BGVRnsContext`.
+The timings of the functional, CKKS and BGV phases are a JSON line of
+their own.
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. At the end no jax or JAX-package module may be loaded.
 Exits non-zero on any failure. The line before the last is a JSON record
@@ -60,6 +75,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 SEED = 20261016
 GATE_BATCH = 4096
@@ -98,6 +114,17 @@ BOOT_ITERS = 2              # warm bootstraps timed
 SHE_BATCH = 8
 SHE_DEG = 15                # eval_logistic's degree: 5 of the 7 levels below L = 8
 SHE_ITERS = 3
+AUTO_BATCH = 8
+# every slot of the auto-scaled programs. FIXEDAUTO declares the fixed
+# scale 2^28 where a rescale by the 28-bit limb q_l leaves 2^56 / q_l, a
+# relative drift |2^28 / q_l - 1| of up to 1.5e-3 per rescale on this chain
+AUTO_BOUND = {"flexibleauto": 1e-3, "fixedauto": 5e-3}
+BGV_SEED = 20260819
+BGV_N = 4096                # the CKKS phase's ring
+BGV_T = 257
+BGV_DEPTH = 7               # 8 limbs: 4 x 28 + 4 x 27 bits
+BGV_BATCHES = (8, 64)
+BGV_KS_BITS = 30
 
 
 def check(cond: bool, msg: str) -> None:
@@ -589,18 +616,20 @@ def std128_nand(rng, card: str) -> None:
             f"{GATE_BATCH / s:.1f} bootstraps/s on {card}")
 
 
-def accelerated_contexts(param_set, log_qs=(17, 12), rns_modulus=None, func=True):
+def accelerated_contexts(param_set, log_qs=(17, 12), rns_modulus=None, func=True,
+                         seeded=False):
     """The sign/decomp context (logQ 17, time optimization, bases {2^18,
     2^27}; logQ 23 resolves to the same parameters) and, with `func`, the
     EvalFunc context (logQ 12, arbFunc), numDigitsToThrow 1, keys made on
     the host once per LWE block: the func context reuses the ring secret
-    and the switching key. Q is q1*q2, or with rns_modulus=False the
-    reference's single 54-bit prime. Returns (sign_cc, func_cc or None, sk,
-    keygen seconds)."""
+    and the switching key. With `seeded`, the switching key is the seeded
+    (threefry) key of bench.py's accelerated rows, its <A, s> summed on the
+    card. Q is q1*q2, or with rns_modulus=False the reference's single
+    54-bit prime. Returns (sign_cc, func_cc or None, sk, keygen seconds)."""
     from tfhe_tpu_torch import BinFHEContext
 
     t0 = time.time()
-    sign_cc = BinFHEContext(seed=SEED)
+    sign_cc = BinFHEContext(seed=SEED, seeded_ksk=seeded)
     sign_cc.generate_binfhe_context(param_set, arb_func=False, log_q=log_qs[0],
                                     num_digits_to_throw=1, time_optimization=True,
                                     rns_modulus=rns_modulus)
@@ -608,7 +637,7 @@ def accelerated_contexts(param_set, log_qs=(17, 12), rns_modulus=None, func=True
     sign_cc.bt_key_gen(sk, bases={1 << 18, 1 << 27})
     func_cc = None
     if func:
-        func_cc = BinFHEContext(seed=SEED + 1)
+        func_cc = BinFHEContext(seed=SEED + 1, seeded_ksk=seeded)
         func_cc.generate_binfhe_context(param_set, arb_func=True, log_q=log_qs[1],
                                         num_digits_to_throw=1, rns_modulus=rns_modulus)
         key = sign_cc.bt_key
@@ -667,19 +696,27 @@ def same(x, y) -> bool:
             and np.array_equal(x.b, y.b))
 
 
-def toy_accelerated(rng, rns_modulus=None) -> None:
+def toy_accelerated(rng, rns_modulus=None, seeded=False) -> None:
     """EvalFunc, EvalSign and EvalDecomp on the accelerated TOY sets (N =
     2048, n = 32, the same Q and kernel shapes as STD128) on the card, each
     output decrypted and held bit for bit against the port's host oracle.
-    With rns_modulus=False, Q is the single 54-bit prime."""
+    With rns_modulus=False, Q is the single 54-bit prime. With `seeded`,
+    the switching key is the seeded key, and the oracle runs on its A
+    block materialized on the host from the seed."""
     import numpy as np
 
-    from tfhe_tpu_torch import ParamSet
+    from tfhe_tpu_torch import ParamSet, lwe
 
     t0 = time.time()
     sign_cc, func_cc, sk, keygen_s = accelerated_contexts(ParamSet.TOY,
-                                                          rns_modulus=rns_modulus)
+                                                          rns_modulus=rns_modulus,
+                                                          seeded=seeded)
     form = "Q=q1*q2" if rns_modulus is None else f"one prime Q={sign_cc.params.lwe.Q}"
+    if seeded:
+        check(isinstance(sign_cc.bt_key.ksk, lwe.SeededSwitchingKey)
+              and func_cc.bt_key.ksk is sign_cc.bt_key.ksk,
+              "the TOY contexts do not share one seeded switching key")
+        form += ", seeded switching key"
     B = 8
     ct_f, lut, want_f, p = func_inputs(func_cc, sk, rng, B)
     ct_s, delta = sign_inputs(sign_cc, sk, rng, B)
@@ -703,29 +740,70 @@ def toy_accelerated(rng, rns_modulus=None) -> None:
         f"{time.time() - t0:.1f} s in all)")
 
 
-def std128_accelerated(rng, card: str) -> None:
-    """The RNS functional path at full width, batch FUNC_BATCH: EvalSign,
-    EvalDecomp and EvalFunc on the STD128 accelerated sets, checked by
-    decryption, one warm run of each timed."""
+def seeded_table_rows(ksk, table) -> list:
+    """The seeded key's device table against rows regenerated by the
+    threefry stream on the host's CPU: rows 0-63, the chunk boundary
+    KSK_ROW_CHUNK - 1 .. KSK_ROW_CHUNK and the last row, A columns and B.
+    Returns the rows checked."""
     import numpy as np
     import torch
 
-    from tfhe_tpu_torch import ParamSet
+    from tfhe_tpu_torch import lwe
 
-    sign_cc, func_cc, sk, keygen_s = accelerated_contexts(ParamSet.STD128)
+    R, n = ksk.rows, ksk.n
+    spans = [(0, 64), (lwe.KSK_ROW_CHUNK - 1, lwe.KSK_ROW_CHUNK + 1), (R - 1, R)]
+    b = np.asarray(ksk.B, dtype=np.uint64).reshape(-1)
+    for r0, r1 in spans:
+        a = lwe.seeded_rows(ksk.seed, n, ksk.q_ks, r0, r1, "cpu").to(torch.float64)
+        want = torch.cat([a, torch.from_numpy(b[r0:r1].astype(np.float64))[:, None]], 1)
+        check(torch.equal(table[r0:r1].cpu(), want),
+              f"seeded switching table rows {r0}..{r1 - 1} differ from the host threefry")
+    return spans
+
+
+def std128_accelerated(rng, card: str, seeded: bool = False) -> dict:
+    """The RNS functional path at full width, batch FUNC_BATCH: EvalSign,
+    EvalDecomp and EvalFunc on the STD128 accelerated sets, checked by
+    decryption, one warm run of each timed. With `seeded`, bench.py's
+    configuration: the seeded switching key, generated on the card, its
+    device table's spot rows held to the host threefry. Returns the
+    timings."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import ParamSet, convert, lwe
+
+    torch.cuda.reset_peak_memory_stats()
+    sign_cc, func_cc, sk, keygen_s = accelerated_contexts(ParamSet.STD128, seeded=seeded)
     p = sign_cc.params
+    ksk = sign_cc.bt_key.ksk
+    kind = "seeded switching key, <A, s> on the card" if seeded else "host switching key"
+    check(isinstance(ksk, lwe.SeededSwitchingKey) == seeded and func_cc.bt_key.ksk is ksk,
+          f"STD128 accelerated: not one {kind} for both contexts")
     log(f"STD128 accelerated: N={p.lwe.N} n={p.lwe.n} Q={p.lwe.Q} = "
         f"{p.rgsw.rns_primes[0]} * {p.rgsw.rns_primes[1]}, qKS=2^35, baseKS=32; "
-        f"host keygen (sign map 2^18, 2^27 + func 2^27, one switching key) "
-        f"{keygen_s:.1f} s")
-    torch.cuda.reset_peak_memory_stats()
+        f"keygen (sign map 2^18, 2^27 + func 2^27, one {kind}) {keygen_s:.1f} s")
     t0 = time.time()
     sign_cc.device_setup("cuda")
     func_cc.device_setup("cuda")
     torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    mem = torch.cuda.memory_allocated() / 2**30
     log(f"device_setup of both contexts (RNS key pack, one switching-key table) "
-        f"{time.time() - t0:.1f} s, device memory "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        f"{setup_s:.1f} s, device memory {mem:.2f} GiB")
+    timing = {"card": card, "seeded": seeded, "keygen_s": keygen_s,
+              "device_setup_s": setup_s, "device_GiB": mem}
+    if seeded:
+        dev = sign_cc.backend.device
+        spans = seeded_table_rows(ksk, convert.switching_table(ksk, dev))
+        chunk = [(r0, r1) for r0, r1 in lwe.seeded_blocks(ksk.rows, ksk.n, dev)
+                 if r1 <= lwe.KSK_ROW_CHUNK]
+        timing["threefry_chunk_ms"] = cuda_ms(lambda: [
+            lwe.seeded_rows(ksk.seed, ksk.n, ksk.q_ks, r0, r1, dev) for r0, r1 in chunk], 2)
+        log(f"seeded switching table [{ksk.rows}, {ksk.n + 1}] on the card: rows "
+            f"{', '.join(f'{a}..{b - 1}' for a, b in spans)} torch.equal to the host "
+            f"threefry; one chunk of A ({lwe.KSK_ROW_CHUNK} rows, 2 planes of u32 words) "
+            f"regenerated in {timing['threefry_chunk_ms']:.3f} ms on {card}")
 
     B = FUNC_BATCH
     ct_s, delta = sign_inputs(sign_cc, sk, rng, B)
@@ -749,11 +827,13 @@ def std128_accelerated(rng, card: str) -> None:
         t0 = time.time()
         run()
         s = time.time() - t0
+        timing[f"{name}_ms_per_ct"] = s / B * 1e3
         log(f"STD128 accelerated {name} B={B}: all decrypt right; first call "
             f"{first_s:.3f} s; warm {s:.4f} s = {s / B * 1e3:.4f} ms/ciphertext, "
             f"{B / s:.1f} ops/s on {card}")
-    log(f"STD128 accelerated peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    timing["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"STD128 accelerated peak device memory {timing['peak_device_GiB']:.2f} GiB")
+    return timing
 
 
 def floor_inputs(cc, sk, rng, B):
@@ -1288,6 +1368,211 @@ def advancedshe(rng, card: str, contexts) -> dict:
     return out
 
 
+def ckks_auto(rng, card: str, contexts) -> dict:
+    """The automatic-scaling layer (`CKKSAutoDeviceContext` over the
+    `ckks_contexts` device context, no new keygen) under FLEXIBLEAUTO and
+    FIXEDAUTO at batch AUTO_BATCH: a lazily rescaled chain x*y*x, a
+    mixed-level add x^4 + y and a plaintext multiply and add x^2*w + 0.25.
+    Every slot within AUTO_BOUND of its technique; ciphertexts 0 and
+    AUTO_BATCH-1 torch.equal to the host `CKKSAutoContext` (run one by one),
+    their scale and noise degree equal; each program timed warm by CUDA
+    events. Then one two-phase noise-flooded
+    decryption on the host. Returns the timings."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.pke import CKKSAutoContext, CKKSAutoDeviceContext
+
+    ctx, rctx, dctx, sk, pk, rlk, gk = contexts
+    p, B = ctx.params, AUTO_BATCH
+    t0 = time.time()
+    zs = [[rng.uniform(0.2, 0.9, p.slots) for _ in range(B)] for _ in range(2)]
+    w = rng.uniform(-1.0, 1.0, p.slots)
+    out = {"card": card, "N": p.N, "L": p.dcrt.L, "batch": B}
+
+    def chain(c, x, y, *k):                 # lazily rescaled: x*y, then *x
+        return c.eval_mult(c.eval_mult(x, y, *k), x, *k)
+
+    def mixed_add(c, x, y, *k):             # x^4 two levels down, plus a fresh y
+        x2 = c.eval_mult(x, x, *k)
+        return c.eval_add(c.eval_mult(x2, x2, *k), y)
+
+    def plain(c, x, y, *k):
+        return c.eval_add_plain(c.eval_mult_plain(c.eval_mult(x, x, *k), w), 0.25)
+
+    programs = {"chain": (chain, lambda x, y: x * x * y),
+                "mixed_add": (mixed_add, lambda x, y: x ** 4 + y),
+                "plain": (plain, lambda x, y: x * x * w + 0.25)}
+    for tech in ("flexibleauto", "fixedauto"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # the 28-bit first limb: no level is spent to it
+            host = CKKSAutoContext(rctx, technique=tech)
+            dev = CKKSAutoDeviceContext(dctx, technique=tech)
+        cts = [[host.encrypt(pk, z) for z in zz] for zz in zs]
+        dx, dy = dev.upload_batch(cts[0]), dev.upload_batch(cts[1])
+        for name, (prog, want) in programs.items():
+            got = prog(dev, dx, dy)
+            check(got.c0.is_cuda and got.c1.is_cuda, f"{tech} {name}: towers not on the card")
+            err = max(float(np.abs(ctx.decrypt(sk, o).real - want(zs[0][b], zs[1][b])).max())
+                      for b, o in enumerate(dev.download_batch(got)))
+            check(err < AUTO_BOUND[tech], f"{tech} {name}: decryption error {err}")
+            for b in (0, B - 1):
+                ref = prog(host, cts[0][b], cts[1][b], rlk)
+                check(ref.scale == got.scale and ref.noise_deg == got.noise_deg,
+                      f"{tech} {name}: scale or degree differs from the host")
+                for i, poly in enumerate(ref.polys):
+                    tower = torch.from_numpy(poly.to_eval().rns.astype(np.int64))
+                    check(torch.equal((got.c0, got.c1)[i][:, b].cpu(), tower),
+                          f"{tech} {name}: ciphertext {b} differs from CKKSAutoContext")
+            ms = cuda_ms(lambda: prog(dev, dx, dy), CKKS_ITERS)
+            out[f"{tech}_{name}_ms"] = ms
+            out[f"{tech}_{name}_max_err"] = err
+            log(f"CKKS {tech} {name} B={B}: {len(got.moduli)} limbs, degree "
+                f"{got.noise_deg}, every slot within {err:.3e} (bound {AUTO_BOUND[tech]:g}), "
+                f"ciphertexts 0 and {B - 1} torch.equal to CKKSAutoContext; {ms:.3f} ms "
+                f"a call on {card}")
+    out["flooded_max_err"] = flooded_decrypt()
+    log(f"CKKS auto-scaling phase {time.time() - t0:.1f} s")
+    return out
+
+
+def flooded_decrypt() -> float:
+    """examples/ckks_noise_flooding.py's two-phase protocol on the host, in
+    the port (N = 128, limbs 52/40/40, scale 2^40, FIXEDAUTO): the noise of
+    v1*v2*v1 + v1 estimated under one key, the same circuit decrypted with
+    flooding under a fresh key. Returns the largest slot error."""
+    import numpy as np
+
+    from tfhe_tpu_torch.pke import (CKKSAutoContext, CKKSContext, CKKSParams,
+                                    CKKSRnsContext, DCRTParams, decrypt_flooded,
+                                    estimate_noise, flooding_sigma)
+    from tfhe_tpu_torch.pke.dcrt import _moduli_chain_pattern
+
+    v1 = np.array([0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8])
+    v2 = np.array([1.0, 1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 1.0])
+
+    def run(seed):
+        p = CKKSParams(N=128, dcrt=DCRTParams(N=128, moduli=_moduli_chain_pattern(
+            128, (52, 40, 40))), scale=float(1 << 40))
+        actx = CKKSAutoContext(CKKSRnsContext(CKKSContext(p, seed=seed), dnum=2),
+                               technique="fixedauto")
+        sk, pk = actx.key_gen()
+        rlk = actx.relin_key_gen(sk)
+        c1, c2 = actx.encrypt(pk, v1), actx.encrypt(pk, v2)
+        return actx, sk, actx.eval_add(actx.eval_mult(actx.eval_mult(c1, c2, rlk), c1, rlk), c1)
+
+    actx, sk, ct = run(1001)
+    est = estimate_noise(actx.ctx, sk, ct)
+    actx, sk, ct = run(2002)
+    got = decrypt_flooded(actx.ctx, sk, ct, est, rng=np.random.default_rng(5)).real[:8]
+    err = float(np.abs(got - (v1 * v2 * v1 + v1)).max())
+    check(err < 1e-2, f"noise-flooded decryption error {err}")
+    log(f"noise flooding on the host: estimate {est:.2f} bits, sigma "
+        f"2^{np.log2(flooding_sigma(est)):.1f}, flooded decryption within {err:.2e}")
+    return err
+
+
+def bgv_contexts():
+    """BGV at the CKKS phase's width: BGVParams.create(N=4096, t=257,
+    mult_depth=7, limb_bits=28) (four 28-bit and four 27-bit limbs = 1 mod
+    t), seed BGV_SEED, hybrid keys with dnum = 3 and four 30-bit special
+    limbs = 1 mod t (too few 28-bit primes = 1 mod 2N*t are left after the
+    chain): one full-chain relin key and the rotation-by-1 Galois key, on
+    the card.
+    Returns (ctx, rctx, dctx, sk, pk, rlk, gk)."""
+    from tfhe_tpu_torch.pke import (BGVContext, BGVDeviceContext, BGVParams,
+                                    BGVRnsContext)
+
+    ctx = BGVContext(BGVParams.create(N=BGV_N, t=BGV_T, mult_depth=BGV_DEPTH,
+                                      limb_bits=CKKS_BITS), seed=BGV_SEED)
+    sk, pk = ctx.key_gen()
+    rctx = BGVRnsContext(ctx, dnum=3, ks_limb_bits=BGV_KS_BITS)
+    rlk = rctx.relin_key_gen_single(sk)
+    gk = rctx.galois_key_gen_single(sk, 1)
+    dctx = BGVDeviceContext(rctx)
+    dctx.load_relin_keys(rlk)
+    dctx.load_galois_keys(1, gk)
+    return ctx, rctx, dctx, sk, pk, rlk, gk
+
+
+def bgv(rng, card: str) -> dict:
+    """BGV on the card (`bgv_contexts`): eval_mult (tensor product, t-noise
+    hybrid relinearization with the t-exact ModDown, BGV ModReduce) at each
+    batch of BGV_BATCHES, eval_rotate, eval_add and eval_sub at batch 8, on
+    coefficient-encoded messages (no prime t = 1 mod 2N exists below 2^31
+    at N = 4096). Every product decrypts to the negacyclic product mod t,
+    every rotation to m(X^k), every sum and difference to (m1 +- m2) mod t;
+    ciphertexts 0 and B-1 torch.equal to the host BGVRnsContext; each
+    operation timed warm by CUDA events. Returns the timings."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.pke.encoding import (apply_automorphism_coeff,
+                                             rotation_automorphism_index)
+
+    t0 = time.time()
+    ctx, rctx, dctx, sk, pk, rlk, gk = bgv_contexts()
+    p = ctx.params
+    log(f"BGV N={p.N} t={p.t} chain {[m.bit_length() for m in p.dcrt.moduli]} bits, "
+        f"dnum=3, PQ limbs {len(rlk.pq_params.moduli)}; host keygen {time.time() - t0:.1f} s")
+    Bmax = max(BGV_BATCHES)
+    t0 = time.time()
+    ms_ = [[rng.integers(0, p.t, p.N) for _ in range(Bmax)] for _ in range(2)]
+    cts = [[ctx.encrypt(pk, m) for m in mm] for mm in ms_]
+    log(f"BGV: {2 * Bmax} encryptions on the host {time.time() - t0:.1f} s")
+
+    def negacyclic(a, b):
+        full = np.convolve(a, b)
+        full = np.concatenate([full, np.zeros(1, dtype=full.dtype)])
+        return (full[:p.N] - full[p.N:]) % p.t
+
+    def holds(d, want, host_fn, what: str) -> None:
+        check(d.c0.is_cuda and d.c1.is_cuda, f"BGV {what}: towers not on the card")
+        outs = dctx.download_batch(d)
+        for b, o in enumerate(outs):
+            check(np.array_equal(ctx.decrypt(sk, o), want(b)),
+                  f"BGV {what}: ciphertext {b} decrypts wrong")
+        for b in (0, len(outs) - 1):
+            for i, poly in enumerate(host_fn(b).polys):
+                tower = torch.from_numpy(poly.to_eval().rns.astype(np.int64))
+                check(torch.equal((d.c0, d.c1)[i][:, b].cpu(), tower),
+                      f"BGV {what}: ciphertext {b} differs from the host BGVRnsContext")
+        log(f"BGV {what}: {len(outs)} ciphertexts on the card, {len(d.moduli)} limbs, all "
+            f"decrypt right, ciphertexts 0 and {len(outs) - 1} torch.equal to the host "
+            "BGVRnsContext")
+
+    out = {"card": card, "N": p.N, "t": p.t, "L": p.dcrt.L, "dnum": 3}
+    for B in BGV_BATCHES:
+        x, y = dctx.upload_batch(cts[0][:B]), dctx.upload_batch(cts[1][:B])
+        holds(dctx.eval_mult(x, y), lambda b: negacyclic(ms_[0][b], ms_[1][b]),
+              lambda b: rctx.eval_mult(cts[0][b], cts[1][b], rlk), f"eval_mult B={B}")
+        ms = cuda_ms(lambda: dctx.eval_mult(x, y), CKKS_ITERS)
+        out[f"mult_ms_per_ctx_B{B}"] = ms / B
+        log(f"BGV eval_mult B={B}: warm {ms:.3f} ms a call, {ms / B:.4f} ms/ctx on {card}")
+    B = BGV_BATCHES[0]
+    x, y = dctx.upload_batch(cts[0][:B]), dctx.upload_batch(cts[1][:B])
+    k = rotation_automorphism_index(p.N, 1)
+    holds(dctx.eval_rotate(x, 1),
+          lambda b: apply_automorphism_coeff(ms_[0][b].astype(np.uint64), k, p.t).astype(np.int64),
+          lambda b: rctx.eval_rotate(cts[0][b], 1, gk), f"eval_rotate B={B}")
+    holds(dctx.eval_add(x, y), lambda b: (ms_[0][b] + ms_[1][b]) % p.t,
+          lambda b: rctx.eval_add(cts[0][b], cts[1][b]), f"eval_add B={B}")
+    diff = dctx.eval_sub(x, y)
+    check(all(np.array_equal(ctx.decrypt(sk, o), (ms_[0][b] - ms_[1][b]) % p.t)
+              for b, o in enumerate(dctx.download_batch(diff))), "BGV eval_sub decryption")
+    back = dctx.eval_add(diff, y)
+    check(torch.equal(back.c0, x.c0) and torch.equal(back.c1, x.c1),
+          "BGV eval_sub then eval_add does not give the input back")
+    for name, fn in (("rotate", lambda: dctx.eval_rotate(x, 1)),
+                     ("add", lambda: dctx.eval_add(x, y)),
+                     ("sub", lambda: dctx.eval_sub(x, y))):
+        out[f"{name}_ms_B{B}"] = cuda_ms(fn, CKKS_ITERS)
+    log(f"BGV B={B}: eval_sub decrypts right, adding back gives the input; eval_rotate "
+        f"{out[f'rotate_ms_B{B}']:.3f} ms, eval_add {out[f'add_ms_B{B}']:.3f} ms, eval_sub "
+        f"{out[f'sub_ms_B{B}']:.3f} ms a call on {card}")
+    return out
+
+
 class KernelClock:
     """Device time of every call of `module.name` (a kernel wrapper that
     launches one kernel) while the clock is entered: CUDA events around
@@ -1518,11 +1803,23 @@ def main() -> int:
     reset_counts()
     t0 = time.time()
     toy_accelerated(rng)
-    std128_accelerated(rng, card)
+    plain_timing = std128_accelerated(rng, card)
     rns_launches = rotate_rns_kernel.LAUNCHES
     check(rns_launches > 0, "the functional path did not launch blind_rotate_rns")
     log(f"RNS functional path: blind_rotate_rns launches {rns_launches} "
         f"({time.time() - t0:.1f} s)")
+
+    # the same path with bench.py's seeded switching key, counts read just
+    # after it
+    reset_counts()
+    t0 = time.time()
+    toy_accelerated(rng, seeded=True)
+    seeded_timing = std128_accelerated(rng, card, seeded=True)
+    seeded_launches = rotate_rns_kernel.LAUNCHES
+    check(seeded_launches > 0, "the seeded functional path did not launch blind_rotate_rns")
+    log(f"seeded functional path: blind_rotate_rns launches {seeded_launches} "
+        f"({time.time() - t0:.1f} s); keygen {seeded_timing['keygen_s']:.1f} s against "
+        f"{plain_timing['keygen_s']:.1f} s with the host switching key")
 
     # the 17 classic GINX sets through TorchBackend, counts read just after
     reset_counts()
@@ -1585,13 +1882,22 @@ def main() -> int:
     she_timing = advancedshe(rng, card, contexts)
     log(f"advanced SHE phase {time.time() - t0:.1f} s")
 
+    # the automatic-scaling CKKS layer and BGV: torch ops, no hand kernel
+    auto_timing = ckks_auto(rng, card, contexts)
+    del contexts
+    t0 = time.time()
+    bgv_timing = bgv(rng, card)
+    log(f"BGV phase {time.time() - t0:.1f} s")
+
     loaded = [m for m in sys.modules if m in ("jax", "tfhe_tpu")
               or m.startswith(("jax.", "tfhe_tpu."))]
     check(not loaded, f"JAX or the JAX package was loaded: {loaded[:5]}")
     log(f"no jax or tfhe_tpu module loaded; {time.time() - t_start:.1f} s in all")
 
     print(json.dumps({"ckks": ckks_timing, "ckksboot": boot_timing,
-                      "advancedshe": she_timing}), flush=True)
+                      "advancedshe": she_timing, "functional": plain_timing,
+                      "seeded": seeded_timing, "ckks_auto": auto_timing,
+                      "bgv": bgv_timing}), flush=True)
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
@@ -1600,7 +1906,7 @@ def main() -> int:
         {"name": "blind_rotate_rns", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate_rns.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate_rns.py:278",
-         "launches": rns_launches, **rns_timing, "library_ms": None},
+         "launches": rns_launches + seeded_launches, **rns_timing, "library_ms": None},
         {"name": "blind_rotate64", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate64.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate64.py:324",

@@ -230,13 +230,18 @@ def test_context_evaluates_on_the_card_by_default(port):
 
 def test_port_never_imports_jax():
     """The port alone, in a fresh interpreter (this process has jax and the
-    JAX package loaded): a TOY NAND, a small RNS EvalSign and a device CKKS
-    multiplication (`tfhe_tpu_torch.pke`, `pke.ckks_device`) and a weighted
-    sum on the device evaluator (`pke.advancedshe_device`, with the CKKS
-    bootstrapping modules imported) on the CPU, and no jax, tfhe_tpu or tfhe_tpu.* module afterwards."""
+    JAX package loaded): a TOY NAND, a small RNS EvalSign, a seeded TOY
+    keygen (`utils.threefry`), a device CKKS multiplication
+    (`tfhe_tpu_torch.pke`, `pke.ckks_device`), a weighted sum on the device
+    evaluator (`pke.advancedshe_device`, with the CKKS bootstrapping, auto-
+    scaling, noise-flooding and BGV modules imported) on the CPU, with one
+    torch thread as the in-process tests have, and no jax, tfhe_tpu or
+    tfhe_tpu.* module afterwards."""
     script = textwrap.dedent("""
         import sys
         import numpy as np
+        import torch
+        torch.set_num_threads(1)   # as the in-process port tests (torch_threads.py)
         import tfhe_tpu_torch
         from tfhe_tpu_torch import BinFHEContext, Gate, ParamSet
         from tfhe_tpu_torch.params import BinFHEParams, LWEParams, Method, RGSWParams
@@ -263,6 +268,11 @@ def test_port_never_imports_jax():
         ct = cc.encrypt(sk, (P // 2 + delta) % P, "FRESH", P, 1 << 11)
         out = cc.eval_sign(ct)
         assert np.array_equal(cc.decrypt(sk, out, 2), (delta >= 0).astype(np.uint64))
+        from tfhe_tpu_torch.utils import threefry
+        cc = BinFHEContext(seed=7, seeded_ksk=True, device="cpu")
+        cc.generate_binfhe_context(ParamSet.TOY, arb_func=True, log_q=12)
+        cc.bt_key_gen(cc.key_gen())
+        assert isinstance(cc.bt_key.ksk, tfhe_tpu_torch.lwe.SeededSwitchingKey)
         import tfhe_tpu_torch.pke
         from tfhe_tpu_torch.pke import ckks_device
         p = tfhe_tpu_torch.pke.CKKSParams(
@@ -276,8 +286,11 @@ def test_port_never_imports_jax():
         z = np.linspace(0.1, 0.9, 16)
         d = dctx.upload(ctx.encrypt(cpk, z))
         assert np.abs(ctx.decrypt(csk, dctx.download(dctx.eval_mult(d, d))) - z * z).max() < 1e-3
-        from tfhe_tpu_torch.pke import (advancedshe, advancedshe_device, ckks_boot,
-                                        ckks_boot_device, ckks_boot_fft, ckks_boot_fft_device)
+        from tfhe_tpu_torch.pke import (advancedshe, advancedshe_device, bfv, bgv,
+                                        bgv_auto, bgv_device, bgv_rns, ckks_auto,
+                                        ckks_auto_device, ckks_boot, ckks_boot_device,
+                                        ckks_boot_fft, ckks_boot_fft_device,
+                                        noise_flooding)
         ev = ckks_boot_device.CKKSDeviceEvaluator(rctx, device="cpu")
         ev.load_keys(rlk, {})
         w = advancedshe_device.eval_linear_wsum(ev, [d, d], [0.5, -2.0])

@@ -137,10 +137,26 @@ def test_ciphertext_mul_matrix_matches_and_needs_the_oracle():
 
 
 def test_unported_host_features_raise():
+    """`save`/`load` still raise. The seeded switching key is ported: at the
+    accelerated TOY set a seeded keygen on the CPU gives a
+    `SeededSwitchingKey` whose rows, regenerated from its seed, encrypt
+    s_N[i] * v * baseKS^j under the LWE secret with small noise."""
     cc = tfhe_tpu_torch.BinFHEContext(seed=1, seeded_ksk=True, device="cpu")
     cc.generate_binfhe_context(params.ParamSet.TOY, arb_func=True, log_q=12)
-    with pytest.raises(NotImplementedError):
-        cc.bt_key_gen(cc.key_gen())
+    sk = cc.key_gen()
+    cc.bt_key_gen(sk)
+    ksk, p = cc.bt_key.ksk, cc.params.lwe
+    assert isinstance(ksk, lwe.SeededSwitchingKey)
+    assert ksk.B.shape == (p.N, p.base_ks, p.digit_count_ks)
+    R = ksk.rows
+    for r0 in (0, lwe.KSK_ROW_CHUNK - 4, R - 8):
+        a = lwe.seeded_rows(ksk.seed, p.n, p.q_ks, r0, r0 + 8, "cpu").numpy()
+        i, rest = np.divmod(np.arange(r0, r0 + 8), p.base_ks * p.digit_count_ks)
+        v, j = np.divmod(rest, p.digit_count_ks)
+        msg = cc.bt_key.sk_n.s[i] * v * p.base_ks ** j
+        e = (ksk.B.reshape(-1)[r0:r0 + 8].astype(np.int64) - a @ sk.s - msg) % p.q_ks
+        e = np.where(e > p.q_ks // 2, e - p.q_ks, e)
+        assert np.abs(e).max() <= 40 and np.abs(a).max() < p.q_ks
     with pytest.raises(NotImplementedError):
         cc.save("unused.npz")
     with pytest.raises(NotImplementedError):

@@ -14,8 +14,10 @@ Differences from the JAX package's context:
   NotImplementedError there and never run on the host oracle;
 - the exact host oracle (`RefBackend`) runs only when asked for, through
   `device_clean()` or `use_backend(RefBackend())`;
-- the seeded (threefry) switching key (ROADMAP queue 1, item 10) and
-  `save`/`load` (item 15) are not ported yet and raise NotImplementedError.
+- the seeded (threefry) switching key is generated on the context's
+  device (its <A, s> and, at the first evaluation, its switching table);
+- `save`/`load` (ROADMAP item 15) are not ported yet and raise
+  NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,9 +36,11 @@ class BinFHEContext:
     def __init__(self, seed: int | None = None,
                  seeded_ksk: bool | None = None, device: str = "cuda"):
         """`device` is where evaluation runs: "cuda" (the hand-written
-        kernels) or "cpu" (their plain torch versions). `seeded_ksk` is kept
-        for the JAX package's signature; True raises at keygen (not ported,
-        ROADMAP queue 1, item 10)."""
+        kernels) or "cpu" (their plain torch versions). `seeded_ksk`
+        opts the accelerated power-of-two-qKS sets into the seeded
+        (threefry) switching key (`lwe.SeededSwitchingKey`), generated on
+        `device`; None = decide from TFHE_TPU_SEEDED_KSK, as in the JAX
+        package."""
         self.params: BinFHEParams | None = None
         self.rng = BinFHERng(seed)
         self.seeded_ksk = seeded_ksk
@@ -113,7 +117,8 @@ class BinFHEContext:
                     continue
                 rgsw_p.change_base_g(base)
                 key = scheme.key_gen(self.rng, self.params, sk, sk_n, ksk,
-                                     seeded_ksk=self.seeded_ksk)
+                                     seeded_ksk=self.seeded_ksk,
+                                     device=self.device)
                 sk_n, ksk = key.sk_n, key.ksk
                 self._bt_key_map[base] = key
             rgsw_p.change_base_g(temp)
@@ -121,7 +126,8 @@ class BinFHEContext:
             self._bt_key = self._bt_key_map[temp]
         else:
             self._bt_key = scheme.key_gen(self.rng, self.params, sk, sk_n, ksk,
-                                          seeded_ksk=self.seeded_ksk)
+                                          seeded_ksk=self.seeded_ksk,
+                                          device=self.device)
             self._bt_key_map[temp] = self._bt_key
         self._backend = None
 

@@ -14,8 +14,9 @@ one device table.
 `params_from`, `key_from` and `ciphertext_from` carry the JAX package's
 parameters, keys and ciphertexts (read as plain attributes and numpy
 arrays, without importing that package) into the port's own types, so the
-two packages can be compared on identical inputs; the `ckks_*_from` and
-`hybrid_key_from` functions do the same for its CKKS objects.
+two packages can be compared on identical inputs; the `ckks_*_from`,
+`bgv_*_from` and `hybrid_key_from` functions do the same for its CKKS and
+BGV objects. A seeded switching key crosses as its seed and B.
 """
 
 from __future__ import annotations
@@ -28,21 +29,27 @@ from .params import BinFHEParams, LWEParams, Method, RGSWParams
 from .ref import ntt as ref_ntt
 from .scheme import BTKey
 from .ops.blindrotate_dm import pack_dm_table
-from .ops.keyswitch import ksk_table
+from .ops.keyswitch import ksk_table, seeded_ksk_table
 from .ops.rotate64_kernel import pack_bsk64
 from .ops.rotate_kernel import pack_bsk
 from .ops.rotate_rns_kernel import pack_bsk_rns
+from .pke.bfv import (BFVCiphertext, BFVPublicKey, BFVRelinKey,
+                      BFVSecretKey)
+from .pke.bgv import BGVParams
 from .pke.ckks import CKKSCiphertext, CKKSParams
 from .pke.ckks_rns import RnsHybridKey
 from .pke.dcrt import DCRTParams, DCRTPoly
 
 
-def switching_table(ksk: lwe.LWESwitchingKey, device: torch.device) -> torch.Tensor:
+def switching_table(ksk, device: torch.device) -> torch.Tensor:
     """The device table of `ksk` (`ksk_table`), built once per key object
-    and device."""
+    and device; a seeded key's A columns are regenerated on the device
+    (`seeded_ksk_table`)."""
     cache = ksk.__dict__.setdefault("_device_tables", {})
     if str(device) not in cache:
-        cache[str(device)] = ksk_table(ksk.A, ksk.B, device)
+        cache[str(device)] = (
+            seeded_ksk_table(ksk, device) if isinstance(ksk, lwe.SeededSwitchingKey)
+            else ksk_table(ksk.A, ksk.B, device))
     return cache[str(device)]
 
 
@@ -83,10 +90,22 @@ def params_from(other) -> BinFHEParams:
                         time_optimization=other.time_optimization)
 
 
+def switching_key_from(other):
+    """A JAX-package switching key -> the port's. A seeded key crosses as
+    its seed, dimensions and B (its `.A` is never read); a plain key's
+    arrays are copied."""
+    if hasattr(other, "seed"):
+        return lwe.SeededSwitchingKey(
+            int(other.seed), int(other.N), int(other.base_ks),
+            int(other.digit_count), int(other.n), int(other.q_ks),
+            np.asarray(other.B, dtype=np.uint64).copy())
+    return lwe.LWESwitchingKey(A=np.asarray(other.A).copy(),
+                               B=np.asarray(other.B).copy())
+
+
 def key_from(other) -> BTKey:
     """A JAX-package BTKey -> the port's BTKey (arrays copied)."""
-    ksk = lwe.LWESwitchingKey(A=np.asarray(other.ksk.A).copy(),
-                              B=np.asarray(other.ksk.B).copy())
+    ksk = switching_key_from(other.ksk)
     sk_n = (None if other.sk_n is None else
             lwe.LWEPrivateKey(np.asarray(other.sk_n.s).copy(), int(other.sk_n.modulus)))
     return BTKey(bsk_coeff=np.asarray(other.bsk_coeff).copy(), ksk=ksk,
@@ -148,3 +167,37 @@ def ckks_ciphertext_from(other, params: CKKSParams | None = None) -> CKKSCiphert
                           float(other.scale),
                           ckks_params_from(other.params) if params is None else params,
                           int(other.noise_deg))
+
+
+def bgv_params_from(other) -> BGVParams:
+    """A JAX-package BGVParams (or BFVParams) -> the port's BGVParams (same
+    chain, t, noise and relinearization window)."""
+    return BGVParams(N=int(other.N), t=int(other.t),
+                     dcrt=_dcrt_params_from(other.dcrt), std=float(other.std),
+                     relin_window=int(other.relin_window))
+
+
+def bgv_secret_from(other) -> BFVSecretKey:
+    """A JAX-package BFV/BGV secret key -> the port's."""
+    return BFVSecretKey(_dcrt_poly_from(other.s),
+                        np.asarray(other.s_signed, dtype=np.int64).copy())
+
+
+def bgv_public_from(other) -> BFVPublicKey:
+    """A JAX-package BFV/BGV public key -> the port's."""
+    return BFVPublicKey(_dcrt_poly_from(other.b), _dcrt_poly_from(other.a))
+
+
+def bgv_relin_from(other) -> BFVRelinKey:
+    """A JAX-package BFVRelinKey (the host BFV/BGV gadget key, also the
+    Galois key of `galois_key_gen` without its element) -> the port's."""
+    return BFVRelinKey(b=[_dcrt_poly_from(p) for p in other.b],
+                       a=[_dcrt_poly_from(p) for p in other.a])
+
+
+def bgv_ciphertext_from(other, params: BGVParams | None = None) -> BFVCiphertext:
+    """A JAX-package BFV/BGV ciphertext -> the port's (towers copied, noise
+    degree kept); `params` defaults to the carried-across parameters."""
+    return BFVCiphertext([_dcrt_poly_from(p) for p in other.polys],
+                         bgv_params_from(other.params) if params is None else params,
+                         int(other.noise_deg))

@@ -13,9 +13,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from .params import LWEParams
 from .ref import modmath
+from .utils import threefry
 from .utils.rng import BinFHERng
 
 
@@ -59,14 +61,133 @@ class LWESwitchingKey:
     B: np.ndarray
 
 
+class SeededSwitchingKey:
+    """Key-switching key in seeded form, for the accelerated power-of-two
+    qKS sets: the uniform A block (~5 GB at STD128) is never stored. It is
+    regenerated from the JAX package's counter-based stream (threefry2x32,
+    `utils/threefry.py`, `KSK_ROW_CHUNK` rows a chunk) wherever it is
+    needed: on the device into the switching table
+    (`ops/keyswitch.seeded_ksk_table`), and lazily on the host through the
+    `.A` property for the oracle. Only B ([N, baseKS, dc] u64) is stored.
+    The same seed gives the JAX package's key bit for bit."""
+
+    def __init__(self, seed: int, N: int, base_ks: int, digit_count: int,
+                 n: int, q_ks: int, B: np.ndarray):
+        if q_ks & (q_ks - 1):
+            raise ValueError("SeededSwitchingKey requires power-of-two qKS")
+        self.seed = int(seed)
+        self.N, self.base_ks, self.digit_count = N, base_ks, digit_count
+        self.n, self.q_ks = n, q_ks
+        self.B = B
+        self._A: np.ndarray | None = None
+
+    @property
+    def rows(self) -> int:
+        return self.N * self.base_ks * self.digit_count
+
+    @property
+    def A(self) -> np.ndarray:
+        """Materialized A [N, baseKS, dc, n] u64 (host, lazy, cached)."""
+        if self._A is None:
+            a = np.empty((self.rows, self.n), dtype=np.uint64)
+            for r0, r1 in seeded_blocks(self.rows, self.n, "cpu"):
+                a[r0:r1] = seeded_rows(self.seed, self.n, self.q_ks, r0, r1,
+                                       "cpu").numpy().astype(np.uint64)
+            self._A = a.reshape(self.N, self.base_ks, self.digit_count,
+                                self.n)
+        return self._A
+
+
+# Rows of one chunk of the seeded stream. Chunk c draws with the key
+# fold_in(PRNGKey(seed), c) and always KSK_ROW_CHUNK full rows (a ragged
+# last chunk is sliced): part of the stream's definition, the JAX
+# package's `lwe.KSK_ROW_CHUNK`.
+KSK_ROW_CHUNK = 57344
+
+# Words of one generated block: small enough to stay in cache on the host,
+# large enough to keep the card busy.
+_BLOCK_WORDS = {"cpu": 1 << 16, "cuda": 1 << 24}
+
+
+def seeded_blocks(R: int, n: int, device) -> list[tuple[int, int]]:
+    """Row ranges [r0, r1) that cover R rows of n words in blocks of about
+    `_BLOCK_WORDS` words, none crossing a chunk boundary."""
+    step = max(1, _BLOCK_WORDS[torch.device(device).type] // n)
+    out = []
+    for c0 in range(0, R, KSK_ROW_CHUNK):
+        c1 = min(R, c0 + KSK_ROW_CHUNK)
+        out += [(r, min(c1, r + step)) for r in range(c0, c1, step)]
+    return out
+
+
+def seeded_rows(seed: int, n: int, q_ks: int, r0: int, r1: int,
+                device) -> torch.Tensor:
+    """Rows r0..r1-1 of the seeded A block, int64 [r1 - r0, n] residues mod
+    the power-of-two q_ks, generated on `device`. For q_ks <= 2^32 a row is
+    one u32 plane of the chunk's draw bits(key_c, (C, n)); above, the low
+    word comes from plane 0 and the high word, masked, from plane 1 of
+    bits(key_c, (2, C, n)): counter C*n + r*n + j."""
+    ks_bits = q_ks.bit_length() - 1
+    key = threefry.prng_key(seed)
+    parts = []
+    while r0 < r1:
+        c = r0 // KSK_ROW_CHUNK
+        stop = min(r1, (c + 1) * KSK_ROW_CHUNK)
+        key_c = threefry.fold_in(key, c)
+        local = r0 - c * KSK_ROW_CHUNK
+        ctr = torch.arange(local * n, (local + stop - r0) * n,
+                           dtype=torch.int64, device=device)
+        lo = threefry.bits(key_c, ctr)
+        if ks_bits < 32:
+            lo.bitwise_and_(q_ks - 1)
+        elif ks_bits > 32:
+            hi = threefry.bits(key_c, ctr.add_(KSK_ROW_CHUNK * n))
+            hi.bitwise_and_((1 << (ks_bits - 32)) - 1)
+            lo.bitwise_or_(hi.bitwise_left_shift_(32))
+        parts.append(lo.view(stop - r0, n))
+        r0 = stop
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def key_switch_gen_seeded(rng: BinFHERng, params: LWEParams,
-                          sk: LWEPrivateKey, sk_n: LWEPrivateKey):
-    """The JAX package's seeded switching key regenerates its uniform A
-    block with jax's threefry generator. Its torch counterpart is not ported yet
-    (ROADMAP queue 1, item 10); the plain `key_switch_gen` is the default."""
-    raise NotImplementedError(
-        "the seeded (threefry) switching key is not ported yet "
-        "(ROADMAP queue 1, item 10); use the default key_switch_gen")
+                          sk: LWEPrivateKey, sk_n: LWEPrivateKey,
+                          device="cuda") -> SeededSwitchingKey:
+    """key_switch_gen with a regenerated A block (see SeededSwitchingKey):
+    the JAX package's `lwe.key_switch_gen_seeded`, the same draws of `rng`
+    in the same order (the seed, then the Gaussian noise). <A, s> mod qKS
+    is summed block by block on `device`, so on the card the A block never
+    exists on the host; a float64 sum of ternary products of values below
+    2^40 is exact at every n below 2^13."""
+    n, N = params.n, params.N
+    q_ks, base_ks = params.q_ks, params.base_ks
+    digit_count = params.digit_count_ks
+    if q_ks & (q_ks - 1):
+        raise ValueError("seeded key switch requires power-of-two qKS")
+    R = N * base_ks * digit_count
+    seed = int(rng.discrete_uniform(1, 1 << 31)[0])
+
+    s = torch.as_tensor(sk.s, dtype=torch.float64, device=device)
+    inner = torch.empty(R, dtype=torch.int64, device=device)
+    for r0, r1 in seeded_blocks(R, n, device):
+        a = seeded_rows(seed, n, q_ks, r0, r1, device).to(torch.float64)
+        inner[r0:r1] = (a @ s).to(torch.int64)
+    inner = inner.remainder_(q_ks).cpu().numpy()
+
+    # messages + noise: identical to key_switch_gen
+    digits = np.array([pow(base_ks, k) for k in range(digit_count)],
+                      dtype=np.uint64)
+    j_idx = np.arange(base_ks, dtype=np.uint64)
+    jk = (j_idx[:, None] * digits[None, :]) % np.uint64(q_ks)
+    sv_n = sk_n.s
+    msg = np.where(sv_n[:, None, None] == 1, jk[None],
+                   np.where(sv_n[:, None, None] == -1,
+                            (np.uint64(q_ks) - jk[None]) % np.uint64(q_ks), 0))
+    e = rng.discrete_gaussian_signed(R, params.std).reshape(
+        N, base_ks, digit_count).astype(np.int64)
+    B = (msg.astype(np.int64) + e
+         + inner.reshape(N, base_ks, digit_count)) % np.int64(q_ks)
+    return SeededSwitchingKey(seed, N, base_ks, digit_count, n, q_ks,
+                              np.uint64(B))
 
 
 def key_gen(rng: BinFHERng, size: int, modulus: int) -> LWEPrivateKey:

@@ -53,6 +53,22 @@ def ksk_table(ksk_a: np.ndarray, ksk_b: np.ndarray,
     return out
 
 
+def seeded_ksk_table(ksk, device: str | torch.device = "cpu") -> torch.Tensor:
+    """The `ksk_table` of a `lwe.SeededSwitchingKey`, its A columns
+    regenerated on `device` block by block from the key's threefry stream
+    (`lwe.seeded_rows`): equal to `ksk_table(ksk.A, ksk.B, device)`, and the
+    A block never exists on the host."""
+    from .. import lwe
+
+    n, R = ksk.n, ksk.rows
+    out = torch.empty((R, n + 1), dtype=torch.float64, device=device)
+    for r0, r1 in lwe.seeded_blocks(R, n, device):
+        out[r0:r1, :n] = lwe.seeded_rows(ksk.seed, n, ksk.q_ks, r0, r1, device)
+    out[:, n] = torch.from_numpy(
+        np.asarray(ksk.B, dtype=np.uint64).reshape(-1).astype(np.float64)).to(device)
+    return out
+
+
 def key_rows(a1: torch.Tensor, N: int, base_ks: int,
              digit_count: int) -> torch.Tensor:
     """a1 [B, N] residues mod qKS -> [B, N*dc] table rows

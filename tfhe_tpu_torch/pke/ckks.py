@@ -4,9 +4,8 @@ Port of `tfhe_tpu/pke/ckks.py`, the counterpart of the reference's
 `src/pke/lib/scheme/ckksrns` (encode/decode via the canonical embedding,
 encrypt/decrypt, EvalAdd, EvalMult + rescale). The embedding uses one 2N-th
 primitive root per conjugate pair (slots = N/2); the tensor product is exact
-(CRT-NTT, `_negacyclic_bigint`, a copy of the JAX package's `pke/bfv.py`
-helper) and rescaling drops the last RNS limb, dividing the scale by it —
-the textbook RNS-CKKS flow.
+(CRT-NTT, `bfv._negacyclic_bigint`) and rescaling drops the last RNS limb,
+dividing the scale by it — the textbook RNS-CKKS flow.
 """
 
 from __future__ import annotations
@@ -16,47 +15,9 @@ from functools import lru_cache
 
 import numpy as np
 
-from ..ref import modmath
-from ..ref import ntt as ref_ntt
 from ..utils.rng import BinFHERng
-from .dcrt import DCRTParams, DCRTPoly, _moduli_chain
-
-
-def _negacyclic_bigint(ca: list, cb: list, p) -> list:
-    """Exact negacyclic convolution of centered big-int coefficient vectors
-    via CRT-NTT over an extended prime basis (capacity > 2*N*(Q/2)^2); `p`
-    carries the ring dimension N and the modulus Q."""
-    N = p.N
-    bound = 4 * N * (p.Q // 2 + 1) ** 2
-    bits = 50
-    n_primes = (bound.bit_length() + bits - 1) // bits + 1
-    primes = _moduli_chain(N, n_primes, bits, skip=0)
-    P = 1
-    for q in primes:
-        P *= q
-    assert P > 2 * bound
-
-    res = []
-    for q in primes:
-        ra = np.array([c % q for c in ca], dtype=np.uint64)
-        rb = np.array([c % q for c in cb], dtype=np.uint64)
-        prod = ref_ntt.inverse(
-            modmath.mul(ref_ntt.forward(ra, q), ref_ntt.forward(rb, q), q), q)
-        res.append(prod)
-
-    # CRT interpolate to exact centered integers
-    facs = []
-    for q in primes:
-        Pi = P // q
-        facs.append((Pi * pow(Pi % q, -1, q)) % P)
-    out = []
-    for j in range(N):
-        v = 0
-        for i in range(len(primes)):
-            v += int(res[i][j]) * facs[i]
-        v %= P
-        out.append(v - P if v > P // 2 else v)
-    return out
+from .bfv import _negacyclic_bigint
+from .dcrt import DCRTParams, DCRTPoly
 
 
 @dataclass(frozen=True)

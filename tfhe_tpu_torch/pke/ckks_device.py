@@ -23,8 +23,9 @@ The JAX package's ops here are XLA graphs, not Pallas kernels; here they
 are torch ops, each `build_*` cached per (chain, key layout, device). The
 bootstrapping builders (`build_bsgs_inner`, `build_diag_inner`,
 `build_diag_factor_lazy`) serve `ckks_boot_device.py` and
-`ckks_boot_fft_device.py`. The BGV variants of ModDown and ModReduce
-(`t` > 1) are not ported yet (ROADMAP item 14).
+`ckks_boot_fft_device.py`. With `t` > 1 the key switch takes the BGV
+t-exact ModDown and the rescale the BGV ModReduce (`bgv_device.py`); with
+the default `t` = 1 they are the CKKS steps.
 
 Reference parity anchors: rns-leveledshe.cpp (EvalMultCore/ModReduce),
 keyswitch-hybrid.cpp:1-484 (KeySwitchCore/EvalKeySwitchPrecomputeCore),
@@ -101,13 +102,15 @@ def _make_fbc(src: tuple, dst: tuple, device: str):
 
 
 def _make_keyswitch(N: int, lvl: tuple, p_moduli: tuple, groups: tuple,
-                    key_rows: tuple | None, device: str):
+                    key_rows: tuple | None, device: str, t: int = 1):
     """Hybrid key switch: coeff-form [L, ..., N] rows of the switched poly ->
     (delta0, delta1) coeff-form rows over `lvl`. The key towers arrive as
     [G, L_pq, N] tensors with Shoup companions. `key_rows` selects the
     level's limb rows out of a FULL-chain key tower (the level-aware
     single-key scheme: the full key restricted to the level's limbs is the
-    level key)."""
+    level key). `t` > 1 selects the BGV t-exact ModDown: subtract
+    t*FBC([x*t^-1]_P), congruent to x mod P and to 0 mod t (see
+    ckks_rns.rns_hybrid_key_switch)."""
     pq = lvl + p_moduli
     n_q = len(lvl)
     lm_pq = mv.LimbModuli(tuple(pq), device=device)
@@ -121,10 +124,24 @@ def _make_keyswitch(N: int, lvl: tuple, p_moduli: tuple, groups: tuple,
     pinv = np.array([pow(P % m, -1, m) for m in lvl], dtype=np.int64)
     pinv_t, pinv_sh = lm_lvl.tensor(pinv), lm_lvl.tensor(lm_lvl.shoup(pinv))
     sel = None if key_rows is None else torch.as_tensor(key_rows, device=device)
+    if t > 1:
+        lm_p = mv.LimbModuli(tuple(p_moduli), device=device)
+        tinv = np.array([pow(t % m, -1, m) for m in p_moduli], dtype=np.int64)
+        tinv_t, tinv_sh = lm_p.tensor(tinv), lm_p.tensor(lm_p.shoup(tinv))
+        t_l = np.array([t % m for m in lvl], dtype=np.int64)
+        t_l_t, t_l_sh = lm_lvl.tensor(t_l), lm_lvl.tensor(lm_lvl.shoup(t_l))
 
     def moddown(rows):          # coeff [L_pq, ..., N] -> [L, ..., N]
         nd = rows.ndim
-        diff = mv.submod_v(rows[:n_q], fbc_p(rows[n_q:]), lm_lvl)
+        x_p = rows[n_q:]
+        if t > 1:
+            x_p = mv.mulmod_shoup_v(x_p, lm_p.bc(tinv_t, nd),
+                                    lm_p.bc(tinv_sh, nd), lm_p)
+        corr = fbc_p(x_p)
+        if t > 1:
+            corr = mv.mulmod_shoup_v(corr, lm_lvl.bc(t_l_t, nd),
+                                     lm_lvl.bc(t_l_sh, nd), lm_lvl)
+        diff = mv.submod_v(rows[:n_q], corr, lm_lvl)
         return mv.mulmod_shoup_v(diff, lm_lvl.bc(pinv_t, nd),
                                  lm_lvl.bc(pinv_sh, nd), lm_lvl)
 
@@ -172,9 +189,12 @@ def _make_keyswitch(N: int, lvl: tuple, p_moduli: tuple, groups: tuple,
     return ks
 
 
-def _make_rescale(lvl: tuple, device: str):
+def _make_rescale(lvl: tuple, device: str, t: int = 1):
     """Coeff-form [L] rows -> [L-1] rows, scaling by 1/q_last (RNS ModReduce
-    with the centered correction; same math as ckks_rns.rescale_rns)."""
+    with the centered correction; same math as ckks_rns.rescale_rns). With
+    `t` > 1 this is the BGV ModReduce instead: add the centered correction
+    t*[-c*t^-1]_{q_last} before the exact division, so the message mod t is
+    preserved (bgv_rns.mod_reduce_rns)."""
     q_last = lvl[-1]
     keep = tuple(lvl[:-1])
     lm_k = mv.LimbModuli(keep, device=device)
@@ -182,32 +202,55 @@ def _make_rescale(lvl: tuple, device: str):
     inv_t, inv_sh = lm_k.tensor(inv), lm_k.tensor(lm_k.shoup(inv))
     ql_mod = lm_k.tensor([q_last % m for m in keep])
 
-    def rescale(rows):
+    def centered(c, nd):
+        """A row of residues mod q_last, centered, as residues mod keep."""
+        c_m = mv.mod_u32_v(c, lm_k)
+        return torch.where(c > q_last // 2,
+                           mv.submod_v(c_m, lm_k.bc(ql_mod, nd), lm_k), c_m)
+
+    if t == 1:
+        def rescale(rows):
+            nd = rows.ndim
+            diff = mv.submod_v(rows[:-1], centered(rows[-1:], nd), lm_k)
+            return mv.mulmod_shoup_v(diff, lm_k.bc(inv_t, nd),
+                                     lm_k.bc(inv_sh, nd), lm_k)
+
+        return rescale
+
+    lm_l = mv.LimbModuli((q_last,), device=device)
+    tinv = [pow(t % q_last, -1, q_last)]
+    tinv_t, tinv_sh = lm_l.tensor(tinv), lm_l.tensor(lm_l.shoup(tinv))
+    t_k = np.array([t % m for m in keep], dtype=np.int64)
+    t_k_t, t_k_sh = lm_k.tensor(t_k), lm_k.tensor(lm_k.shoup(t_k))
+
+    def modreduce(rows):
         nd = rows.ndim
         c_last = rows[-1:]
-        cl_m = mv.mod_u32_v(c_last, lm_k)
-        cl = torch.where(c_last > q_last // 2,
-                         mv.submod_v(cl_m, lm_k.bc(ql_mod, nd), lm_k), cl_m)
-        diff = mv.submod_v(rows[:-1], cl, lm_k)
-        return mv.mulmod_shoup_v(diff, lm_k.bc(inv_t, nd), lm_k.bc(inv_sh, nd), lm_k)
+        v = torch.where(c_last == 0, c_last, q_last - c_last)   # -c mod q_last
+        u = mv.mulmod_shoup_v(v, lm_l.bc(tinv_t, nd), lm_l.bc(tinv_sh, nd), lm_l)
+        w = mv.mulmod_shoup_v(centered(u, nd), lm_k.bc(t_k_t, nd),
+                              lm_k.bc(t_k_sh, nd), lm_k)
+        s = mv.addmod_v(rows[:-1], w, lm_k)
+        return mv.mulmod_shoup_v(s, lm_k.bc(inv_t, nd), lm_k.bc(inv_sh, nd), lm_k)
 
-    return rescale
+    return modreduce
 
 
 @functools.lru_cache(maxsize=None)
 def build_mult_relin_rescale(N: int, lvl: tuple, p_moduli: tuple,
                              groups: tuple, key_rows: tuple | None = None,
-                             rescale: bool = True, *, device: str):
+                             rescale: bool = True, *, t: int = 1, device: str):
     """(a0,a1,b0,b1) eval [L, ..., N] + relin key towers -> (c0,c1) eval
     [L-1, ..., N]: tensor product, relinearization, rescale, with no host
     round trip (rns-leveledshe.cpp EvalMultCore + keyswitch-hybrid.cpp +
-    ModReduce). `rescale=False` keeps the product at [L, ..., N] / noise
-    degree 2 — the lazy rescale of the automatic scaling techniques."""
+    ModReduce). `t` > 1 selects the BGV variants of the ModDown and
+    ModReduce steps. `rescale=False` keeps the product at [L, ..., N] /
+    noise degree 2 — the lazy rescale of the automatic scaling techniques."""
     lm = mv.LimbModuli(tuple(lvl), device=device)
     ntt = NTTL(N, tuple(lvl), device=device)
     ntt_out = NTTL(N, tuple(lvl[:-1]), device=device) if rescale else None
-    ks = _make_keyswitch(N, lvl, p_moduli, groups, key_rows, device)
-    resc = _make_rescale(lvl, device) if rescale else None
+    ks = _make_keyswitch(N, lvl, p_moduli, groups, key_rows, device, t)
+    resc = _make_rescale(lvl, device, t) if rescale else None
 
     def mult(a0, a1, b0, b1, kb, kb_sh, ka, ka_sh):
         d0 = mv.barrett_mulmod_v(a0, b0, lm)
@@ -246,12 +289,12 @@ def _automorphism(N: int, k: int, lm: mv.LimbModuli):
 
 @functools.lru_cache(maxsize=None)
 def build_rotate(N: int, lvl: tuple, p_moduli: tuple, groups: tuple, k: int,
-                 key_rows: tuple | None = None, *, device: str):
+                 key_rows: tuple | None = None, *, t: int = 1, device: str):
     """Per (level chain, Galois element): (c0,c1) eval [L, ..., N] + galois
-    key towers -> rotated (o0,o1) eval [L, ..., N]."""
+    key towers -> rotated (o0,o1) eval [L, ..., N]; `t` > 1 for BGV."""
     lm = mv.LimbModuli(tuple(lvl), device=device)
     ntt = NTTL(N, tuple(lvl), device=device)
-    ks = _make_keyswitch(N, lvl, p_moduli, groups, key_rows, device)
+    ks = _make_keyswitch(N, lvl, p_moduli, groups, key_rows, device, t)
     auto = _automorphism(N, k, lm)
 
     def rot(c0, c1, kb, kb_sh, ka, ka_sh):
@@ -281,16 +324,18 @@ def build_ks_precompute(N: int, lvl: tuple, p_moduli: tuple, groups: tuple,
 
 @functools.lru_cache(maxsize=None)
 def build_rotate_hoisted(N: int, lvl: tuple, p_moduli: tuple, groups: tuple,
-                         k: int, key_rows: tuple | None = None, *, device: str):
+                         k: int, key_rows: tuple | None = None, *, t: int = 1,
+                         device: str):
     """(c0, digits [G, L_pq, ..., N], key towers) -> rotated (c0', c1') eval
     towers. The automorphism is applied entirely in the evaluation domain
     as one static gather (the NTT-point permutation ckks_rns.eval_auto_perm,
     modulus-independent), so the per-rotation cost is gathers + the key
-    inner product + ModDown (EvalFastRotation, HS18 hoisting)."""
+    inner product + ModDown (EvalFastRotation, HS18 hoisting); `t` > 1 for
+    BGV."""
     perm = torch.as_tensor(eval_auto_perm(N, k, lvl[0]), device=device)
     lm = mv.LimbModuli(tuple(lvl), device=device)
     ntt = NTTL(N, tuple(lvl), device=device)
-    ks = _make_keyswitch(N, lvl, p_moduli, groups, key_rows, device)
+    ks = _make_keyswitch(N, lvl, p_moduli, groups, key_rows, device, t)
 
     def f(c0, dps, kb, kb_sh, ka, ka_sh):
         dps_k = [dps[g].index_select(-1, perm) for g in range(len(groups))]

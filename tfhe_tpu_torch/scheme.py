@@ -58,7 +58,7 @@ class Backend(Protocol):
 def key_gen(rng: BinFHERng, params: BinFHEParams, sk: lwe.LWEPrivateKey,
             sk_n: lwe.LWEPrivateKey | None = None,
             ksk: lwe.LWESwitchingKey | None = None,
-            seeded_ksk: bool | None = None) -> BTKey:
+            seeded_ksk: bool | None = None, device="cuda") -> BTKey:
     """Bootstrapping-key generation (binfhe-base-scheme.cpp:39-55).
 
     `sk_n`/`ksk` let a caller reuse an existing ring secret and its
@@ -68,15 +68,22 @@ def key_gen(rng: BinFHERng, params: BinFHEParams, sk: lwe.LWEPrivateKey,
     (the accelerated logQ 12..29 sets all do). The switching-key block is
     ~5 GB at production sizes; regenerating it per base is pure waste.
 
-    `seeded_ksk=True` selects the device-generated threefry switching key
-    for the big power-of-two qKS sets (not ported: it raises)."""
+    `seeded_ksk` (None = env TFHE_TPU_SEEDED_KSK) selects the seeded
+    (threefry) switching key for the big power-of-two qKS sets; its
+    <A, s> is summed on `device`."""
+    import os
+
     p = params.lwe
     if sk_n is None:
         sk_n = lwe.key_gen(rng, p.N, p.Q)
     if ksk is None:
-        if (seeded_ksk and p.q_ks & (p.q_ks - 1) == 0
+        use_seeded = seeded_ksk
+        if use_seeded is None:
+            use_seeded = os.environ.get(
+                "TFHE_TPU_SEEDED_KSK", "") not in ("", "0")
+        if (use_seeded and p.q_ks & (p.q_ks - 1) == 0
                 and p.q_ks > (1 << 32)):
-            ksk = lwe.key_switch_gen_seeded(rng, p, sk, sk_n)
+            ksk = lwe.key_switch_gen_seeded(rng, p, sk, sk_n, device)
         else:
             ksk = lwe.key_switch_gen(rng, p, sk, sk_n)
     sk_n_coeff = modmath.asarray(sk_n.s, p.Q)
