@@ -60,9 +60,20 @@ its main path gives it. Then it drives the port's paths through
 - BGV on the card (`BGVDeviceContext`, N = 4096, t = 257, 8 limbs of 27-28
   bits): eval_mult at batch 8 and 64, eval_rotate, eval_add and eval_sub,
   every result decrypted, ciphertexts 0 and B-1 torch.equal to the host
-  `BGVRnsContext`.
-The timings of the functional, CKKS and BGV phases are a JSON line of
-their own.
+  `BGVRnsContext`;
+- BFV on the card at simple-integers.cpp's configuration (t = 65537,
+  depth 2) built by the ported `gen_crypto_context` (N = 4096, four 28-bit
+  limbs, dnum = 2), once with HPS (`BFVDeviceContext`) and once with BEHZ
+  (`BFVBehzDeviceContext`), on keys written and read back with
+  `pke/serial`: the depth-2 chain x*y*z at batch 8 and 64, eval_rotate,
+  eval_add and eval_sub at batch 8, every slot decrypted, ciphertexts 0
+  and B-1 torch.equal to the host `BFVRnsContext` or `BFVBehzContext`;
+- save and load (`BinFHEContext.save`/`load`): the STD128 NAND context
+  reloaded on the card gives the pre-save batch-4096 NAND outputs, and the
+  seeded TOY accelerated context reloads with its key still seed and B and
+  gives the host oracle's EvalSign bit for bit.
+The timings of the functional, CKKS, BGV, BFV and serialization phases,
+and the run's total seconds, are a JSON line of their own.
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. At the end no jax or JAX-package module may be loaded.
 Exits non-zero on any failure. The line before the last is a JSON record
@@ -125,6 +136,14 @@ BGV_T = 257
 BGV_DEPTH = 7               # 8 limbs: 4 x 28 + 4 x 27 bits
 BGV_BATCHES = (8, 64)
 BGV_KS_BITS = 30
+# simple-integers.cpp (OpenFHE src/pke/examples): BFV, t = 65537, depth 2;
+# the port's gen_crypto_context derives N = 4096 at 128_classic, four
+# 28-bit limbs
+BFV_SEED = 20260820
+BFV_T = 65537
+BFV_DEPTH = 2
+BFV_LIMB_BITS = 28
+BFV_BATCHES = (8, 64)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -568,8 +587,9 @@ def toy_gates(rng, method_name: str = "GINX") -> None:
         f"({time.time() - t0:.1f} s)")
 
 
-def std128_nand(rng, card: str) -> None:
-    """The gate path at full width: STD128 NAND at batch 4096."""
+def std128_nand(rng, card: str) -> dict:
+    """The gate path at full width: STD128 NAND at batch 4096. Returns the
+    context, secret, inputs and outputs for the serialization phase."""
     import numpy as np
     import torch
 
@@ -614,6 +634,7 @@ def std128_nand(rng, card: str) -> None:
         s = time.time() - t0
         log(f"STD128 NAND B={GATE_BATCH} warm: {s:.4f} s, "
             f"{GATE_BATCH / s:.1f} bootstraps/s on {card}")
+    return {"cc": cc, "sk": sk, "cts": (ct1, ct2), "out": out, "m": (m1, m2)}
 
 
 def accelerated_contexts(param_set, log_qs=(17, 12), rns_modulus=None, func=True,
@@ -1573,6 +1594,234 @@ def bgv(rng, card: str) -> dict:
     return out
 
 
+def bfv_contexts():
+    """simple-integers.cpp's configuration through the ported front end:
+    gen_crypto_context("BFV", plaintext_modulus=65537, mult_depth=2,
+    limb_bits=28, multiplication_technique=..., seed=BFV_SEED) at the
+    default 128_classic and dnum = 2, once with "hps" and once with "behz"
+    (one seed, so one secret). Returns {technique: context}."""
+    from tfhe_tpu_torch.pke import BFVBehzContext, BFVRnsContext, gen_crypto_context
+
+    ctxs = {mt: gen_crypto_context("BFV", plaintext_modulus=BFV_T, mult_depth=BFV_DEPTH,
+                                   limb_bits=BFV_LIMB_BITS, multiplication_technique=mt,
+                                   seed=BFV_SEED)
+            for mt in ("hps", "behz")}
+    check(type(ctxs["hps"]) is BFVRnsContext and type(ctxs["behz"]) is BFVBehzContext,
+          "gen_crypto_context did not return the HPS and BEHZ contexts")
+    return ctxs
+
+
+def bfv_keys_through_files(ctx, sk, pk, rlk, gk):
+    """Write the context's keys (secret and public) and its relinearization
+    and Galois hybrid keys with the port's pke/serial, outside the repo,
+    and read them back. Returns the reloaded (sk, pk, rlk, gk)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from tfhe_tpu_torch.pke import serial as pke_serial
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f) for f in ("keys.npz", "rlk.npz", "gk.npz")]
+        pke_serial.save_keys(paths[0], ctx.params, sk, pk)
+        pke_serial.save_hybrid_keys(paths[1], rlk)
+        pke_serial.save_hybrid_keys(paths[2], gk)
+        params, sk2, pk2, _ = pke_serial.load_keys(paths[0])
+        rlk2, gk2 = (pke_serial.load_hybrid_keys(x) for x in paths[1:])
+    check(params == ctx.params and np.array_equal(sk2.s_signed, sk.s_signed)
+          and np.array_equal(pk2.b.rns, pk.b.rns), "BFV keys differ after pke/serial")
+    for a, b in ((rlk, rlk2), (gk, gk2)):
+        check(a.groups == b.groups and a.p_moduli == b.p_moduli
+              and getattr(a, "galois_k", None) == getattr(b, "galois_k", None)
+              and all(np.array_equal(x.rns, y.rns) for x, y in zip(a.bs + a.as_, b.bs + b.as_)),
+              "BFV hybrid keys differ after pke/serial")
+    return sk2, pk2, rlk2, gk2
+
+
+def bfv(rng, card: str) -> dict:
+    """BFV on the card (`bfv_contexts`), once per technique: HPS through
+    BFVDeviceContext, BEHZ through BFVBehzDeviceContext, on keys written and
+    read back with pke/serial. At each batch of BFV_BATCHES the depth-2
+    chain x*y*z through eval_mult; at batch 8 eval_rotate by 1, eval_add and
+    eval_sub. Every slot of every result decrypts to its plaintext value
+    mod 65537 (decrypt_packed after download), ciphertexts 0 and B-1 of
+    each result torch.equal to the host BFVRnsContext or BFVBehzContext on
+    the same inputs, each operation timed warm by CUDA events. Returns the
+    timings."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.pke import BFVBehzDeviceContext, BFVDeviceContext
+
+    t0 = time.time()
+    ctxs = bfv_contexts()
+    hps = ctxs["hps"]
+    p = hps.params
+    sk, pk = hps.key_gen()
+    sk_b, _ = ctxs["behz"].key_gen()
+    check(np.array_equal(sk.s_signed, sk_b.s_signed), "the BFV contexts' secrets differ")
+    keys = {}
+    for mt, ctx in ctxs.items():
+        rlk, gk = ctx.relin_key_gen(sk), ctx.galois_key_gen(sk, 1)
+        sk2, pk2, rlk2, gk2 = bfv_keys_through_files(ctx, sk, pk, rlk, gk)
+        keys[mt] = (rlk2, gk2)
+    sk, pk = sk2, pk2
+    log(f"BFV (simple-integers.cpp): N={p.N} t={p.t} depth {BFV_DEPTH}, derived "
+        f"{hps.derived.security_level}, Q limbs {list(p.dcrt.moduli)}, HPS R limbs "
+        f"{len(hps.r_moduli)}, BEHZ Bsk limbs {len(ctxs['behz'].bsk_moduli)}, dnum=2, PQ "
+        f"limbs {len(rlk2.pq_params.moduli)}; keygen, keys written and read back with "
+        f"pke/serial {time.time() - t0:.1f} s")
+    Bmax = max(BFV_BATCHES)
+    t0 = time.time()
+    vs = [[rng.integers(0, p.t, p.N) for _ in range(Bmax)] for _ in range(3)]
+    cts = [[hps.encrypt_packed(pk, v) for v in vv] for vv in vs]
+    log(f"BFV: {3 * Bmax} packed encryptions on the host {time.time() - t0:.1f} s")
+    half = p.N // 2
+
+    def rotated(v):
+        return np.concatenate([np.roll(v[:half], -1), np.roll(v[half:], -1)])
+
+    out = {"card": card, "N": p.N, "t": p.t, "L": p.dcrt.L, "dnum": 2}
+    for mt, ctx in ctxs.items():
+        t1 = time.time()
+        rlk, gk = keys[mt]
+        dctx = (BFVDeviceContext if mt == "hps" else BFVBehzDeviceContext)(ctx)
+        dctx.load_relin_key(rlk)
+        dctx.load_galois_key(1, gk)
+        name = f"BFV {mt.upper()}"
+
+        def holds(d, want, host_fn, what: str) -> None:
+            check(d.c0.is_cuda and d.c1.is_cuda, f"{name} {what}: towers not on the card")
+            outs = dctx.download_batch(d)
+            for b, o in enumerate(outs):
+                check(np.array_equal(ctx.decrypt_packed(sk, o), want(b)),
+                      f"{name} {what}: ciphertext {b} decrypts wrong")
+            for b in (0, len(outs) - 1):
+                for i, poly in enumerate(host_fn(b).polys):
+                    tower = torch.from_numpy(poly.to_eval().rns.astype(np.int64))
+                    check(torch.equal((d.c0, d.c1)[i][:, b].cpu(), tower),
+                          f"{name} {what}: ciphertext {b} differs from the host context")
+            log(f"{name} {what}: {len(outs)} ciphertexts on the card, every slot "
+                f"decrypts right, ciphertexts 0 and {len(outs) - 1} torch.equal to the "
+                f"host {type(ctx).__name__}")
+
+        for B in BFV_BATCHES:
+            x, y, z = (dctx.upload_batch(c[:B]) for c in cts)
+            xy = dctx.eval_mult(x, y)
+            holds(xy, lambda b: vs[0][b] * vs[1][b] % p.t,
+                  lambda b: ctx.eval_mult(cts[0][b], cts[1][b], rlk), f"x*y B={B}")
+            holds(dctx.eval_mult(xy, z), lambda b: vs[0][b] * vs[1][b] % p.t * vs[2][b] % p.t,
+                  lambda b: ctx.eval_mult(ctx.eval_mult(cts[0][b], cts[1][b], rlk),
+                                          cts[2][b], rlk), f"x*y*z B={B}")
+            ms = cuda_ms(lambda: dctx.eval_mult(x, y), CKKS_ITERS)
+            out[f"{mt}_mult_ms_per_ctx_B{B}"] = ms / B
+            log(f"{name} eval_mult B={B}: warm {ms:.3f} ms a call, {ms / B:.4f} ms/ctx "
+                f"on {card}")
+        B = BFV_BATCHES[0]
+        x, y = (dctx.upload_batch(c[:B]) for c in cts[:2])
+        holds(dctx.eval_rotate(x, 1), lambda b: rotated(vs[0][b]),
+              lambda b: ctx.eval_rotate(cts[0][b], 1, gk), f"eval_rotate B={B}")
+        holds(dctx.eval_add(x, y), lambda b: (vs[0][b] + vs[1][b]) % p.t,
+              lambda b: ctx.eval_add(cts[0][b], cts[1][b]), f"eval_add B={B}")
+        holds(dctx.eval_sub(x, y), lambda b: (vs[0][b] - vs[1][b]) % p.t,
+              lambda b: ctx.ctx.eval_sub(cts[0][b], cts[1][b]), f"eval_sub B={B}")
+        for op, fn in (("rotate", lambda: dctx.eval_rotate(x, 1)),
+                       ("add", lambda: dctx.eval_add(x, y)),
+                       ("sub", lambda: dctx.eval_sub(x, y))):
+            out[f"{mt}_{op}_ms_B{B}"] = cuda_ms(fn, CKKS_ITERS)
+        log(f"{name} B={B}: eval_rotate {out[f'{mt}_rotate_ms_B{B}']:.3f} ms, eval_add "
+            f"{out[f'{mt}_add_ms_B{B}']:.3f} ms, eval_sub {out[f'{mt}_sub_ms_B{B}']:.3f} ms "
+            f"a call on {card} ({time.time() - t1:.1f} s)")
+    return out
+
+
+def serial_round_trip(rng, card: str, std: dict) -> dict:
+    """BinFHEContext.save and load on the main path: the STD128 NAND
+    context of `std128_nand` is saved (tempfile, outside the repo), loaded
+    into a new context on the card, and its batch-4096 NAND on the same
+    inputs must equal the pre-save outputs; then the TOY accelerated
+    context with the seeded switching key is saved and loaded (the key
+    still seed and B, its A never materialized) and its EvalSign on the
+    card must equal the saved context's host oracle bit for bit. Returns
+    the file sizes and the save, load and device_setup seconds."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import BinFHEContext, Gate, ParamSet, lwe
+
+    out = {"card": card}
+    cc = std["cc"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "std128.npz")
+        t0 = time.time()
+        cc.save(path)
+        out["std128_save_s"] = time.time() - t0
+        out["std128_file_MB"] = os.path.getsize(path) / 1e6
+        t0 = time.time()
+        loaded = BinFHEContext.load(path)
+        out["std128_load_s"] = time.time() - t0
+    key, key2 = cc.bt_key, loaded.bt_key
+    check(loaded.params == cc.params and np.array_equal(key2.bsk_coeff, key.bsk_coeff)
+          and np.array_equal(key2.ksk.A, key.ksk.A) and np.array_equal(key2.ksk.B, key.ksk.B),
+          "STD128: the loaded keys differ from the saved ones")
+    t0 = time.time()
+    loaded.device_setup()
+    torch.cuda.synchronize()
+    out["std128_device_setup_s"] = time.time() - t0
+    got = loaded.eval_bin_gate(Gate.NAND, *std["cts"])
+    check(loaded.backend.device.type == "cuda", "the loaded STD128 context is not on the card")
+    check(np.array_equal(got.a, std["out"].a) and np.array_equal(got.b, std["out"].b),
+          "STD128: the reloaded NAND differs from the pre-save outputs")
+    m1, m2 = std["m"]
+    check(np.array_equal(loaded.decrypt(std["sk"], got), 1 - (m1 & m2)),
+          "STD128 reloaded NAND decryption")
+    log(f"STD128 context saved ({out['std128_file_MB']:.1f} MB, "
+        f"{out['std128_save_s']:.1f} s), loaded ({out['std128_load_s']:.1f} s), "
+        f"device_setup {out['std128_device_setup_s']:.1f} s: NAND B={GATE_BATCH} on the "
+        f"card equal to the pre-save outputs")
+    del loaded
+
+    sign_cc, _, sk, keygen_s = accelerated_contexts(ParamSet.TOY, func=False, seeded=True)
+    ksk = sign_cc.bt_key.ksk
+    check(isinstance(ksk, lwe.SeededSwitchingKey), "the TOY key is not seeded")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "toy_seeded.npz")
+        t0 = time.time()
+        sign_cc.save(path)
+        out["toy_seeded_save_s"] = time.time() - t0
+        out["toy_seeded_file_MB"] = os.path.getsize(path) / 1e6
+        t0 = time.time()
+        loaded = BinFHEContext.load(path)
+        out["toy_seeded_load_s"] = time.time() - t0
+    for base, k in sign_cc.bt_key_map.items():
+        k2 = loaded.bt_key_map[base].ksk
+        check(isinstance(k2, lwe.SeededSwitchingKey) and k2._A is None
+              and k2.seed == ksk.seed and np.array_equal(k2.B, ksk.B),
+              "TOY: the loaded switching key is not the seeded key")
+    t0 = time.time()
+    loaded.device_setup()
+    torch.cuda.synchronize()
+    out["toy_seeded_device_setup_s"] = time.time() - t0
+    ct, delta = sign_inputs(sign_cc, sk, rng, 8)
+    got = loaded.eval_sign(ct)
+    check(loaded.backend.device.type == "cuda", "the loaded TOY context is not on the card")
+    check(loaded.bt_key.ksk._A is None, "the loaded seeded key was materialized")
+    sign_cc.device_clean()
+    check(same(got, sign_cc.eval_sign(ct)), "TOY: the reloaded EvalSign differs from the oracle")
+    check(np.array_equal(loaded.decrypt(sk, got, 2), (delta >= 0).astype(np.uint64)),
+          "TOY reloaded EvalSign decryption")
+    log(f"TOY accelerated seeded context (keygen {keygen_s:.1f} s) saved "
+        f"({out['toy_seeded_file_MB']:.1f} MB, {out['toy_seeded_save_s']:.1f} s), loaded "
+        f"({out['toy_seeded_load_s']:.1f} s) with its key still seed and B, device_setup "
+        f"{out['toy_seeded_device_setup_s']:.1f} s: EvalSign B=8 on the card equal to the "
+        f"host oracle bit for bit")
+    return out
+
+
 class KernelClock:
     """Device time of every call of `module.name` (a kernel wrapper that
     launches one kernel) while the clock is entered: CUDA events around
@@ -1794,10 +2043,23 @@ def main() -> int:
     reset_counts()
     t0 = time.time()
     toy_gates(rng)
-    std128_nand(rng, card)
+    std = std128_nand(rng, card)
     gate_launches = rotate_kernel.LAUNCHES
     check(gate_launches > 0, "the gate path did not launch blind_rotate")
     log(f"gate path: blind_rotate launches {gate_launches} ({time.time() - t0:.1f} s)")
+
+    # save and load: the STD128 gate context and the seeded TOY context,
+    # reloaded on the card, counts read just after
+    reset_counts()
+    t0 = time.time()
+    serial_timing = serial_round_trip(rng, card, std)
+    del std
+    serial_gate_launches = rotate_kernel.LAUNCHES
+    serial_rns_launches = rotate_rns_kernel.LAUNCHES
+    check(serial_gate_launches > 0 and serial_rns_launches > 0,
+          "the reloaded contexts did not launch blind_rotate and blind_rotate_rns")
+    log(f"serialization phase: blind_rotate launches {serial_gate_launches}, "
+        f"blind_rotate_rns launches {serial_rns_launches} ({time.time() - t0:.1f} s)")
 
     # the RNS functional path, counts read just after it
     reset_counts()
@@ -1889,6 +2151,11 @@ def main() -> int:
     bgv_timing = bgv(rng, card)
     log(f"BGV phase {time.time() - t0:.1f} s")
 
+    # BFV through the ported front end, HPS and BEHZ: torch ops, no hand kernel
+    t0 = time.time()
+    bfv_timing = bfv(rng, card)
+    log(f"BFV phase {time.time() - t0:.1f} s")
+
     loaded = [m for m in sys.modules if m in ("jax", "tfhe_tpu")
               or m.startswith(("jax.", "tfhe_tpu."))]
     check(not loaded, f"JAX or the JAX package was loaded: {loaded[:5]}")
@@ -1897,16 +2164,19 @@ def main() -> int:
     print(json.dumps({"ckks": ckks_timing, "ckksboot": boot_timing,
                       "advancedshe": she_timing, "functional": plain_timing,
                       "seeded": seeded_timing, "ckks_auto": auto_timing,
-                      "bgv": bgv_timing}), flush=True)
+                      "bgv": bgv_timing, "bfv": bfv_timing, "serial": serial_timing,
+                      "total_s": time.time() - t_start}), flush=True)
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate.py:253",
-         "launches": gate_launches + mixed_launches, **gate_timing, "library_ms": None},
+         "launches": gate_launches + mixed_launches + serial_gate_launches, **gate_timing,
+         "library_ms": None},
         {"name": "blind_rotate_rns", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate_rns.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate_rns.py:278",
-         "launches": rns_launches + seeded_launches, **rns_timing, "library_ms": None},
+         "launches": rns_launches + seeded_launches + serial_rns_launches, **rns_timing,
+         "library_ms": None},
         {"name": "blind_rotate64", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate64.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate64.py:324",

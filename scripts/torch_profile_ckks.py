@@ -33,6 +33,18 @@ only. Prints one JSON line: the walls, device busy and idle share, the
 kernel launches, each stage's device seconds and host wall, and the host
 seconds spent in ModRaise and in plaintext encoding (first call and warm
 call); the table goes to `chiprun_out/profile_ckksboot_B8.txt`.
+
+    python3 scripts/torch_profile_ckks.py --bfv
+
+profiles BFV `eval_mult` instead, under HPS (`BFVDeviceContext`) and BEHZ
+(`BFVBehzDeviceContext`), at `chip_smoke.py`'s bfv cell
+(`chip_smoke.bfv_contexts`: simple-integers.cpp's t = 65537, depth 2,
+N = 4096, four 28-bit limbs, dnum 2) at batch 8 and 64, the squares
+checked by decryption, with a third range, `bfv::baseconv`, around the
+BFV base conversions (HPS: the expansions Q -> R and R -> Q and the t/Q
+scale-and-round; BEHZ: the lift into Bsk, the floor and the
+Shenoy-Kumaresan conversion). One JSON line per technique and batch, as
+above; the tables go to `chiprun_out/profile_bfv_<technique>_B<batch>.txt`.
 """
 
 from __future__ import annotations
@@ -51,10 +63,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from tfhe_tpu_torch.ops import nttl  # noqa: E402
-from tfhe_tpu_torch.pke import ckks_device  # noqa: E402
+from tfhe_tpu_torch.pke import bfv_behz_device, bfv_device, ckks_device  # noqa: E402
 
 OUT_DIR = "chiprun_out"
 RANGES = ("ckks::ntt", "ckks::fbc")
+BFV_RANGES = RANGES + ("bfv::baseconv",)
 
 
 def annotated(name: str, fn):
@@ -74,12 +87,23 @@ def annotate_layers() -> None:
     ckks_device._make_fbc = lambda *args: annotated(RANGES[1], make_fbc(*args))
 
 
+def annotate_bfv() -> None:
+    """`annotate_layers`, and a range around every BFV base conversion
+    (before the first `build_bfv*_mult` call, for the same reason)."""
+    annotate_layers()
+    for mod, names in ((bfv_device, ("_make_expand", "_make_scale_round")),
+                       (bfv_behz_device, ("_make_lift_bsk", "_make_floor", "_make_conv_sk"))):
+        for name in names:
+            make = getattr(mod, name)
+            setattr(mod, name, lambda *args, _make=make: annotated(BFV_RANGES[2], _make(*args)))
+
+
 def device_us(evt) -> float:
     return getattr(evt, "self_device_time_total",
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def measure(B: int, fn, card: str) -> None:
+def measure(B: int, fn, card: str, cell: str = "ckks_mult", ranges=RANGES) -> None:
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -96,25 +120,25 @@ def measure(B: int, fn, card: str) -> None:
     # kernels and the gaps between them: they are no kernels of their own
     kernels = {e.key: (device_us(e) / 1e6, e.count) for e in avgs
                if e.device_type.name == "CUDA" and device_us(e) > 0
-               and e.key not in RANGES}
+               and e.key not in ranges}
     busy = sum(s for s, _ in kernels.values())
     launches = sum(n for _, n in kernels.values())
     # device time of the kernels launched under each range, from the CPU-side
     # range events (the ranges do not nest in each other)
     layer = {name: sum(e.device_time_total for e in prof.events()
                        if e.name == name and e.device_type.name == "CPU") / 1e6
-             for name in RANGES}
+             for name in ranges}
     rest = busy - sum(layer.values())
-    with open(os.path.join(OUT_DIR, f"profile_ckks_B{B}.txt"), "w") as f:
-        f.write(f"{card}\neval_mult B={B}, profiled wall {prof_wall:.6f} s\n")
+    with open(os.path.join(OUT_DIR, f"profile_{cell.removesuffix('_mult')}_B{B}.txt"), "w") as f:
+        f.write(f"{card}\n{cell} B={B}, profiled wall {prof_wall:.6f} s\n")
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=40))
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
     print(json.dumps({
-        "cell": f"ckks_mult_B{B}", "wall_s": walls, "ms_per_ctx": min(walls) / B * 1e3,
+        "cell": f"{cell}_B{B}", "wall_s": walls, "ms_per_ctx": min(walls) / B * 1e3,
         "profiled_wall_s": prof_wall, "device_busy_s": busy,
         "idle_share": 1 - busy / prof_wall, "kernel_launches": launches,
-        "ntt_s": layer[RANGES[0]], "fbc_s": layer[RANGES[1]], "rest_s": rest,
-        "ntt_share": layer[RANGES[0]] / busy, "fbc_share": layer[RANGES[1]] / busy,
+        **{f"{name.split('::')[1]}_s": v for name, v in layer.items()}, "rest_s": rest,
+        **{f"{name.split('::')[1]}_share": v / busy for name, v in layer.items()},
         "rest_share": rest / busy,
         "top_kernels_s": {k[:80]: v[0] for k, v in top}, "card": card}), flush=True)
 
@@ -228,6 +252,28 @@ def profile_boot(card: str) -> None:
         "top_kernels_s": {k[:80]: v[0] for k, v in top}, "card": card}), flush=True)
 
 
+def profile_bfv(card: str) -> None:
+    annotate_bfv()
+    rng = np.random.default_rng(chip_smoke.BFV_SEED)
+    ctxs = chip_smoke.bfv_contexts()
+    hps = ctxs["hps"]
+    p = hps.params
+    sk, pk = hps.key_gen()
+    vs = [rng.integers(0, p.t, p.N) for _ in range(max(chip_smoke.BFV_BATCHES))]
+    cts = [hps.encrypt_packed(pk, v) for v in vs]
+    for mt, ctx in ctxs.items():
+        cls = bfv_device.BFVDeviceContext if mt == "hps" else bfv_behz_device.BFVBehzDeviceContext
+        dctx = cls(ctx)
+        dctx.load_relin_key(ctx.relin_key_gen(sk))
+        for B in chip_smoke.BFV_BATCHES:
+            d = dctx.upload_batch(cts[:B])
+            outs = dctx.download_batch(dctx.eval_mult(d, d))
+            if not all(np.array_equal(ctx.decrypt_packed(sk, o), vs[b] * vs[b] % p.t)
+                       for b, o in enumerate(outs)):
+                raise SystemExit(f"wrong BFV {mt} square at B={B}")
+            measure(B, lambda: dctx.eval_mult(d, d), card, f"bfv_{mt}_mult", BFV_RANGES)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
@@ -238,6 +284,9 @@ def main() -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     if "--boot" in sys.argv[1:]:
         profile_boot(card)
+        return
+    if "--bfv" in sys.argv[1:]:
+        profile_bfv(card)
         return
     annotate_layers()
     rng = np.random.default_rng(chip_smoke.SEED)

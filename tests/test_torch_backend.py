@@ -234,8 +234,11 @@ def test_port_never_imports_jax():
     keygen (`utils.threefry`), a device CKKS multiplication
     (`tfhe_tpu_torch.pke`, `pke.ckks_device`), a weighted sum on the device
     evaluator (`pke.advancedshe_device`, with the CKKS bootstrapping, auto-
-    scaling, noise-flooding and BGV modules imported) on the CPU, with one
-    torch thread as the in-process tests have, and no jax, tfhe_tpu or
+    scaling, noise-flooding and BGV modules imported), a BEHZ BFV
+    multiplication on the device context from `gen_crypto_context` (with
+    the HPS, advanced, parameter-generation and serialization modules
+    imported) and a save/load of the seeded TOY context on the CPU, with
+    one torch thread as the in-process tests have, and no jax, tfhe_tpu or
     tfhe_tpu.* module afterwards."""
     script = textwrap.dedent("""
         import sys
@@ -295,6 +298,24 @@ def test_port_never_imports_jax():
         ev.load_keys(rlk, {})
         w = advancedshe_device.eval_linear_wsum(ev, [d, d], [0.5, -2.0])
         assert np.abs(ctx.decrypt(csk, ev.dctx.download(w)) + 1.5 * z).max() < 1e-3
+        from tfhe_tpu_torch.pke import (advanced, bfv_behz, bfv_behz_device, bfv_device,
+                                        bfv_rns, context, parametergen, serial)
+        from tfhe_tpu_torch.utils import serial as binfhe_serial
+        bc = tfhe_tpu_torch.pke.gen_crypto_context(
+            "BFV", N=32, plaintext_modulus=257, mult_depth=1, limb_bits=28,
+            multiplication_technique="behz", seed=7)
+        bsk, bpk = bc.key_gen()
+        bd = bfv_behz_device.BFVBehzDeviceContext(bc, device="cpu")
+        bd.load_relin_key(bc.relin_key_gen(bsk))
+        v = np.arange(32) % 257
+        x = bd.upload(bc.encrypt_packed(bpk, v))
+        assert np.array_equal(bc.decrypt_packed(bsk, bd.download(bd.eval_mult(x, x))),
+                              v * v % 257)
+        import os, tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            cc.save(os.path.join(tmp, "ctx.npz"))
+            cc2 = BinFHEContext.load(os.path.join(tmp, "ctx.npz"), device="cpu")
+        assert cc2.bt_key.ksk.seed == cc.bt_key.ksk.seed
         bad = [m for m in sys.modules if m in ("jax", "tfhe_tpu")
                or m.startswith(("jax.", "tfhe_tpu."))]
         assert not bad, bad

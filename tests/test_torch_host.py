@@ -136,11 +136,13 @@ def test_ciphertext_mul_matrix_matches_and_needs_the_oracle():
     assert np.array_equal(out.a, want.a)
 
 
-def test_unported_host_features_raise():
-    """`save`/`load` still raise. The seeded switching key is ported: at the
-    accelerated TOY set a seeded keygen on the CPU gives a
+def test_seeded_toy_context_round_trips(tmp_path):
+    """At the accelerated TOY set a seeded keygen on the CPU gives a
     `SeededSwitchingKey` whose rows, regenerated from its seed, encrypt
-    s_N[i] * v * baseKS^j under the LWE secret with small noise."""
+    s_N[i] * v * baseKS^j under the LWE secret with small noise; `save` and
+    `load` round-trip the context with the key still seeded (its seed,
+    dimensions and B, the A block never materialized), the bootstrapping
+    key, the key map and the parameters equal."""
     cc = tfhe_tpu_torch.BinFHEContext(seed=1, seeded_ksk=True, device="cpu")
     cc.generate_binfhe_context(params.ParamSet.TOY, arb_func=True, log_q=12)
     sk = cc.key_gen()
@@ -157,7 +159,16 @@ def test_unported_host_features_raise():
         e = (ksk.B.reshape(-1)[r0:r0 + 8].astype(np.int64) - a @ sk.s - msg) % p.q_ks
         e = np.where(e > p.q_ks // 2, e - p.q_ks, e)
         assert np.abs(e).max() <= 40 and np.abs(a).max() < p.q_ks
-    with pytest.raises(NotImplementedError):
-        cc.save("unused.npz")
-    with pytest.raises(NotImplementedError):
-        tfhe_tpu_torch.BinFHEContext.load("unused.npz")
+    path = str(tmp_path / "toy_seeded.npz")
+    cc.save(path)
+    cc2 = tfhe_tpu_torch.BinFHEContext.load(path, device="cpu")
+    assert cc2.device == "cpu" and cc2.params == cc.params
+    assert sorted(cc2.bt_key_map) == sorted(cc.bt_key_map)
+    for base, key in cc.bt_key_map.items():
+        k2 = cc2.bt_key_map[base]
+        assert isinstance(k2.ksk, lwe.SeededSwitchingKey) and k2.ksk._A is None
+        assert (k2.ksk.seed, k2.ksk.N, k2.ksk.base_ks, k2.ksk.digit_count, k2.ksk.n,
+                k2.ksk.q_ks) == (ksk.seed, ksk.N, ksk.base_ks, ksk.digit_count, ksk.n,
+                                 ksk.q_ks)
+        assert np.array_equal(k2.ksk.B, ksk.B) and np.array_equal(k2.bsk_coeff, key.bsk_coeff)
+    assert ksk._A is None

@@ -16,8 +16,7 @@ Differences from the JAX package's context:
   `device_clean()` or `use_backend(RefBackend())`;
 - the seeded (threefry) switching key is generated on the context's
   device (its <A, s> and, at the first evaluation, its switching table);
-- `save`/`load` (ROADMAP item 15) are not ported yet and raise
-  NotImplementedError.
+- `load` takes the device the new context evaluates on.
 """
 
 from __future__ import annotations
@@ -280,10 +279,26 @@ class BinFHEContext:
     # -- serialization (cereal analogue, utils/serial.h) ---------------------
 
     def save(self, path: str) -> None:
-        raise NotImplementedError(
-            "context serialization is not ported yet (ROADMAP queue 1, item 15)")
+        """Serialize parameters + all bootstrapping keys to one .npz file, in
+        the JAX package's format (`utils/serial.py`). A seeded switching key
+        is saved as its seed and B. Device state is not saved."""
+        from .utils import serial
+        serial.save_context(path, self.params, self._bt_key, self._bt_key_map)
 
     @classmethod
-    def load(cls, path: str, seed: int | None = None) -> "BinFHEContext":
-        raise NotImplementedError(
-            "context serialization is not ported yet (ROADMAP queue 1, item 15)")
+    def load(cls, path: str, seed: int | None = None,
+             device: str = "cuda") -> "BinFHEContext":
+        """Recreate a context (params + keys) from `save` output, or from
+        the JAX package's; the analogue of deserializing the cryptocontext +
+        BTKeyLoad (binfhecontext.h:208-220, 321-334). The new context
+        evaluates on `device`, whose state is rebuilt at the first
+        evaluation or by `device_setup()`."""
+        from .utils import serial
+        cc = cls(seed, device=device)
+        cc.params, keys = serial.load_context(path)
+        cc._bt_key_map = keys
+        if keys:
+            base = cc.params.rgsw.base_g
+            cc._bt_key = keys.get(base) or next(iter(keys.values()))
+        cc._time_optimization = cc.params.time_optimization
+        return cc

@@ -15,8 +15,9 @@ one device table.
 parameters, keys and ciphertexts (read as plain attributes and numpy
 arrays, without importing that package) into the port's own types, so the
 two packages can be compared on identical inputs; the `ckks_*_from`,
-`bgv_*_from` and `hybrid_key_from` functions do the same for its CKKS and
-BGV objects. A seeded switching key crosses as its seed and B.
+`bfv_*_from`, `bgv_*_from` and `hybrid_key_from` functions do the same for
+its CKKS, BFV and BGV objects. A seeded switching key crosses as its seed
+and B.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ from .ops.keyswitch import ksk_table, seeded_ksk_table
 from .ops.rotate64_kernel import pack_bsk64
 from .ops.rotate_kernel import pack_bsk
 from .ops.rotate_rns_kernel import pack_bsk_rns
-from .pke.bfv import (BFVCiphertext, BFVPublicKey, BFVRelinKey,
-                      BFVSecretKey)
+from .pke.bfv import (BFVCiphertext, BFVParams, BFVPublicKey,
+                      BFVRelinKey, BFVSecretKey)
 from .pke.bgv import BGVParams
 from .pke.ckks import CKKSCiphertext, CKKSParams
 from .pke.ckks_rns import RnsHybridKey
@@ -93,7 +94,9 @@ def params_from(other) -> BinFHEParams:
 def switching_key_from(other):
     """A JAX-package switching key -> the port's. A seeded key crosses as
     its seed, dimensions and B (its `.A` is never read); a plain key's
-    arrays are copied."""
+    arrays are copied. A seeded key loaded from a file
+    (`utils/serial.load_context`) is handled like a generated one: its
+    table is regenerated from the seed on the device (`switching_table`)."""
     if hasattr(other, "seed"):
         return lwe.SeededSwitchingKey(
             int(other.seed), int(other.N), int(other.base_ks),
@@ -200,4 +203,25 @@ def bgv_ciphertext_from(other, params: BGVParams | None = None) -> BFVCiphertext
     degree kept); `params` defaults to the carried-across parameters."""
     return BFVCiphertext([_dcrt_poly_from(p) for p in other.polys],
                          bgv_params_from(other.params) if params is None else params,
+                         int(other.noise_deg))
+
+
+def bfv_params_from(other) -> BFVParams:
+    """A JAX-package BFVParams -> the port's (same chain, t, noise and
+    relinearization window)."""
+    return BFVParams(N=int(other.N), t=int(other.t),
+                     dcrt=_dcrt_params_from(other.dcrt), std=float(other.std),
+                     relin_window=int(other.relin_window))
+
+
+# BFV and BGV share the key types (pke/bfv.py)
+bfv_secret_from = bgv_secret_from
+bfv_public_from = bgv_public_from
+
+
+def bfv_ciphertext_from(other, params: BFVParams | None = None) -> BFVCiphertext:
+    """A JAX-package BFV ciphertext -> the port's (towers copied, noise
+    degree kept); `params` defaults to the carried-across parameters."""
+    return BFVCiphertext([_dcrt_poly_from(p) for p in other.polys],
+                         bfv_params_from(other.params) if params is None else params,
                          int(other.noise_deg))
