@@ -71,9 +71,17 @@ its main path gives it. Then it drives the port's paths through
 - save and load (`BinFHEContext.save`/`load`): the STD128 NAND context
   reloaded on the card gives the pre-save batch-4096 NAND outputs, and the
   seeded TOY accelerated context reloads with its key still seed and B and
-  gives the host oracle's EvalSign bit for bit.
-The timings of the functional, CKKS, BGV, BFV and serialization phases,
-and the run's total seconds, are a JSON line of their own.
+  gives the host oracle's EvalSign bit for bit;
+- several devices (`parallel/mesh.py`, `parallel/limb_ntt.py`) on the
+  contexts of the phases above: a ("batch",) mesh of every GPU, or of two
+  shards on cuda:0 on a one-card machine, runs the batch-4096 STD128 NAND
+  and the batch-4096 STD128 accelerated EvalSign (outputs equal to the
+  one-device outputs, bootstraps/s beside the one-device rate), a TOY
+  logQ = 11 EvalFloor and a TOY two-limb EvalSign at batch 5 (equal to
+  the host oracle); `eval_mult_limb` at the CKKS width on a ("limb",)
+  mesh of 2 and 4 shards equals the device and host `eval_mult`.
+The timings of the functional, CKKS, BGV, BFV, serialization and mesh
+phases, and the run's total seconds, are a JSON line of their own.
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. At the end no jax or JAX-package module may be loaded.
 Exits non-zero on any failure. The line before the last is a JSON record
@@ -144,6 +152,9 @@ BFV_T = 65537
 BFV_DEPTH = 2
 BFV_LIMB_BITS = 28
 BFV_BATCHES = (8, 64)
+MESH_TOY_BATCH = 5          # TOY ciphertexts over the two-shard mesh: an uneven split
+LIMB_SHARDS = (2, 4)        # shards of the ring-sharded eval_mult_limb
+LIMB_ITERS = 3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -782,13 +793,14 @@ def seeded_table_rows(ksk, table) -> list:
     return spans
 
 
-def std128_accelerated(rng, card: str, seeded: bool = False) -> dict:
+def std128_accelerated(rng, card: str, seeded: bool = False) -> tuple[dict, dict]:
     """The RNS functional path at full width, batch FUNC_BATCH: EvalSign,
     EvalDecomp and EvalFunc on the STD128 accelerated sets, checked by
     decryption, one warm run of each timed. With `seeded`, bench.py's
     configuration: the seeded switching key, generated on the card, its
     device table's spot rows held to the host threefry. Returns the
-    timings."""
+    timings, and the EvalSign context, secret, input and first output for
+    the mesh phase."""
     import numpy as np
     import torch
 
@@ -840,9 +852,10 @@ def std128_accelerated(rng, card: str, seeded: bool = False) -> dict:
                      lambda out: np.array_equal(
                          np.asarray(func_cc.decrypt(sk, out, p_f), dtype=np.int64), want_f)),
     }
+    firsts = {}
     for name, (run, ok) in ops.items():
         t0 = time.time()
-        out = run()
+        out = firsts[name] = run()
         first_s = time.time() - t0
         check(ok(out), f"STD128 accelerated {name} decryption at B={B}")
         t0 = time.time()
@@ -854,7 +867,8 @@ def std128_accelerated(rng, card: str, seeded: bool = False) -> dict:
             f"{B / s:.1f} ops/s on {card}")
     timing["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"STD128 accelerated peak device memory {timing['peak_device_GiB']:.2f} GiB")
-    return timing
+    return timing, {"cc": sign_cc, "sk": sk, "ct": ct_s, "delta": delta,
+                    "out": firsts["EvalSign"]}
 
 
 def floor_inputs(cc, sk, rng, B):
@@ -2000,6 +2014,161 @@ def single_prime_sign(rng, card: str) -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def batch_mesh():
+    """The mesh phase's ("batch",) mesh: every GPU when there are several
+    (`make_mesh()`), else two shards on cuda:0."""
+    import torch
+
+    from tfhe_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    return make_mesh() if torch.cuda.device_count() > 1 else Mesh(["cuda:0", "cuda:0"])
+
+
+def synced_ms(fn, devices, reps: int) -> float:
+    """Mean milliseconds of fn() over `reps` runs on the host clock, every
+    device of `devices` synchronized before and after (a mesh's work spans
+    their streams). The caller has run fn once already."""
+    import torch
+
+    def sync():
+        for d in dict.fromkeys(str(x) for x in devices):
+            torch.cuda.synchronize(d)
+
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def same_towers(a, b) -> bool:
+    import numpy as np
+
+    return len(a.polys) == len(b.polys) and all(
+        np.array_equal(x.to_eval().rns, y.to_eval().rns) for x, y in zip(a.polys, b.polys))
+
+
+def mesh_phase(rng, card: str, std: dict, accel: dict, contexts) -> dict:
+    """Several devices (`parallel/mesh.py`, `parallel/limb_ntt.py`) on the
+    contexts of earlier phases: `TorchBackend(mesh=batch_mesh())` runs the
+    STD128 NAND at batch GATE_BATCH (outputs equal to the one-device ones of
+    the same inputs, bootstraps/s beside the one-device rate of this run)
+    and the STD128 accelerated EvalSign at FUNC_BATCH (the device chain
+    shard by shard on `blind_rotate_rns`, outputs equal to the one-device
+    ones); at TOY, the mixed path's EvalFloor and the two-limb EvalSign at
+    an uneven batch, equal to the host oracle; then eval_mult_limb at the
+    CKKS cell's context on a ("limb",) mesh of each of LIMB_SHARDS shards,
+    tower for tower equal to the device eval_mult and the host
+    CKKSRnsContext.eval_mult, ms a call on the host clock. Returns the
+    numbers."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import Gate, ParamSet, TorchBackend
+    from tfhe_tpu_torch.parallel.limb_ntt import build_limb_mult, scatter
+    from tfhe_tpu_torch.parallel.mesh import Mesh
+
+    mesh = batch_mesh()
+    out = {"card": card, "mesh": [str(d) for d in mesh.devices]}
+    log(f"mesh phase: {mesh} ({torch.cuda.device_count()} GPU(s) visible)")
+
+    cc, sk = std["cc"], std["sk"]
+    ct1, ct2 = std["cts"]
+    one = cc.backend
+    t0 = time.time()
+    sharded = TorchBackend(mesh=mesh)
+    sharded.setup(cc.params, cc.bt_key)
+    torch.cuda.synchronize()
+    out["nand_setup_s"] = time.time() - t0
+    rates = {"one device": [], "mesh": []}
+    for _ in range(3):
+        for name, be in (("mesh", sharded), ("one device", one)):
+            cc.use_backend(be)
+            t0 = time.time()
+            got = cc.eval_bin_gate(Gate.NAND, ct1, ct2)
+            rates[name].append(GATE_BATCH / (time.time() - t0))
+            check(same(got, std["out"]), f"mesh STD128 NAND ({name}) differs from the "
+                  "one-device outputs of the same inputs")
+    m1, m2 = std["m"]
+    check(np.array_equal(cc.decrypt(sk, got), 1 - (m1 & m2)), "mesh STD128 NAND decryption")
+    out["nand_bootstraps_per_s"] = rates["mesh"][1:]
+    out["nand_one_device_bootstraps_per_s"] = rates["one device"][1:]
+    log(f"mesh STD128 NAND B={GATE_BATCH}: outputs equal to the one-device outputs; key "
+        f"set-up {out['nand_setup_s']:.1f} s; warm {', '.join(f'{r:.1f}' for r in rates['mesh'][1:])} "
+        f"bootstraps/s against {', '.join(f'{r:.1f}' for r in rates['one device'][1:])} on one "
+        f"device, interleaved, on {card}")
+
+    sc = accel["cc"]
+    sharded = TorchBackend(mesh=mesh)
+    sc.use_backend(sharded)
+    for call in ("first", "warm"):
+        t0 = time.time()
+        got = sc.eval_sign(accel["ct"])
+        s = time.time() - t0
+        check(same(got, accel["out"]), "mesh STD128 accelerated EvalSign differs from the "
+              "one-device outputs")
+        out[f"sign_{call}_ms_per_ct"] = s / FUNC_BATCH * 1e3
+    check(np.array_equal(sc.decrypt(accel["sk"], got, 2),
+                         (accel["delta"] >= 0).astype(np.uint64)),
+          "mesh STD128 accelerated EvalSign decryption")
+    check(len(sharded._device_keys) == 2, "the mesh EvalSign did not use both gadget bases")
+    log(f"mesh STD128 accelerated EvalSign B={FUNC_BATCH}: outputs equal to the one-device "
+        f"outputs; first call (both bases' keys converted) {out['sign_first_ms_per_ct']:.4f}, "
+        f"warm {out['sign_warm_ms_per_ct']:.4f} ms/ciphertext on {card}")
+
+    B = MESH_TOY_BATCH
+    ctxs, tsk, _ = mixed_contexts(ParamSet.TOY, throws=(1,))
+    fc = ctxs[1]
+    ct, m, p = floor_inputs(fc, tsk, rng, B)
+    fc.use_backend(TorchBackend(mesh=mesh))
+    check(fc.backend._path(fc.params) == "mixed", "TOY logQ=11 is not the mixed path")
+    got = fc.eval_floor(ct, 1)
+    check(floor_ok(fc, tsk, got, m, p), "mesh TOY logQ=11 EvalFloor decryption")
+    fc.device_clean()
+    check(same(got, fc.eval_floor(ct, 1)), "mesh TOY EvalFloor differs from the host oracle")
+    sign_cc, _, tsk, _ = accelerated_contexts(ParamSet.TOY, rns_modulus=False, func=False)
+    ct, delta = sign_inputs(sign_cc, tsk, rng, B)
+    sign_cc.use_backend(TorchBackend(mesh=mesh))
+    check(sign_cc.backend._path(sign_cc.params) == "two_limb",
+          "TOY at the single prime is not the two-limb path")
+    got = sign_cc.eval_sign(ct)
+    check(np.array_equal(sign_cc.decrypt(tsk, got, 2), (delta >= 0).astype(np.uint64)),
+          "mesh TOY two-limb EvalSign decryption")
+    sign_cc.device_clean()
+    check(same(got, sign_cc.eval_sign(ct)), "mesh TOY two-limb EvalSign differs from the "
+          "host oracle")
+    log(f"mesh TOY EvalFloor (logQ=11, throw 1) and two-limb EvalSign at B={B}: decrypt "
+        f"right and equal the host oracle bit for bit")
+
+    ctx, rctx, dctx, csk, pk, rlk, _ = contexts
+    zs = [rng.uniform(-0.9, 0.9, ctx.params.slots) for _ in range(2)]
+    cts = [ctx.encrypt(pk, z) for z in zs]
+    host = rctx.eval_mult(*cts, rlk)
+    d = [dctx.upload(c) for c in cts]
+    check(same_towers(dctx.download(dctx.eval_mult(*d)), host),
+          "CKKS device eval_mult differs from the host")
+    out["device_mult_ms_B1"] = cuda_ms(lambda: dctx.eval_mult(*d), LIMB_ITERS)
+    gpus = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    for D in LIMB_SHARDS:
+        lmesh = Mesh([gpus[i % len(gpus)] for i in range(D)], "limb")
+        got = rctx.eval_mult_limb(*cts, rlk, lmesh)
+        check(same_towers(got, host), f"eval_mult_limb D={D} differs from eval_mult")
+        err = np.abs(ctx.decrypt(csk, got) - zs[0] * zs[1]).max()
+        check(err < 1e-3, f"eval_mult_limb D={D}: decryption error {err}")
+        mult, key_shards = build_limb_mult(cts[0].polys[0].params, rlk, lmesh)
+        args = [scatter(lmesh, x.to_coeff().rns) for c in cts for x in c.polys]
+        mult(*args, key_shards)
+        out[f"mult_limb_ms_D{D}"] = synced_ms(lambda: mult(*args, key_shards),
+                                              lmesh.devices, LIMB_ITERS)
+        log(f"eval_mult_limb N={ctx.params.N} L={ctx.params.dcrt.L} on {lmesh}: towers equal "
+            f"to the device and host eval_mult, every slot within {err:.2e}; the sharded "
+            f"multiplication {out[f'mult_limb_ms_D{D}']:.3f} ms a call (host clock) against "
+            f"{out['device_mult_ms_B1']:.3f} ms for the one-device eval_mult of one "
+            f"ciphertext, on {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2053,7 +2222,6 @@ def main() -> int:
     reset_counts()
     t0 = time.time()
     serial_timing = serial_round_trip(rng, card, std)
-    del std
     serial_gate_launches = rotate_kernel.LAUNCHES
     serial_rns_launches = rotate_rns_kernel.LAUNCHES
     check(serial_gate_launches > 0 and serial_rns_launches > 0,
@@ -2065,18 +2233,38 @@ def main() -> int:
     reset_counts()
     t0 = time.time()
     toy_accelerated(rng)
-    plain_timing = std128_accelerated(rng, card)
+    plain_timing, accel = std128_accelerated(rng, card)
     rns_launches = rotate_rns_kernel.LAUNCHES
     check(rns_launches > 0, "the functional path did not launch blind_rotate_rns")
     log(f"RNS functional path: blind_rotate_rns launches {rns_launches} "
         f"({time.time() - t0:.1f} s)")
+
+    t0 = time.time()
+    contexts = ckks_contexts()
+    log(f"CKKS host keygen {time.time() - t0:.1f} s")
+
+    # several devices on the contexts above: the batch-sharded gate, RNS,
+    # mixed and two-limb paths and the ring-sharded eval_mult_limb, counts
+    # read just after
+    reset_counts()
+    t0 = time.time()
+    mesh_timing = mesh_phase(rng, card, std, accel, contexts)
+    del std, accel
+    mesh_launches = (rotate_kernel.LAUNCHES, rotate_rns_kernel.LAUNCHES,
+                     rotate64_kernel.LAUNCHES)
+    check(all(n > 0 for n in mesh_launches), "the mesh phase did not launch blind_rotate, "
+          f"blind_rotate_rns and blind_rotate64: {mesh_launches}")
+    mesh_timing["phase_s"] = time.time() - t0
+    log(f"mesh phase: blind_rotate launches {mesh_launches[0]}, blind_rotate_rns "
+        f"{mesh_launches[1]}, blind_rotate64 {mesh_launches[2]} "
+        f"({mesh_timing['phase_s']:.1f} s)")
 
     # the same path with bench.py's seeded switching key, counts read just
     # after it
     reset_counts()
     t0 = time.time()
     toy_accelerated(rng, seeded=True)
-    seeded_timing = std128_accelerated(rng, card, seeded=True)
+    seeded_timing, _ = std128_accelerated(rng, card, seeded=True)
     seeded_launches = rotate_rns_kernel.LAUNCHES
     check(seeded_launches > 0, "the seeded functional path did not launch blind_rotate_rns")
     log(f"seeded functional path: blind_rotate_rns launches {seeded_launches} "
@@ -2129,9 +2317,6 @@ def main() -> int:
 
     # device RNS-CKKS: torch ops, no hand kernel
     t0 = time.time()
-    contexts = ckks_contexts()
-    log(f"CKKS host keygen {time.time() - t0:.1f} s")
-    t0 = time.time()
     ckks_timing = ckks(rng, card, contexts)
     log(f"CKKS phase {time.time() - t0:.1f} s")
 
@@ -2165,22 +2350,25 @@ def main() -> int:
                       "advancedshe": she_timing, "functional": plain_timing,
                       "seeded": seeded_timing, "ckks_auto": auto_timing,
                       "bgv": bgv_timing, "bfv": bfv_timing, "serial": serial_timing,
-                      "total_s": time.time() - t_start}), flush=True)
+                      "mesh": mesh_timing, "total_s": time.time() - t_start}), flush=True)
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate.py:253",
-         "launches": gate_launches + mixed_launches + serial_gate_launches, **gate_timing,
+         "launches": gate_launches + mixed_launches + serial_gate_launches + mesh_launches[0],
+         **gate_timing,
          "library_ms": None},
         {"name": "blind_rotate_rns", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate_rns.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate_rns.py:278",
-         "launches": rns_launches + seeded_launches + serial_rns_launches, **rns_timing,
+         "launches": rns_launches + seeded_launches + serial_rns_launches + mesh_launches[1],
+         **rns_timing,
          "library_ms": None},
         {"name": "blind_rotate64", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate64.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate64.py:324",
-         "launches": nand_launches + prime_launches, **r64_timing, "library_ms": None},
+         "launches": nand_launches + prime_launches + mesh_launches[2], **r64_timing,
+         "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

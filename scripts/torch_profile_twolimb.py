@@ -16,8 +16,8 @@ checked by decryption, one warm host-clock call, then one call under
 Both calls of a phase also clock the host functions of the two-limb route
 (host clock, summed over the call's bootstraps): the scheme's test
 polynomials (`_gate_test_poly`/`_func_test_poly`, Python ints for Q >=
-2^31), `_acc_init`, `TorchBackend._host_acc` (object array -> int64,
-upload) and `TorchBackend.bootstrap_pipeline` as a whole
+2^31), `_acc_init`, the backend's `split_batch` (object array -> int64,
+upload; `host_acc_s`) and `TorchBackend.bootstrap_pipeline` as a whole
 (which waits for the device: the rotation, extract, key switch and the
 download). Prints one JSON line per phase: walls, the host clocks, device
 busy seconds (kernel self time on the one stream), the idle share 1 - busy
@@ -59,11 +59,12 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tfhe_tpu_torch import BinFHEContext, Gate, ParamSet, TorchBackend, scheme  # noqa: E402
+from tfhe_tpu_torch.ops import backend as backend_mod  # noqa: E402
 
 OUT = "chiprun_out"
 SEED = 20261016
 HOST_FUNCS = ((scheme, "_gate_test_poly"), (scheme, "_func_test_poly"),
-              (scheme, "_acc_init"), (TorchBackend, "_host_acc"),
+              (scheme, "_acc_init"), (backend_mod, "split_batch"),
               (TorchBackend, "bootstrap_pipeline"))
 
 
@@ -161,8 +162,8 @@ def run_phase(phase: str, B: int, card: str) -> None:
         test_poly = secs["_gate_test_poly"] + secs["_func_test_poly"]
         pipeline = secs["bootstrap_pipeline"]
         return {"test_poly_s": test_poly, "acc_init_s": secs["_acc_init"],
-                "host_acc_s": secs["_host_acc"],
-                "pipeline_after_host_acc_s": pipeline - secs["_host_acc"],
+                "host_acc_s": secs["split_batch"],
+                "pipeline_after_host_acc_s": pipeline - secs["split_batch"],
                 "outside_pipeline_s": total - pipeline - test_poly - secs["_acc_init"]}
 
     print(json.dumps({

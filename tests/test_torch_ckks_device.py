@@ -322,9 +322,9 @@ def test_device_plain_and_scalar_ops():
 
 
 def test_per_level_keys_and_refusals(contexts):
-    """Per-level key dicts serve the same chain; the mesh path raises; the
-    default device is the card, which this path never leaves for the CPU;
-    limbs of 2^31 and above are refused."""
+    """Per-level key dicts serve the same chain; the default device is the
+    card, which this path never leaves for the CPU; limbs of 2^31 and above
+    are refused."""
     k = contexts
     jkeys = k["jr"].relin_key_gen(k["jsk"])
     d = dev.CKKSDeviceContext(k["r"], device="cpu")
@@ -333,8 +333,6 @@ def test_per_level_keys_and_refusals(contexts):
     for level in range(3):
         x, hx = d.eval_mult(x, x), k["jr"].eval_mult(hx, hx, jkeys)
         assert same(d.download(x), hx), level
-    with pytest.raises(NotImplementedError):
-        k["r"].eval_mult_limb(k["cts"][0], k["cts"][0], k["rlk"], mesh=None)
     on_card = dev.CKKSDeviceContext(k["r"])
     assert on_card.device == "cuda"
     if not torch.cuda.is_available():

@@ -9,9 +9,11 @@ are the port's own copies. `BinFHEContext(seed=...)` evaluates on the GPU
 EvalSign and EvalDecomp on the accelerated RNS sets
 (`csrc/blind_rotate_rns.cu`), and gates and functions on the two-limb sets:
 the big-Q classic sets, STD256 and the accelerated sets at the single 54-bit
-prime (`csrc/blind_rotate64.cu`). `save`/`load` keep a context's keys in
-the JAX package's file format (`utils/serial.py`); the pke schemes are in
-`tfhe_tpu_torch.pke`.
+prime (`csrc/blind_rotate64.cu`). `device_setup(num_devices=...)` splits
+every batch over several GPUs, and `parallel/` holds the meshes, the
+processes of `torch.distributed` and the ring-sharded NTT. `save`/`load`
+keep a context's keys in the JAX package's file format
+(`utils/serial.py`); the pke schemes are in `tfhe_tpu_torch.pke`.
 """
 
 from .context import BinFHEContext

@@ -8,7 +8,8 @@ ciphertext-matrix product, and device setup.
 
 Differences from the JAX package's context:
 - evaluation runs on a `TorchBackend` on the context's `device` ("cuda" by
-  default, "cpu" for the plain torch path). The backend is set up lazily,
+  default, "cpu" for the plain torch path), or on several GPUs with
+  `device_setup(num_devices=...)`. The backend is set up lazily,
   at the first evaluation after the keys exist, or eagerly by
   `device_setup`; parameters outside the port's slices raise
   NotImplementedError there and never run on the host oracle;
@@ -242,9 +243,14 @@ class BinFHEContext:
             self.device_setup()
         return self._backend
 
-    def device_setup(self, device: str | None = None) -> None:
+    def device_setup(self, device: str | None = None, num_devices: int = 0) -> None:
         """Move evaluation to a `TorchBackend` on `device` (default: the
         context's own), the analogue of GPUSetup (binfhecontext.cpp:349-360).
+        With `num_devices` > 1 every batch is split over the first
+        `num_devices` GPUs, each holding a copy of the keys (`JaxBackend`'s
+        mesh, `tfhe_tpu/context.py:222-233`); this raises ValueError when
+        there are fewer GPUs and never runs on the CPU. A mesh of any
+        devices is `use_backend(TorchBackend(mesh=parallel.mesh.Mesh(...)))`.
         Requires bt_key_gen first; raises NotImplementedError for parameters
         outside the port's slices. The key for the default gadget base is
         converted and uploaded now, the other bases of a time-optimization
@@ -255,7 +261,7 @@ class BinFHEContext:
 
         if device is not None:
             self.device = device
-        backend = TorchBackend(self.device)
+        backend = TorchBackend(self.device, num_devices=num_devices)
         temp = self.params.rgsw.base_g
         try:
             for base in self._bt_key_map or {temp: self._bt_key}:

@@ -31,6 +31,15 @@ NotImplementedError in `setup`. Every operation without a fast path here
 DM sets, functions that are not a value table) reaches `bootstrap_pipeline`
 from `scheme` with a host-built accumulator, as in the JAX package, and
 stays on the device from the rotation to the key switch.
+
+Several devices (`JaxBackend(num_devices, mesh)`,
+`tfhe_tpu/ops/backend.py:481-549`): every batched entry point splits its
+batch over the shards of a `("batch",)` mesh (`parallel/mesh.py`), each
+distinct device holding one copy of the keys; without a mesh the backend
+is a mesh of one shard. Every shard's work is launched before any shard's
+result is downloaded, so distinct GPUs overlap. The device chain stays on
+the devices under a mesh, shard by shard (`DeviceLWE`), where the JAX
+package takes the host accumulator path; the outputs are the same.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch
 from .. import lwe
 from ..convert import device_key
 from ..params import BinFHEParams, Gate, Method
+from ..parallel.mesh import Mesh, gather, make_mesh, replicate, shard_rows, split_batch
 from .blindrotate import transpose_extract
 from .blindrotate_dm import dm_digits, dm_limbs, dm_rotate
 from .keyswitch import mkm_switch
@@ -54,27 +64,47 @@ _RING_DIMS = (256, 512, 1024, 2048)   # the rotation kernels' ring dimensions
 
 
 class DeviceLWE:
-    """Device-resident LWE ciphertext batch for the functional chains:
-    int64 tensors a [B, n], b [B] on the backend's device. Values are
-    residues mod `modulus`, or a raw retag of a larger modulus (the
-    EvalDecomp digit convention, lwe.py set_modulus)."""
+    """Device-resident LWE ciphertext batch of B for the functional chains,
+    split over the backend's shards: `parts[i]` is shard i's (a [rows, n],
+    b [rows]) int64 tensors on its device, None for a shard without rows
+    (`parallel.mesh.shard_rows`). Under a process group only this process's
+    shards are held. Values are residues mod `modulus`, or a raw retag of a
+    larger modulus (the EvalDecomp digit convention, lwe.py set_modulus)."""
 
-    __slots__ = ("a", "b", "modulus", "B")
+    __slots__ = ("parts", "modulus", "B")
 
-    def __init__(self, a: torch.Tensor, b: torch.Tensor, modulus: int, B: int):
-        self.a, self.b, self.modulus, self.B = a, b, modulus, B
+    def __init__(self, parts: list, modulus: int, B: int):
+        self.parts, self.modulus, self.B = parts, modulus, B
+
+    def map(self, fn, modulus: int | None = None) -> "DeviceLWE":
+        """fn(a, b) -> (a, b) on every shard's tensors."""
+        return DeviceLWE([None if p is None else fn(*p) for p in self.parts],
+                         self.modulus if modulus is None else int(modulus), self.B)
 
 
 class TorchBackend:
     """Implements `scheme.Backend` and the fast paths `scheme` probes for
     (`gate_bootstrap`, `gate_bootstrap_pair`, `func_bootstrap`,
-    `chain_supported` and the device chain) on one torch device."""
+    `chain_supported` and the device chain) on one torch device, or with
+    every batch split over the shards of a `("batch",)` mesh:
+    `num_devices > 1` takes the first CUDA devices (`make_mesh`, which
+    raises when there are fewer), `mesh` any list of devices."""
 
-    def __init__(self, device: str | torch.device = "cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+    def __init__(self, device: str | torch.device = "cuda", num_devices: int = 0,
+                 mesh: Mesh | None = None):
+        if mesh is None and num_devices > 1:
+            mesh = make_mesh(num_devices)
+        if mesh is not None and mesh.axis != "batch":
+            raise ValueError("TorchBackend shards batches over a 'batch' mesh")
+        self.mesh = mesh
+        self._shards = mesh if mesh is not None else Mesh([device], span_processes=False)
+        self.device = self._shards.devices[0]
+        if (any(d.type == "cuda" for d in self._shards.devices)
+                and not torch.cuda.is_available()):
             raise RuntimeError("TorchBackend: no CUDA device is available")
-        self._device_keys: dict[int, dict[str, torch.Tensor]] = {}
+        # id(key.bsk_coeff) -> one device key per shard (shards on one
+        # device share its copy)
+        self._device_keys: dict[int, list[dict[str, torch.Tensor]]] = {}
         self._staging: dict[int, torch.Tensor] = {}
 
     # -- setup -------------------------------------------------------------
@@ -167,10 +197,13 @@ class TorchBackend:
     def setup(self, params: BinFHEParams, key) -> None:
         self._device_key(params, key)
 
-    def _device_key(self, params: BinFHEParams, key) -> dict[str, torch.Tensor]:
-        """The device key of `key`, cached by the key object (never by the
-        current gadget base, which EvalSign switches under it). Raises when
-        the key's digit count does not match the current base."""
+    def _device_key(self, params: BinFHEParams, key,
+                    shard: int = 0) -> dict[str, torch.Tensor]:
+        """The device key of `key` on shard `shard`'s device, cached by the
+        key object (never by the current gadget base, which EvalSign
+        switches under it). The key is converted on the host once, for the
+        first device, and its tensors copied to the others. Raises when the
+        key's digit count does not match the current base."""
         path = self._path(params)
         if path is None:
             raise NotImplementedError(
@@ -192,8 +225,12 @@ class TorchBackend:
                              "current gadget base")
         cache_id = id(key.bsk_coeff)
         if cache_id not in self._device_keys:
-            self._device_keys[cache_id] = device_key(params, key, self.device, path)
-        return self._device_keys[cache_id]
+            dk = device_key(params, key, self.device, path)
+            copies = {name: replicate(self._shards, t) for name, t in dk.items()}
+            self._device_keys[cache_id] = [
+                {name: c[i] for name, c in copies.items()}
+                for i in range(len(self._shards.devices))]
+        return self._device_keys[cache_id][shard]
 
     def _rotate(self, params: BinFHEParams, dk, acc: torch.Tensor,
                 a_idx: torch.Tensor) -> torch.Tensor:
@@ -225,46 +262,57 @@ class TorchBackend:
                                     dk["dm_table"], rg.Q, rg.base_g, rg.digits_g)
                           for i in range(0, acc.shape[0], _FUNC_CHUNK)])
 
-    def _host_acc(self, acc_init: np.ndarray, a_batch: np.ndarray):
-        """A host-built accumulator batch (uint64, or Python ints for
-        Q >= 2^31) and its LWE a-vectors -> (acc [B, 2, N], a [B, n]) int64
-        on the device."""
-        acc = torch.from_numpy(np.asarray(acc_init, dtype=np.uint64).astype(np.int64))
-        a = torch.from_numpy(np.asarray(a_batch, dtype=np.uint64).astype(np.int64))
-        return acc.to(self.device), a.to(self.device)
-
-    def _accumulate(self, params: BinFHEParams, key, acc_init: np.ndarray,
-                    a_batch: np.ndarray, a_modulus: int) -> torch.Tensor:
-        """The blind rotation of a host-built accumulator batch by its LWE
-        a-vectors on the device, by the key's path: the DM accumulation, or
-        a CGGI kernel on the scaled exponents -> int64 [B, 2, N] residues
-        mod Q."""
-        dk = self._device_key(params, key)
-        acc, a = self._host_acc(acc_init, a_batch)
+    def _accumulate(self, params: BinFHEParams, dk, acc: torch.Tensor,
+                    a: torch.Tensor, a_modulus: int) -> torch.Tensor:
+        """The blind rotation of an accumulator batch acc [B, 2, N] by its
+        LWE a-vectors a [B, n] (int64 on one device), by the key's path:
+        the DM accumulation, or a CGGI kernel on the scaled exponents ->
+        int64 [B, 2, N] residues mod Q."""
         if "dm_table" in dk:
             return self._dm_rotate(params, dk, acc, a, a_modulus)
         return self._rotate(params, dk, acc,
                             self._scaled_indices(a, a_modulus, params.rgsw.N))
 
+    # -- shards ------------------------------------------------------------
+
+    def _each(self, fn, *batches) -> list:
+        """fn(shard, *rows) on every shard of this process that holds rows
+        of the host batches (`split_batch`), launched in shard order with
+        nothing downloaded; None for a shard without rows."""
+        parts = [split_batch(self._shards, x) for x in batches]
+        return [fn(i, *rows) if rows[0].shape[0] else None
+                for i, rows in enumerate(zip(*parts))]
+
+    def _gather(self, outs: list, k: int = 2, dtype=np.uint64) -> list[np.ndarray]:
+        """Every shard's tuple of k result tensors (None for a shard without
+        rows), downloaded after all were launched -> each result of the
+        whole batch as a host array of `dtype`, in the input order."""
+        host = [None if o is None else [t.cpu().numpy() for t in o] for o in outs]
+        return [gather(self._shards, [None if h is None else h[j].astype(dtype, copy=False)
+                                      for h in host]) for j in range(k)]
+
+    def _lwe_out(self, outs: list, fmod: int) -> lwe.LWECiphertext:
+        a, b = self._gather(outs)
+        return lwe.LWECiphertext(a, b, int(fmod))
+
     # -- protocol ----------------------------------------------------------
 
     def eval_acc(self, params: BinFHEParams, key, acc_init: np.ndarray,
                  a_batch: np.ndarray, a_modulus: int) -> np.ndarray:
-        acc = self._accumulate(params, key, acc_init, a_batch, a_modulus)
-        return acc.cpu().numpy().astype(np.uint64)
+        outs = self._each(lambda i, acc, a: (self._accumulate(
+            params, self._device_key(params, key, i), acc, a, a_modulus),),
+            acc_init, a_batch)
+        return self._gather(outs, 1)[0]
 
     def mkm_switch(self, params: BinFHEParams, key, a_ext: np.ndarray,
                    b_ext: np.ndarray, fmod: int) -> lwe.LWECiphertext:
-        dk = self._device_key(params, key)
         p = params.lwe
-        a = torch.from_numpy(np.asarray(a_ext, dtype=np.uint64).astype(np.int64))
-        b = torch.from_numpy(np.asarray(b_ext, dtype=np.uint64).astype(np.int64))
-        a_out, b_out = mkm_switch(a.to(self.device), b.to(self.device), dk["ksk"],
-                                  p.Q, p.q_ks, p.base_ks, p.digit_count_ks,
-                                  int(fmod))
-        return lwe.LWECiphertext(a_out.cpu().numpy().astype(np.uint64),
-                                 b_out.cpu().numpy().astype(np.uint64),
-                                 int(fmod))
+
+        def switch(i, a, b):
+            return mkm_switch(a, b, self._device_key(params, key, i)["ksk"], p.Q,
+                              p.q_ks, p.base_ks, p.digit_count_ks, int(fmod))
+
+        return self._lwe_out(self._each(switch, a_ext, b_ext), fmod)
 
     def bootstrap_pipeline(self, params: BinFHEParams, key, acc_init: np.ndarray,
                            a_batch: np.ndarray, a_modulus: int, fmod: int,
@@ -277,17 +325,17 @@ class TorchBackend:
         MKMSwitch_CUDA, binfhe-base-scheme.cpp:659-675). The DM branch
         stays there too, where the JAX package takes its host round trip
         (`tfhe_tpu/ops/backend.py:1173-1180`): the values are the same."""
-        dk = self._device_key(params, key)
         p, Q = params.lwe, params.rgsw.Q
-        acc = self._accumulate(params, key, acc_init, a_batch, a_modulus)
-        a_t, b = transpose_extract(acc, Q)
-        if add_q8:
-            b = addmod(b, Q // 8 + 1, Q)
-        a_out, b_out = mkm_switch(a_t, b, dk["ksk"], Q, p.q_ks, p.base_ks,
-                                  p.digit_count_ks, int(fmod))
-        return lwe.LWECiphertext(a_out.cpu().numpy().astype(np.uint64),
-                                 b_out.cpu().numpy().astype(np.uint64),
-                                 int(fmod))
+
+        def pipeline(i, acc, a):
+            dk = self._device_key(params, key, i)
+            a_t, b = transpose_extract(self._accumulate(params, dk, acc, a, a_modulus), Q)
+            if add_q8:
+                b = addmod(b, Q // 8 + 1, Q)
+            return mkm_switch(a_t, b, dk["ksk"], Q, p.q_ks, p.base_ks,
+                              p.digit_count_ks, int(fmod))
+
+        return self._lwe_out(self._each(pipeline, acc_init, a_batch), fmod)
 
     # -- fused gate bootstrap ----------------------------------------------
 
@@ -302,8 +350,9 @@ class TorchBackend:
         q = int(ct.modulus)
         if not self._gate_ok(params, q, fmod):
             return None
-        a, b = self._upload([ct.a, ct.b])
-        return self._gate(params, key, gate, a, b)
+        return self._download([None if up is None else self._gate(
+            params, self._device_key(params, key, i), gate, *up)
+            for i, up in enumerate(self._upload([ct.a, ct.b]))], q)
 
     def gate_bootstrap_pair(self, params: BinFHEParams, key, gate: Gate,
                             ct1: lwe.LWECiphertext, ct2: lwe.LWECiphertext,
@@ -314,19 +363,22 @@ class TorchBackend:
         q = int(ct1.modulus)
         if not self._gate_ok(params, q, fmod):
             return None
-        a1, b1, a2, b2 = self._upload([ct1.a, ct1.b, ct2.a, ct2.b])
-        if neg2:
-            a, b = submod(a1, a2, q), submod(b1, b2, q)
-            a, b = addmod(a, a, q), addmod(b, b, q)
-        else:
-            a, b = addmod(a1, a2, q), addmod(b1, b2, q)
-        return self._gate(params, key, gate, a, b)
 
-    def _gate(self, params: BinFHEParams, key, gate: Gate, a: torch.Tensor,
-              b: torch.Tensor) -> lwe.LWECiphertext:
-        """a [B, n], b [B] int64 residues mod q on the device -> the
-        bootstrapped ciphertexts mod q (binfhe-base-scheme.cpp:1087-1145)."""
-        dk = self._device_key(params, key)
+        def combine(a1, b1, a2, b2):
+            if neg2:
+                a, b = submod(a1, a2, q), submod(b1, b2, q)
+                return addmod(a, a, q), addmod(b, b, q)
+            return addmod(a1, a2, q), addmod(b1, b2, q)
+
+        return self._download([None if up is None else self._gate(
+            params, self._device_key(params, key, i), gate, *combine(*up))
+            for i, up in enumerate(self._upload([ct1.a, ct1.b, ct2.a, ct2.b]))], q)
+
+    def _gate(self, params: BinFHEParams, dk, gate: Gate, a: torch.Tensor,
+              b: torch.Tensor):
+        """a [B, n], b [B] int64 residues mod q on one device -> the
+        bootstrapped ciphertexts (a, b) mod q there, not yet downloaded
+        (binfhe-base-scheme.cpp:1087-1145)."""
         p, rg = params.lwe, params.rgsw
         N, Q, q = rg.N, rg.Q, p.q
         q_half = q >> 1
@@ -349,9 +401,8 @@ class TorchBackend:
         acc = rotate(acc, a_idx, dk["bsk_pack"], Q, rg.base_g,
                      rg.num_digits_to_throw)
         a_t, b_t = transpose_extract(acc.to(torch.int64), Q)
-        a_out, b_out = mkm_switch(a_t, addmod(b_t, q8, Q), dk["ksk"], Q, p.q_ks,
-                                  p.base_ks, p.digit_count_ks, q)
-        return self._download(a_out, b_out, q)
+        return mkm_switch(a_t, addmod(b_t, q8, Q), dk["ksk"], Q, p.q_ks,
+                          p.base_ks, p.digit_count_ks, q)
 
     # -- functional bootstrap (EvalFunc, EvalFloor, EvalSign, EvalDecomp) --
 
@@ -391,14 +442,12 @@ class TorchBackend:
         if (not self.chain_supported(params, key)
                 or (2 * params.rgsw.N) % ct_mod or ct_mod > (1 << 16)):
             return None
-        dk = self._device_key(params, key)
-        a = torch.from_numpy(np.asarray(ct.a, dtype=np.uint64).astype(np.int64))
-        b = torch.from_numpy(np.asarray(ct.b, dtype=np.uint64).astype(np.int64))
-        a_out, b_out = self._func_core(params, dk, fv, a.to(self.device),
-                                       b.to(self.device), ct_mod, int(fmod))
-        return lwe.LWECiphertext(a_out.cpu().numpy().astype(np.uint64),
-                                 b_out.cpu().numpy().astype(np.uint64),
-                                 int(fmod))
+        fv = np.asarray(fv)
+        rows = shard_rows(self._shards, np.shape(ct.a)[0])
+        return self._lwe_out(self._each(lambda i, a, b: self._func_core(
+            params, self._device_key(params, key, i),
+            fv[rows[i][0]:rows[i][1]] if fv.ndim == 2 else fv, a, b, ct_mod,
+            int(fmod)), ct.a, ct.b), fmod)
 
     # -- device-resident functional chains (EvalFloor/Sign/Decomp) ---------
 
@@ -412,17 +461,14 @@ class TorchBackend:
         return self._path(params) in ("gate", "mixed", "rns")
 
     def lwe_upload(self, ct: lwe.LWECiphertext) -> DeviceLWE:
-        """Host LWECiphertext batch -> int64 device tensors, values kept."""
-        a = torch.from_numpy(np.asarray(ct.a, dtype=np.uint64).astype(np.int64))
-        b = torch.from_numpy(np.asarray(ct.b, dtype=np.uint64).astype(np.int64))
-        return DeviceLWE(a.to(self.device), b.to(self.device), int(ct.modulus),
-                         a.shape[0])
+        """Host LWECiphertext batch -> int64 tensors on the shards' devices,
+        values kept."""
+        return DeviceLWE(self._each(lambda i, a, b: (a, b), ct.a, ct.b),
+                         int(ct.modulus), np.shape(ct.a)[0])
 
     def lwe_download(self, dct: DeviceLWE) -> lwe.LWECiphertext:
         """Device batch -> host LWECiphertext; raw values are kept."""
-        return lwe.LWECiphertext(dct.a.cpu().numpy().astype(np.uint64),
-                                 dct.b.cpu().numpy().astype(np.uint64),
-                                 dct.modulus)
+        return self._lwe_out(dct.parts, dct.modulus)
 
     def func_bootstrap_dev(self, params: BinFHEParams, key, fv: np.ndarray,
                            dct: DeviceLWE, ct_mod: int,
@@ -431,28 +477,35 @@ class TorchBackend:
         ct_mod on the device, outputs stay there mod fmod. `fv` is a
         [ctMod] value table or [B, ctMod] per ciphertext. Batches above
         8192 run as sequential slices, which bounds the work buffers; the
-        keys are shared. Callers have checked chain_supported and that
-        ct_mod divides 2N and is at most 2^16."""
-        dk = self._device_key(params, key)
+        keys are shared. Under a mesh every shard runs its own rows on its
+        device. Callers have checked chain_supported and that ct_mod
+        divides 2N and is at most 2^16."""
         fv = np.asarray(fv)
-        parts = [self._func_core(params, dk, fv[i:i + _FUNC_CHUNK] if fv.ndim == 2
-                                 else fv, dct.a[i:i + _FUNC_CHUNK],
-                                 dct.b[i:i + _FUNC_CHUNK], int(ct_mod), int(fmod))
-                 for i in range(0, dct.B, _FUNC_CHUNK)]
-        return DeviceLWE(torch.cat([x[0] for x in parts]),
-                         torch.cat([x[1] for x in parts]), int(fmod), dct.B)
+
+        def shard(i, lo, a, b):
+            dk = self._device_key(params, key, i)
+            parts = [self._func_core(params, dk, fv[lo + j:lo + j + _FUNC_CHUNK]
+                                     if fv.ndim == 2 else fv, a[j:j + _FUNC_CHUNK],
+                                     b[j:j + _FUNC_CHUNK], int(ct_mod), int(fmod))
+                     for j in range(0, a.shape[0], _FUNC_CHUNK)]
+            return torch.cat([x[0] for x in parts]), torch.cat([x[1] for x in parts])
+
+        rows = shard_rows(self._shards, dct.B)
+        return DeviceLWE([None if p is None else shard(i, rows[i][0], *p)
+                          for i, p in enumerate(dct.parts)], int(fmod), dct.B)
 
     def dev_add_const(self, dct: DeviceLWE, c: int) -> DeviceLWE:
         """lwe.add_const_eq on the device."""
-        return DeviceLWE(dct.a, mod(dct.b + c, dct.modulus), dct.modulus, dct.B)
+        return dct.map(lambda a, b: (a, mod(b + c, dct.modulus)))
 
     def dev_sub_const(self, dct: DeviceLWE, c: int) -> DeviceLWE:
-        return DeviceLWE(dct.a, mod(dct.b - c, dct.modulus), dct.modulus, dct.B)
+        return dct.map(lambda a, b: (a, mod(b - c, dct.modulus)))
 
     def dev_sub(self, d1: DeviceLWE, d2: DeviceLWE) -> DeviceLWE:
-        """(d1 - d2) mod d1's modulus, elementwise."""
+        """(d1 - d2) mod d1's modulus, elementwise, shard by shard."""
         m = d1.modulus
-        return DeviceLWE(mod(d1.a - d2.a, m), mod(d1.b - d2.b, m), m, d1.B)
+        return DeviceLWE([None if p is None else (mod(p[0] - q[0], m), mod(p[1] - q[1], m))
+                          for p, q in zip(d1.parts, d2.parts)], m, d1.B)
 
     def dev_mod_switch(self, dct: DeviceLWE, new_mod: int) -> DeviceLWE:
         """RoundqQ between powers of two: ((v + 2^(s-1)) >> s) mod new with
@@ -463,12 +516,12 @@ class TorchBackend:
             raise ValueError("dev_mod_switch needs powers of two, new < old")
         s = old.bit_length() - new_mod.bit_length()
         half = 1 << (s - 1)
-        return DeviceLWE(mod((dct.a + half) >> s, new_mod),
-                         mod((dct.b + half) >> s, new_mod), int(new_mod), dct.B)
+        return dct.map(lambda a, b: (mod((a + half) >> s, new_mod),
+                                     mod((b + half) >> s, new_mod)), new_mod)
 
     def dev_retag(self, dct: DeviceLWE, new_mod: int) -> DeviceLWE:
         """Raw modulus retag (lwe.set_modulus): values unchanged."""
-        return DeviceLWE(dct.a, dct.b, int(new_mod), dct.B)
+        return dct.map(lambda a, b: (a, b), new_mod)
 
     # -- host <-> device ---------------------------------------------------
 
@@ -481,36 +534,53 @@ class TorchBackend:
             b *= 2
         return b
 
-    def _upload(self, arrays) -> list[torch.Tensor]:
-        """Host arrays [B, k] or [B] of residues < 2^16 -> int64 device
-        tensors of the same shapes, in one copy of u16 words from a staging
-        buffer (pinned for CUDA)."""
+    def _upload(self, arrays) -> list:
+        """Host arrays [B, k] or [B] of residues < 2^16 -> for every shard
+        of this process, its rows as int64 tensors of the same trailing
+        shapes on its device (None for a shard without rows), each shard in
+        one copy of u16 words from its own rows of a staging buffer (pinned
+        for CUDA)."""
         B = np.shape(arrays[0])[0]
+        rows = shard_rows(self._shards, B)
+        lo, hi = rows[0][0], rows[-1][1]        # this process's block
         cols = [int(np.prod(np.shape(x)[1:])) for x in arrays]
         width = sum(cols)
-        # Refilling the buffer is safe: the previous call's asynchronous copy
-        # out of it finished before that call's `_download` returned.
+        # Refilling the buffer is safe: every shard's asynchronous copy out
+        # of it finished before the previous call's `_download` returned.
         buf = self._staging.get(width)
-        if buf is None or buf.shape[0] < B:
-            buf = torch.empty((self._bucket(B), width), dtype=torch.int16,
-                              pin_memory=self.device.type == "cuda")
+        if buf is None or buf.shape[0] < hi - lo:
+            buf = torch.empty((self._bucket(hi - lo), width), dtype=torch.int16,
+                              pin_memory=any(d.type == "cuda" for d in self._shards.devices))
             self._staging[width] = buf
         view = buf.numpy().view(np.uint16)
         c = 0
         for x, k in zip(arrays, cols):
-            view[:B, c:c + k] = np.asarray(x).reshape(B, k)
+            view[:hi - lo, c:c + k] = np.asarray(x)[lo:hi].reshape(hi - lo, k)
             c += k
-        dev = buf[:B].to(self.device, non_blocking=True).to(torch.int64) & 0xFFFF
-        return [t.reshape(np.shape(x)) for t, x in
-                zip(torch.split(dev, cols, dim=1), arrays)]
+        out = []
+        for dev, (r0, r1) in zip(self._shards.devices, rows):
+            if r0 == r1:
+                out.append(None)
+                continue
+            t = buf[r0 - lo:r1 - lo].to(dev, non_blocking=True).to(torch.int64) & 0xFFFF
+            out.append([p.reshape((r1 - r0,) + np.shape(x)[1:])
+                        for p, x in zip(torch.split(t, cols, dim=1), arrays)])
+        return out
 
-    @staticmethod
-    def _download(a: torch.Tensor, b: torch.Tensor, q: int) -> lwe.LWECiphertext:
-        """int64 device results < 2^16 -> u16 host ciphertexts, one copy."""
-        both = torch.cat([a, b[:, None]], dim=1)
-        both = torch.where(both >= (1 << 15), both - (1 << 16), both)
-        host = both.to(torch.int16).cpu().numpy().view(np.uint16)
-        n = a.shape[1]
+    def _download(self, outs: list, q: int) -> lwe.LWECiphertext:
+        """Every shard's (a, b) int64 results < 2^16 (None for a shard
+        without rows) -> u16 host ciphertexts of the whole batch, one copy a
+        shard, each made after every shard was launched."""
+        packed = []
+        for o in outs:
+            if o is None:
+                packed.append(None)
+                continue
+            both = torch.cat([o[0], o[1][:, None]], dim=1)
+            packed.append((torch.where(both >= (1 << 15), both - (1 << 16),
+                                       both).to(torch.int16),))
+        host = self._gather(packed, 1, np.int16)[0].view(np.uint16)
+        n = host.shape[1] - 1
         return lwe.LWECiphertext(np.ascontiguousarray(host[:, :n]),
                                  np.ascontiguousarray(host[:, n]), q)
 

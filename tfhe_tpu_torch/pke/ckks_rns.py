@@ -16,8 +16,9 @@ a per-limb vectorized numpy kernel over [L, N] residue towers, and
   inner products with the key tower, ModDown by P — the same algorithm as
   pke/keyswitch.py but with every step staying in RNS.
 
-The ring-sharded `eval_mult_limb` of the JAX package (a `('limb',)` device
-mesh) is not ported: it raises NotImplementedError (ROADMAP item 13).
+`CKKSRnsContext.eval_mult_limb` runs the multiplication with the ring
+dimension sharded over a `("limb",)` device mesh (`parallel/limb_ntt.py`),
+tower for tower equal to `eval_mult`.
 """
 
 from __future__ import annotations
@@ -518,9 +519,47 @@ class CKKSRnsContext:
         return out
 
     def eval_mult_limb(self, a, b, rlk, mesh, rescale: bool = True):
-        """eval_mult with the ring dimension sharded over a device mesh:
-        not ported (multi-GPU, ROADMAP item 13). Raises; never falls back
-        to the one-device path."""
-        raise NotImplementedError(
-            "eval_mult_limb (the ring-sharded mesh path) is not ported: "
-            "multi-GPU is ROADMAP item 13")
+        """eval_mult with the RING DIMENSION sharded over a ("limb",) mesh
+        (`parallel/limb_ntt.py`): every NTT runs as exchanges of shard
+        tensors between the mesh's devices plus shard-local butterflies,
+        and the pointwise math stays on each shard. When every PQ limb of
+        the hybrid key is < 2^30 (`ks_limb_bits` <= 29) the whole
+        multiplication, the key switch's base conversions and ModDown
+        included, runs sharded (`build_limb_mult`); otherwise the tensor
+        product and rescale are sharded and the key switch composes on the
+        gathered d2 towers. Equal to eval_mult tower for tower either way.
+
+        Requires limb moduli < 2^30 and N divisible by twice the mesh size
+        (a power of two)."""
+        from ..parallel.limb_ntt import (build_limb_ckks_kernels,
+                                         build_limb_mult, join, scatter)
+        from .ckks import CKKSCiphertext
+        assert len(a.polys) == 2 and len(b.polys) == 2
+        lp = a.polys[0].params
+        assert b.polys[0].params.moduli == lp.moduli
+        key = rlk[lp.L] if isinstance(rlk, dict) else rlk
+        new_lp = DCRTParams(N=lp.N, moduli=lp.moduli[:-1])
+
+        def sharded(p):
+            return scatter(mesh, p.to_coeff().rns)
+
+        def poly(shards, params):
+            rows = join(shards).numpy().astype(np.uint64)
+            return DCRTPoly(params, rows, eval_form=False).to_eval()
+
+        args = [sharded(p) for p in (a.polys[0], a.polys[1], b.polys[0], b.polys[1])]
+        if (rescale and tuple(key.q_moduli) == tuple(lp.moduli)
+                and all(m < (1 << 30) for m in key.pq_params.moduli)):
+            mult, key_shards = build_limb_mult(lp, key, mesh)
+            c0c, c1c = mult(*args, key_shards)
+            return CKKSCiphertext([poly(c0c, new_lp), poly(c1c, new_lp)],
+                                  a.scale * b.scale / lp.moduli[-1], self.params)
+        ker = build_limb_ckks_kernels(lp, mesh)
+        d0, d1, d2 = [poly(d, lp) for d in ker["tensor"](*args)]
+        s0, s1 = rns_hybrid_key_switch(key, d2, lp.moduli)
+        c0, c1 = d0 + s0, d1 + s1
+        if not rescale:
+            return CKKSCiphertext([c0, c1], a.scale * b.scale, self.params)
+        outs = [poly(ker["rescale"](sharded(p)), new_lp) for p in (c0, c1)]
+        return CKKSCiphertext(outs, a.scale * b.scale / lp.moduli[-1],
+                              self.params)
