@@ -6,8 +6,10 @@
 Builds the three hand-written kernels from `tfhe_tpu_torch/csrc` (one nvcc
 per source, in parallel, into `tfhe_tpu_torch/_build/`) and holds each bit
 for bit against its plain torch version on the card, timed, at the shapes
-its main path gives it. Then it drives the port's paths through
-`tfhe_tpu_torch.BinFHEContext` (the matrix through `TorchBackend`):
+its main path gives it (where a main path's full batch would hold the
+plain version for minutes, it runs on a head of rows of the same inputs).
+Then it drives the port's paths through `tfhe_tpu_torch.BinFHEContext`
+(the matrix through `TorchBackend`):
 - the gate path: all eight gates at TOY against the host oracle, and a
   batch-4096 STD128 NAND checked by decryption and, for its first 8
   outputs, bit for bit against the oracle;
@@ -32,6 +34,13 @@ its main path gives it. Then it drives the port's paths through
   width (N = 1024, n = 1305) EvalFloor at batch 4096 and the CHES
   256-ciphertext AND, checked by decryption and on their first 8 outputs
   against the oracle;
+- ring dimension N = 4096: blind_rotate_rns (a cluster of two blocks, one
+  per residue lane) and blind_rotate at N = 4096 against their plain
+  versions, at batch 1024 and n = 1305 on a head of rows; then the STD128
+  accelerated sets at N = 4096 (seeded switching key) EvalSign and
+  EvalFunc, and the logQ = 11 set on the same keys EvalFloor and NAND, at
+  batch 1024 (bench.py's 4096, cut for the run's time limit), checked by
+  decryption and on their first output against the oracle;
 - CiphertextMulMatrix at 1024 x 1024 mod 2^35 against the host product,
   and the DM/AP accumulator: the 8 gates at TOY AP against the oracle and
   a batch-1024 STD128_AP NAND, checked by decryption and on its first 8
@@ -106,7 +115,7 @@ GEMM_DIM = 1024             # K = M of the ciphertext-matrix product (examples/g
 GEMM_ITERS = 5
 DM_BATCH = 1024             # STD128_AP NAND batch on the DM path
 LWE_N_ACC = 1305           # rounds of the accelerated sets' rotation
-ROWS = list(range(128))     # rows held to the plain version at a main path's batch
+ROWS = list(range(64))      # rows held to the plain version at a main path's batch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 INT32_LANES_PER_SM = 64     # 32-bit integer multiply lanes per SM per clock
 # blind_rotate_rns at B = 4096, n = 1305, d2 = 4 in its earlier design (the
@@ -152,6 +161,10 @@ BFV_T = 65537
 BFV_DEPTH = 2
 BFV_LIMB_BITS = 28
 BFV_BATCHES = (8, 64)
+RING_N = 4096              # the ring of the N = 4096 phase
+RING_BATCH = 1024           # its batch: bench.py's 4096, cut for the run's time limit
+RING_ROWS = list(range(8))   # rows of its full-width launches held to the plain version
+RING_HEAD = 1               # rows of each of its operations held to the host oracle
 MESH_TOY_BATCH = 5          # TOY ciphertexts over the two-shard mesh: an uneven split
 LIMB_SHARDS = (2, 4)        # shards of the ring-sharded eval_mult_limb
 LIMB_ITERS = 3
@@ -352,8 +365,23 @@ def gate_kernel_vs_plain(rng, Q: int, peak: float) -> tuple[dict, dict]:
         f"{EARLIER_GATE_MS} ms ({100 * timing['bound_ms'] / EARLIER_GATE_MS:.1f}%) on an "
         f"NVIDIA H100 80GB HBM3 at 700 W: {EARLIER_GATE_MS / timing['ms']:.2f}x")
 
+    mixed = gate_rows_case(rng, Q, peak, GATE_BATCH, LWE_N_ACC, 1024, 10, 1 << 5, 1, ROWS)
+    worst = max(worst, mixed["max_abs_err"])
+    return {"max_abs_err": worst, **timing}, mixed
+
+
+def gate_rows_case(rng, Q: int, peak: float, B: int, n: int, N: int, d2: int,
+                   base_g: int, throw: int, rows: list) -> dict:
+    """blind_rotate at a main path's full shape: the kernel over the whole
+    batch (a first launch, then timed), the plain version on `rows` and the
+    last row of the same inputs, held equal with tolerance 0; rows 0, 1 and
+    2 of the exponents hold 0, N and 2N - 1 in all rounds."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import blindrotate, rotate_kernel
+
     t0 = time.time()
-    B, n, N, d2, base_g, throw = GATE_BATCH, LWE_N_ACC, 1024, 10, 1 << 5, 1
     acc = torch.from_numpy(rng.integers(0, Q, (B, 2, N)).astype(np.int32)).cuda()
     a_np = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
     a_np[:3] = np.array([0, N, 2 * N - 1], dtype=np.int32)[:, None]
@@ -362,88 +390,101 @@ def gate_kernel_vs_plain(rng, Q: int, peak: float) -> tuple[dict, dict]:
                                  Q).cuda()
     kernel = lambda: rotate_kernel.rotate(acc, a_idx, bsk, Q, base_g, throw)  # noqa: E731
     got, first_ms = timed_once(kernel)
-    rows = ROWS + [B - 1]
+    rows = rows + [B - 1]
     want, plain_ms = timed_once(lambda: blindrotate.blind_rotate(
         acc[rows], a_idx[rows], bsk, Q, base_g, throw))
     err = max_err(got[rows], want)
-    worst = max(worst, err)
-    check(torch.equal(got[rows], want), f"blind_rotate != plain at the mixed shape B={B}, "
-          f"n={n}, d2={d2}, rows 0..{len(ROWS) - 1} and {B - 1} (max abs err {err})")
+    check(torch.equal(got[rows], want), f"blind_rotate != plain at N={N}, B={B}, n={n}, "
+          f"d2={d2}, rows 0..{len(rows) - 2} and {B - 1} (max abs err {err})")
     ms = cuda_ms(kernel, reps=2)
     b_ms, b_by = bound(B, n, N, d2, 1, peak)
-    log(f"blind_rotate == plain at the mixed logQ=11 shape N={N} Q={Q} d2={d2} base 2^5 "
-        f"throw={throw} B={B} n={n} on rows 0..{len(ROWS) - 1} and {B - 1} (torch.equal, "
+    log(f"blind_rotate == plain at N={N} Q={Q} d2={d2} base 2^{base_g.bit_length() - 1} "
+        f"throw={throw} B={B} n={n} on rows 0..{len(rows) - 2} and {B - 1} (torch.equal, "
         f"tolerance 0): max_abs_err {err}; kernel over all {B} rows {first_ms:.3f} ms (first "
         f"launch) and {ms:.3f} ms, plain torch on the {len(rows)} rows {plain_ms:.3f} ms, "
         f"bound {b_ms:.3f} ms by {b_by}, kernel at {100 * b_ms / ms:.1f}% of it "
         f"({time.time() - t0:.1f} s)")
-    mixed = {"ms": ms, "plain_ms_rows": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
-    return {"max_abs_err": worst, **timing}, mixed
+    return {"ms": ms, "plain_ms_rows": plain_ms, "plain_rows": len(rows), "bound_ms": b_ms,
+            "bound_by": b_by, "share": b_ms / ms, "max_abs_err": err}
 
 
-def rns_kernel_vs_plain(rng, q1: int, q2: int, peak: float) -> dict:
-    """blind_rotate_rns against its plain version on the card at the
-    accelerated sets' q1, q2, with tolerance 0 (torch.equal), each case
-    timed: at N = 2048 and throw = 1, d2 = 4 (base 2^18, EvalSign/EvalDecomp)
-    and d2 = 2 (base 2^27, EvalFunc) at B = 64 over 16 rounds and at B = 256
-    over all 1305 rounds; then every ring size and digit count the kernel
-    takes at a small odd batch (B = 5, the ragged edge of a batch) over 8
-    rounds with throw = 0: N in {256, 512, 1024, 2048}, d2 in {2, 6, 8};
-    then the main path's B = FUNC_BATCH, n = 1305 at d2 = 4, which is
-    returned and set beside EARLIER_RNS_MS. In every case rows 0, 1 and 2
-    of the exponents hold 0, N and 2N - 1 in all rounds. The key holds
-    valid Shoup companions of random values < qi."""
+def rns_case(rng, q1: int, q2: int, peak: float, B: int, n: int, d2: int, N: int = 2048,
+             throw: int = 1, rows: list | None = None) -> dict:
+    """blind_rotate_rns against its plain version on the card at q1, q2
+    with tolerance 0 (torch.equal), timed: the kernel over the whole batch,
+    the plain version over it too or, with `rows`, on those rows and the
+    last one of the same inputs. Rows 0, 1 and 2 of the exponents hold 0,
+    N and 2N - 1 in all rounds; the key holds valid Shoup companions of
+    random values < qi."""
     import numpy as np
     import torch
 
     from tfhe_tpu_torch.ops import blindrotate_rns, rotate_rns_kernel
 
+    t0 = time.time()
+    base_g = {2: 1 << 27, 4: 1 << 18, 6: 1 << 9, 8: 1 << 7}[d2]
+    acc = [torch.from_numpy(rng.integers(0, qi, (B, 2, N)).astype(np.int32)).cuda()
+           for qi in (q1, q2)]
+    a_np = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
+    a_np[:3] = np.array([0, N, 2 * N - 1], dtype=np.int32)[:, None]
+    a_idx = torch.from_numpy(a_np).cuda()
+    key = torch.empty((n, 8 * d2, N), dtype=torch.int64, device="cuda")
+    for lane, qi in enumerate((q1, q2)):
+        sl = slice(lane * 4 * d2, (lane + 1) * 4 * d2)
+        key[:, sl] = (torch.randint(0, qi, (n, 4 * d2, N), device="cuda") << 32) // qi
+    key = torch.where(key >= 1 << 31, key - (1 << 32), key).to(torch.int32)
+    kernel = lambda: rotate_rns_kernel.rotate_rns(  # noqa: E731
+        *acc, a_idx, key, q1, q2, base_g, throw)
+    got, first_ms = timed_once(kernel)
+    p_acc, p_idx = acc, a_idx
+    if rows is not None:
+        rows = rows + [B - 1]
+        p_acc, p_idx, got = [a[rows] for a in acc], a_idx[rows], [g[rows] for g in got]
+    want, plain_ms = timed_once(lambda: blindrotate_rns.blind_rotate_rns(
+        *p_acc, p_idx, key, q1, q2, base_g, throw))
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    on = "" if rows is None else f" on rows 0..{len(rows) - 2} and {B - 1}"
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"blind_rotate_rns != plain at N={N}, B={B}, n={n}, d2={d2}, throw={throw}{on} "
+          f"(max abs err {err})")
+    ms = cuda_ms(kernel, reps=2)
+    b_ms, b_by = bound(B, n, N, d2, 2, peak)
+    plain = "plain torch" if rows is None else f"plain torch on the {len(rows)} rows"
+    log(f"blind_rotate_rns == plain at N={N} d2={d2} throw={throw} B={B} n={n}{on} "
+        f"(torch.equal, tolerance 0): max_abs_err {err}; kernel {ms:.3f} ms (first launch "
+        f"{first_ms:.3f} ms), {plain} {plain_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}, "
+        f"kernel at {100 * b_ms / ms:.1f}% of it ({time.time() - t0:.1f} s)")
+    out = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "share": b_ms / ms, "max_abs_err": err}
+    if rows is not None:
+        out["plain_rows"] = len(rows)
+    return out
+
+
+def rns_kernel_vs_plain(rng, q1: int, q2: int, peak: float) -> dict:
+    """blind_rotate_rns against its plain version on the card at the
+    accelerated sets' q1, q2 (`rns_case`): at N = 2048 and throw = 1,
+    d2 = 4 (base 2^18, EvalSign/EvalDecomp) and d2 = 2 (base 2^27,
+    EvalFunc) at B = 64 over 16 rounds and at B = 256 over all 1305 rounds;
+    then every ring size and digit count of the one-block layout at a small
+    odd batch (B = 5, the ragged edge of a batch) over 8 rounds with
+    throw = 0: N in {256, 512, 1024, 2048}, d2 in {2, 6, 8}; then the main
+    path's B = FUNC_BATCH, n = 1305 at d2 = 4, the plain version on ROWS
+    and the last row, which is returned and set beside EARLIER_RNS_MS."""
     worst = 0
-
-    def compare(B, n, d2, N=2048, throw=1):
-        nonlocal worst
-        t0 = time.time()
-        base_g = {2: 1 << 27, 4: 1 << 18, 6: 1 << 9, 8: 1 << 7}[d2]
-        acc = [torch.from_numpy(rng.integers(0, qi, (B, 2, N)).astype(np.int32)).cuda()
-               for qi in (q1, q2)]
-        a_np = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
-        a_np[:3] = np.array([0, N, 2 * N - 1], dtype=np.int32)[:, None]
-        a_idx = torch.from_numpy(a_np).cuda()
-        key = torch.empty((n, 8 * d2, N), dtype=torch.int64, device="cuda")
-        for lane, qi in enumerate((q1, q2)):
-            rows = slice(lane * 4 * d2, (lane + 1) * 4 * d2)
-            key[:, rows] = (torch.randint(0, qi, (n, 4 * d2, N), device="cuda") << 32) // qi
-        key = torch.where(key >= 1 << 31, key - (1 << 32), key).to(torch.int32)
-        kernel = lambda: rotate_rns_kernel.rotate_rns(*acc, a_idx, key, q1, q2, base_g, throw)  # noqa: E731
-        plain = lambda: blindrotate_rns.blind_rotate_rns(*acc, a_idx, key, q1, q2, base_g, throw)  # noqa: E731
-        got = kernel()
-        want, plain_ms = timed_once(plain)
-        err = max(max_err(g, w) for g, w in zip(got, want))
-        worst = max(worst, err)
-        check(all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"blind_rotate_rns != plain at N={N}, B={B}, n={n}, d2={d2}, throw={throw} "
-              f"(max abs err {err})")
-        ms = cuda_ms(kernel, reps=2)
-        b_ms, b_by = bound(B, n, N, d2, 2, peak)
-        log(f"blind_rotate_rns == plain at N={N} d2={d2} throw={throw} B={B} n={n} "
-            f"(torch.equal, tolerance 0): max_abs_err {err}; kernel {ms:.3f} ms, "
-            f"plain torch {plain_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}, "
-            f"kernel at {100 * b_ms / ms:.1f}% of it ({time.time() - t0:.1f} s)")
-        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
-
     for d2 in (4, 2):
-        compare(64, 16, d2)
-        compare(256, LWE_N_ACC, d2)
+        for B, n in ((64, 16), (256, LWE_N_ACC)):
+            worst = max(worst, rns_case(rng, q1, q2, peak, B, n, d2)["max_abs_err"])
     for N in (256, 512, 1024, 2048):
         for d2 in (2, 6, 8):
-            compare(5, 8, d2, N, throw=0)
-    timing = compare(FUNC_BATCH, LWE_N_ACC, 4)
+            worst = max(worst, rns_case(rng, q1, q2, peak, 5, 8, d2, N, throw=0)["max_abs_err"])
+    timing = rns_case(rng, q1, q2, peak, FUNC_BATCH, LWE_N_ACC, 4, rows=ROWS)
     log(f"blind_rotate_rns at B={FUNC_BATCH} n={LWE_N_ACC} d2=4: {timing['ms']:.3f} ms, "
-        f"{100 * timing['bound_ms'] / timing['ms']:.1f}% of its bound; the earlier design "
+        f"{100 * timing['share']:.1f}% of its bound; the earlier design "
         f"(lanes one after the other, every NTT stage through shared memory) took "
         f"{EARLIER_RNS_MS} ms ({100 * timing['bound_ms'] / EARLIER_RNS_MS:.1f}%) on an "
         f"NVIDIA H100 80GB HBM3 at 700 W: {EARLIER_RNS_MS / timing['ms']:.2f}x")
-    return {"max_abs_err": worst, **timing}
+    return {**timing, "max_abs_err": max(worst, timing["max_abs_err"])}
 
 
 def rotate64_kernel_vs_plain(rng, peak: float) -> tuple[dict, dict]:
@@ -649,7 +690,7 @@ def std128_nand(rng, card: str) -> dict:
 
 
 def accelerated_contexts(param_set, log_qs=(17, 12), rns_modulus=None, func=True,
-                         seeded=False):
+                         seeded=False, N=0):
     """The sign/decomp context (logQ 17, time optimization, bases {2^18,
     2^27}; logQ 23 resolves to the same parameters) and, with `func`, the
     EvalFunc context (logQ 12, arbFunc), numDigitsToThrow 1, keys made on
@@ -657,12 +698,13 @@ def accelerated_contexts(param_set, log_qs=(17, 12), rns_modulus=None, func=True
     and the switching key. With `seeded`, the switching key is the seeded
     (threefry) key of bench.py's accelerated rows, its <A, s> summed on the
     card. Q is q1*q2, or with rns_modulus=False the reference's single
-    54-bit prime. Returns (sign_cc, func_cc or None, sk, keygen seconds)."""
+    54-bit prime. N is the ring dimension asked of `from_gpu_style` (0: the
+    set's own). Returns (sign_cc, func_cc or None, sk, keygen seconds)."""
     from tfhe_tpu_torch import BinFHEContext
 
     t0 = time.time()
     sign_cc = BinFHEContext(seed=SEED, seeded_ksk=seeded)
-    sign_cc.generate_binfhe_context(param_set, arb_func=False, log_q=log_qs[0],
+    sign_cc.generate_binfhe_context(param_set, arb_func=False, log_q=log_qs[0], N=N,
                                     num_digits_to_throw=1, time_optimization=True,
                                     rns_modulus=rns_modulus)
     sk = sign_cc.key_gen()
@@ -670,7 +712,7 @@ def accelerated_contexts(param_set, log_qs=(17, 12), rns_modulus=None, func=True
     func_cc = None
     if func:
         func_cc = BinFHEContext(seed=SEED + 1, seeded_ksk=seeded)
-        func_cc.generate_binfhe_context(param_set, arb_func=True, log_q=log_qs[1],
+        func_cc.generate_binfhe_context(param_set, arb_func=True, log_q=log_qs[1], N=N,
                                         num_digits_to_throw=1, rns_modulus=rns_modulus)
         key = sign_cc.bt_key
         func_cc.bt_key_gen(sk, sk_n=key.sk_n, ksk=key.ksk)
@@ -888,18 +930,20 @@ def head(ct, rows: int = 8):
     return type(ct)(ct.a[:rows], ct.b[:rows], ct.modulus)
 
 
-def mixed_contexts(param_set, throws=(0, 1), arb_func=False):
-    """`from_gpu_style(param_set, arb_func, 11, num_digits_to_throw=t)` for
-    each t of `throws`, keys made on the host once per LWE block: the
-    contexts share the LWE secret, the ring secret and the switching key.
-    Returns ({throw: context}, sk, keygen seconds)."""
+def mixed_contexts(param_set, throws=(0, 1), arb_func=False, N=0, sk=None, shared=None):
+    """`from_gpu_style(param_set, arb_func, 11, N, num_digits_to_throw=t)`
+    for each t of `throws`, keys made on the host once per LWE block: the
+    contexts share the LWE secret, the ring secret and the switching key,
+    or take `sk` and `shared` = {"sk_n": ring secret, "ksk": switching key}
+    from another context of the same n, N, qKS and baseKS. Returns
+    ({throw: context}, sk, keygen seconds)."""
     from tfhe_tpu_torch import BinFHEContext
 
     t0 = time.time()
-    out, sk, shared = {}, None, {}
+    out, shared = {}, shared or {}
     for t in throws:
         cc = BinFHEContext(seed=SEED + t)
-        cc.generate_binfhe_context(param_set, arb_func=arb_func, log_q=11,
+        cc.generate_binfhe_context(param_set, arb_func=arb_func, log_q=11, N=N,
                                    num_digits_to_throw=t)
         if sk is None:
             sk = cc.key_gen()
@@ -1008,6 +1052,160 @@ def std128_mixed(rng, card: str) -> None:
         f"first 8 equal the host oracle; {s * 1e3:.3f} ms/iteration over {CHES_ITERS} warm "
         f"iterations, {CHES_BATCH / s:.1f} gates/s on {card}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def ring4096_kernels(rng, q1: int, q2: int, Q: int, peak: float) -> dict:
+    """Both kernels at N = 4096 against their plain versions on the card,
+    with tolerance 0: blind_rotate_rns (the two-block cluster) at every
+    digit count at B = 5 over 8 rounds with throw 0, at the accelerated
+    sets' d2 = 4 and 2 at B = 64 over 16 rounds, then at the main path's
+    B = RING_BATCH, n = LWE_N_ACC, d2 = 4 and 2, the plain version on
+    RING_ROWS and the last row; blind_rotate at Q (the logQ = 11 set's
+    27-bit prime) at d2 in {2, 8, 12}, throw 0 and 1, B = 5 over 8 rounds,
+    then at the EvalFloor and NAND shape (B = RING_BATCH, n = LWE_N_ACC,
+    base 2^5, one digit thrown, d2 = 10) the same way. Returns the full
+    shapes' timings by kernel."""
+    from tfhe_tpu_torch.ops import rotate_rns_kernel
+
+    clusters = rotate_rns_kernel.max_active_clusters()
+    log(f"blind_rotate_rns at N={RING_N}: one ciphertext on a cluster of two blocks of "
+        f"{RING_N // 8} threads, 56 N = {56 * RING_N // 1024} KB of shared memory each; "
+        f"the card holds {clusters} such clusters at once (cudaOccupancyMaxActiveClusters)")
+    for d2 in (2, 6, 8):
+        rns_case(rng, q1, q2, peak, 5, 8, d2, RING_N, throw=0)
+    for d2 in (4, 2):
+        rns_case(rng, q1, q2, peak, 64, 16, d2, RING_N)
+    rns = {f"d2={d2}": rns_case(rng, q1, q2, peak, RING_BATCH, LWE_N_ACC, d2, RING_N,
+                                rows=RING_ROWS) for d2 in (4, 2)}
+    rns["max_active_clusters"] = clusters
+    for d2, base_g in ((2, 1 << 14), (8, 1 << 7), (12, 1 << 5)):
+        for throw in (0, 1):
+            gate_rows_case(rng, Q, peak, 5, 8, RING_N, d2, base_g, throw, [0, 1, 2, 3])
+    gate = {"d2=10": gate_rows_case(rng, Q, peak, RING_BATCH, LWE_N_ACC, RING_N, 10,
+                                    1 << 5, 1, RING_ROWS)}
+    return {"blind_rotate_rns": rns, "blind_rotate": gate}
+
+
+def ring4096_contexts(rng) -> dict:
+    """Ring dimension N = 4096 at full width: the STD128 accelerated sets
+    `from_gpu_style(STD128, ..., N=4096)` (n = 1305, Q = q1*q2, qKS = 2^35,
+    baseKS = 32, one digit thrown, bench.py's seeded switching key) for
+    EvalSign (logQ 17, bases 2^18 and 2^27) and EvalFunc (logQ 12,
+    arbFunc, the cube LUT), and the logQ = 11 set on the same LWE secret,
+    ring secret and switching key for EvalFloor and NAND (base 2^5, one
+    digit thrown, d2 = 10); keys made on the host, inputs at batch
+    RING_BATCH, and the host oracle's outputs on the first RING_HEAD rows
+    of each operation (its switching key the seeded A block drawn on the
+    card). Returns the phase's state for `ring4096_path`."""
+    import numpy as np
+
+    from tfhe_tpu_torch import Gate, ParamSet
+
+    sign_cc, func_cc, sk, keygen_s = accelerated_contexts(ParamSet.STD128, seeded=True,
+                                                          N=RING_N)
+    key = sign_cc.bt_key
+    mixed, _, mixed_keygen_s = mixed_contexts(ParamSet.STD128, throws=(1,), N=RING_N, sk=sk,
+                                              shared={"sk_n": key.sk_n, "ksk": key.ksk})
+    floor_cc = mixed[1]
+    p, pm = sign_cc.params, floor_cc.params
+    check(p.lwe.N == pm.lwe.N == RING_N and floor_cc.bt_key.ksk is key.ksk,
+          "the N = 4096 contexts do not share one ring and switching key")
+    log(f"N={RING_N}: accelerated STD128 n={p.lwe.n} Q={p.lwe.Q} = {p.rgsw.rns_primes[0]} * "
+        f"{p.rgsw.rns_primes[1]}, logQ=11 Q={pm.lwe.Q} q={pm.lwe.q}, qKS=2^35, "
+        f"baseKS={p.lwe.base_ks}; keygen (sign map 2^18, 2^27 + func 2^27, one seeded "
+        f"switching key, <A, s> on the card) {keygen_s:.1f} s, logQ=11 key (base 2^5) "
+        f"{mixed_keygen_s:.1f} s")
+    timing = {"N": RING_N, "batch": RING_BATCH, "keygen_s": keygen_s,
+              "mixed_keygen_s": mixed_keygen_s}
+
+    B, h = RING_BATCH, RING_HEAD
+    ct_s, delta = sign_inputs(sign_cc, sk, rng, B)
+    ct_f, lut, want_f, p_f = func_inputs(func_cc, sk, rng, B)
+    ct_fl, m_fl, p_fl = floor_inputs(floor_cc, sk, rng, B)
+    m1, m2 = rng.integers(0, 2, B), rng.integers(0, 2, B)
+    ct1, ct2 = floor_cc.encrypt(sk, m1), floor_cc.encrypt(sk, m2)
+    # name -> (context, run(context, inputs), inputs, check of the outputs)
+    ops = {
+        "EvalSign": (sign_cc, lambda c, x: c.eval_sign(x[0]), (ct_s,),
+                     lambda out: np.array_equal(sign_cc.decrypt(sk, out, 2),
+                                                (delta >= 0).astype(np.uint64))),
+        "EvalFunc": (func_cc, lambda c, x: c.eval_func(x[0], lut), (ct_f,),
+                     lambda out: np.array_equal(
+                         np.asarray(func_cc.decrypt(sk, out, p_f), dtype=np.int64), want_f)),
+        "EvalFloor": (floor_cc, lambda c, x: c.eval_floor(x[0], 1), (ct_fl,),
+                      lambda out: floor_ok(floor_cc, sk, out, m_fl, p_fl)),
+        "NAND": (floor_cc, lambda c, x: c.eval_bin_gate(Gate.NAND, *x), (ct1, ct2),
+                 lambda out: np.array_equal(floor_cc.decrypt(sk, out), 1 - (m1 & m2))),
+    }
+    # the oracle's switching key: the seeded A block drawn on the card (the
+    # host's CPU would take minutes), held to the host threefry on spot rows
+    # in `ring4096_path`
+    t0 = time.time()
+    key.ksk.materialize("cuda")
+    timing["host_A_s"] = time.time() - t0
+    log(f"the seeded key's A block [{key.ksk.rows}, {p.lwe.n}] drawn on the card for the "
+        f"host oracle in {timing['host_A_s']:.1f} s")
+    t0 = time.time()
+    for cc in (sign_cc, func_cc, floor_cc):
+        cc.device_clean()
+    ref = {name: run(cc, [head(c, h) for c in cts]) for name, (cc, run, cts, _) in ops.items()}
+    timing["oracle_s"] = time.time() - t0
+    log(f"host oracle EvalSign, EvalFunc, EvalFloor and NAND on the first {h} of each "
+        f"{timing['oracle_s']:.1f} s")
+    return {"contexts": (sign_cc, func_cc, floor_cc), "key": key, "ops": ops,
+            "timing": timing, "ref": ref}
+
+
+def ring4096_path(state: dict, card: str) -> dict:
+    """The N = 4096 contexts of `ring4096_contexts` on the card: device
+    setup, the seeded table's and the oracle's A block's spot rows held to
+    the host threefry, then each operation at batch RING_BATCH: every
+    output decrypts right, the first RING_HEAD equal the host oracle bit
+    for bit; a first and a warm call of each timed. The contexts are freed
+    on return."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import convert, lwe
+
+    sign_cc, func_cc, floor_cc = state["contexts"]
+    ops, timing = state["ops"], {"card": card, **state["timing"]}
+    B, h, ksk = RING_BATCH, RING_HEAD, state["key"].ksk
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    for cc in (sign_cc, func_cc, floor_cc):
+        cc.device_setup("cuda")
+    torch.cuda.synchronize()
+    timing["device_setup_s"] = time.time() - t0
+    timing["device_GiB"] = torch.cuda.memory_allocated() / 2**30
+    log(f"device_setup of the three contexts (RNS and pack_bsk keys, one {ksk.rows} "
+        f"x {ksk.n + 1} float64 switching table regenerated on the card) "
+        f"{timing['device_setup_s']:.1f} s, device memory {timing['device_GiB']:.2f} GiB")
+    spans = seeded_table_rows(ksk, convert.switching_table(ksk, sign_cc.backend.device))
+    host_a = ksk.A.reshape(ksk.rows, -1)
+    check(all(np.array_equal(host_a[r0:r1], lwe.seeded_rows(
+        ksk.seed, ksk.n, ksk.q_ks, r0, r1, "cpu").numpy()) for r0, r1 in spans),
+        f"N={RING_N}: the oracle's A block differs from the host threefry")
+    log(f"seeded switching table and the oracle's A block: rows "
+        f"{', '.join(f'{a}..{b - 1}' for a, b in spans)} equal to the host threefry")
+    for name, (cc, run, cts, ok) in ops.items():
+        t0 = time.time()
+        out = run(cc, cts)
+        first_s = time.time() - t0
+        check(cc.backend.device.type == "cuda", f"N={RING_N} {name} is not on the card")
+        check(ok(out), f"N={RING_N} {name} decryption at B={B}")
+        check(same(head(out, h), state["ref"][name]),
+              f"N={RING_N} {name}: the first {h} outputs differ from the host oracle")
+        t0 = time.time()
+        run(cc, cts)
+        s = time.time() - t0
+        timing[f"{name}_ms_per_ct"] = s / B * 1e3
+        log(f"N={RING_N} STD128 {name} B={B}: all decrypt right, the first {h} equal the host "
+            f"oracle bit for bit; first call {first_s:.3f} s; warm {s:.4f} s = "
+            f"{s / B * 1e3:.4f} ms/ciphertext, {B / s:.1f} ops/s on {card}")
+    timing["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"N={RING_N} peak device memory {timing['peak_device_GiB']:.2f} GiB")
+    return timing
 
 
 def gemm(rng, card: str) -> None:
@@ -2308,6 +2506,26 @@ def main() -> int:
     log(f"mixed logQ=11 path: blind_rotate launches {mixed_launches} "
         f"({time.time() - t0:.1f} s)")
 
+    # ring dimension N = 4096: both kernels against their plain versions at
+    # its full-width shapes, then the accelerated and logQ = 11 sets through
+    # the contexts (keys, inputs and the host oracle first), counts read just
+    # after the contexts' run
+    t0 = time.time()
+    q1_4k, q2_4k = from_gpu_style(ParamSet.STD128, True, 12, N=RING_N).rgsw.rns_primes
+    ring_kernels = ring4096_kernels(rng, q1_4k, q2_4k,
+                                    from_gpu_style(ParamSet.STD128, False, 11, N=RING_N).lwe.Q,
+                                    peak)
+    log(f"N={RING_N} kernels against their plain versions: {time.time() - t0:.1f} s")
+    reset_counts()
+    ring_timing = ring4096_path(ring4096_contexts(rng), card)
+    ring_launches = (rotate_kernel.LAUNCHES, rotate_rns_kernel.LAUNCHES)
+    check(all(n > 0 for n in ring_launches), "the N = 4096 path did not launch blind_rotate "
+          f"and blind_rotate_rns: {ring_launches}")
+    torch.cuda.empty_cache()
+    ring_timing["phase_s"] = time.time() - t0
+    log(f"N={RING_N} phase: blind_rotate launches {ring_launches[0]}, blind_rotate_rns "
+        f"launches {ring_launches[1]} ({ring_timing['phase_s']:.1f} s)")
+
     # CiphertextMulMatrix and the DM accumulator: torch ops, no hand kernel
     t0 = time.time()
     gemm(rng, card)
@@ -2350,19 +2568,22 @@ def main() -> int:
                       "advancedshe": she_timing, "functional": plain_timing,
                       "seeded": seeded_timing, "ckks_auto": auto_timing,
                       "bgv": bgv_timing, "bfv": bfv_timing, "serial": serial_timing,
-                      "mesh": mesh_timing, "total_s": time.time() - t_start}), flush=True)
+                      "mesh": mesh_timing, "ring4096": ring_timing,
+                      "total_s": time.time() - t_start}), flush=True)
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate.py:253",
-         "launches": gate_launches + mixed_launches + serial_gate_launches + mesh_launches[0],
-         **gate_timing,
+         "launches": (gate_launches + mixed_launches + serial_gate_launches + mesh_launches[0]
+                      + ring_launches[0]),
+         **gate_timing, "ring4096": ring_kernels["blind_rotate"],
          "library_ms": None},
         {"name": "blind_rotate_rns", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate_rns.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate_rns.py:278",
-         "launches": rns_launches + seeded_launches + serial_rns_launches + mesh_launches[1],
-         **rns_timing,
+         "launches": (rns_launches + seeded_launches + serial_rns_launches + mesh_launches[1]
+                      + ring_launches[1]),
+         **rns_timing, "ring4096": ring_kernels["blind_rotate_rns"],
          "library_ms": None},
         {"name": "blind_rotate64", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate64.cu",

@@ -1,0 +1,67 @@
+#!/usr/bin/env python3
+"""The N = 4096 kernels alone, on one GPU (about a minute of command).
+
+    python3 scripts/torch_check_ring4096.py
+
+Builds the three kernels (`_build.build`, one nvcc per source), prints what
+ptxas says of every instantiation's registers and spills (nothing when the
+libraries were built before in the same tree: `chip_smoke.py` prints it
+too), then runs
+`chip_smoke.ring4096_kernels`: `blind_rotate_rns` (the two-block cluster
+layout) and `blind_rotate` at N = 4096 held to their plain versions with
+tolerance 0 at every digit count (B = 5), at the accelerated sets' d2 = 4
+and 2 (B = 64), and at the main paths' B = 1024, n = 1305 on a head of
+rows, each timed with CUDA events against the bound `chip_smoke.py`
+computes, and the card's resident clusters. Then the N <= 2048 main
+shapes beside them: `blind_rotate_rns` at B = 4096, n = 1305, d2 = 4 and
+`blind_rotate` at STD128, B = 4096, n = 512, d2 = 8 (the plain versions on
+one row and the last). Prints the card's name and power limit, and one
+JSON line of the timings. Imports no jax.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tfhe_tpu_torch import ParamSet, from_gpu_style, from_param_set
+    from tfhe_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("torch_check_ring4096: no CUDA device", file=sys.stderr)
+        return 1
+    t0 = time.time()
+    _build.build()
+    for name in _build.KERNELS:
+        for line in _build.ptxas_report(name):
+            cs.log(f"{name}: {line}")
+    cs.log(f"built in {time.time() - t0:.1f} s")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    peak = cs.int32_peak_per_s()
+    rng = np.random.default_rng(cs.SEED)
+    q1, q2 = from_gpu_style(ParamSet.STD128, True, 12, N=cs.RING_N).rgsw.rns_primes
+    Q = from_gpu_style(ParamSet.STD128, False, 11, N=cs.RING_N).lwe.Q
+    out = cs.ring4096_kernels(rng, q1, q2, Q, peak)
+    out["rns_N2048"] = cs.rns_case(rng, q1, q2, peak, cs.FUNC_BATCH, cs.LWE_N_ACC, 4,
+                                   rows=[0])
+    out["gate_N1024"] = cs.gate_rows_case(rng, from_param_set(ParamSet.STD128).lwe.Q, peak,
+                                          cs.GATE_BATCH, 512, 1024, 8, 1 << 7, 0, [0])
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -137,12 +137,27 @@ def test_scaled_indices_match_jax(q, N):
     assert np.array_equal(got.numpy(), JaxBackend._scaled_indices(a, q, N))
 
 
+@pytest.mark.parametrize("param_set", [params_mod.ParamSet.TOY, params_mod.ParamSet.STD128],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("log_q,arb,path", [(11, False, "mixed"), (12, True, "rns"),
+                                            (17, False, "rns"), (23, False, "rns")],
+                         ids=["logQ11-N4096", "logQ12-N4096", "logQ17-N4096", "logQ23-N4096"])
+def test_ring4096_params_are_supported(param_set, log_q, arb, path):
+    """N = 4096 with the composite modulus: logQ = 11 on the mixed path
+    (blind_rotate), the accelerated sets on the RNS path (the cluster
+    layout of blind_rotate_rns)."""
+    params = params_mod.from_gpu_style(param_set, arb, log_q, N=4096)
+    assert params.rgsw.N == 4096
+    assert TorchBackend.supports(params) and TorchBackend._path(params) == path
+
+
 @pytest.mark.parametrize("params", [
     params_mod.from_param_set(params_mod.ParamSet.STD192, params_mod.Method.AP),
-    params_mod.from_gpu_style(params_mod.ParamSet.TOY, False, 11, N=4096),  # mixed, N = 4096
-    params_mod.from_gpu_style(params_mod.ParamSet.TOY, True, 12, N=4096),   # RNS, N = 4096
+    params_mod.from_gpu_style(params_mod.ParamSet.TOY, False, 17, N=4096,
+                              rns_modulus=False),                         # two-limb, N = 4096
+    params_mod.from_gpu_style(params_mod.ParamSet.TOY, True, 12, N=8192),   # RNS, N = 8192
     params_mod.from_param_set(params_mod.ParamSet.STD128Q, params_mod.Method.AP),
-], ids=["std192-AP", "logQ11-N4096", "logQ12-N4096", "std128q-AP"])
+], ids=["std192-AP", "two-limb-N4096", "logQ12-N8192", "std128q-AP"])
 def test_unsupported_params_raise(params):
     be = TorchBackend("cpu")
     assert not be.supports(params)
@@ -173,10 +188,10 @@ def test_supported_sets():
 
 
 def test_context_device_setup_refuses_unsupported():
-    """A ring dimension the kernels do not take (N = 4096) raises in
+    """A ring dimension the kernels do not take (N = 8192) raises in
     setup, never on the card, and never runs on the oracle."""
     cc = tfhe_tpu_torch.BinFHEContext(seed=1, device="cpu")
-    cc.generate_binfhe_context(params_mod.ParamSet.TOY, arb_func=False, log_q=11, N=4096)
+    cc.generate_binfhe_context(params_mod.ParamSet.TOY, arb_func=False, log_q=11, N=8192)
     cc.bt_key_load(torch_scheme.BTKey(bsk_coeff=np.zeros(1), ksk=None,
                                       base_g=cc.params.rgsw.base_g))
     with pytest.raises(NotImplementedError):

@@ -86,7 +86,7 @@ def jax_backend(jc):
 @pytest.mark.parametrize("param_set", [ParamSet.TOY, ParamSet.STD128], ids=lambda s: s.name)
 def test_logq11_sets_are_supported_as_in_jax(param_set):
     """Every logQ = 11 set (arbFunc or not, 0 or 1 digit thrown) takes the
-    mixed path, as JaxBackend takes it; at N = 4096 the port refuses what
+    mixed path, as JaxBackend takes it; at N = 8192 the port refuses what
     the kernel cannot run."""
     for arb in (False, True):
         for throw in (0, 1):
@@ -94,7 +94,7 @@ def test_logq11_sets_are_supported_as_in_jax(param_set):
             tp = convert.params_from(jp)
             assert TorchBackend.supports(tp) == JaxBackend().supports(jp) is True
             assert TorchBackend._path(tp) == "mixed"
-    big = convert.params_from(jax_params.from_gpu_style(param_set, False, 11, N=4096))
+    big = convert.params_from(jax_params.from_gpu_style(param_set, False, 11, N=8192))
     assert TorchBackend._path(big) is None
 
 

@@ -18,7 +18,7 @@ import torch
 from tfhe_tpu_torch.ops import _build, blindrotate_rns, ntt, rotate_rns_kernel
 from torch_threads import one_torch_thread  # noqa: F401
 
-Q1, Q2 = 134176769, 134111233          # the accelerated sets' primes (N = 2048)
+Q1, Q2 = 134176769, 134111233          # the accelerated sets' primes (N = 2048, 4096)
 M32 = (1 << 32) - 1
 
 
@@ -150,7 +150,7 @@ def scatter(regs, C):
 
 
 @pytest.mark.parametrize("lane", [0, 1])
-@pytest.mark.parametrize("N", [256, 512, 1024, 2048])
+@pytest.mark.parametrize("N", [256, 512, 1024, 2048, 4096])
 def test_merged_forward_and_inverse_equal_ntt(N, lane):
     q = (Q1, Q2)[lane]
     fw, fws, iw, iws = tables(N, lane)
@@ -171,7 +171,7 @@ def test_merged_forward_and_inverse_equal_ntt(N, lane):
     assert torch.equal(got, ntt.inverse(y, q))
 
 
-@pytest.mark.parametrize("N", [256, 512, 1024, 2048])
+@pytest.mark.parametrize("N", [256, 512, 1024, 2048, 4096])
 def test_register_exchanges_are_conflict_free_bijections(N):
     """Every group's layout covers each index once, every warp's access to a
     swizzled buffer hits 32 banks, and a block-wide barrier is needed only
@@ -201,6 +201,68 @@ def extract(d, g_bits):
     return r, (d - r) >> g_bits
 
 
+def centred_digits(r1, r2, q1, q2, g_bits, throw, digits):
+    """The kernel's Garner CRT of the lane residues r1, r2, centred, the
+    thrown digits dropped -> the `digits` balanced digits kept."""
+    c12 = pow(q2, -1, q1)
+    c12_sh = (c12 << 32) // q1
+    Q = q1 * q2
+    diff = torch.where(r1 >= r2, r1 - r2, r1 + q1 - r2)
+    c = csub(mulmod_lazy(diff, c12, c12_sh, q1), q1)
+    xv = r2 + q2 * c
+    d = torch.where(xv >= Q >> 1, xv - Q, xv)
+    for _ in range(throw):
+        _, d = extract(d, g_bits)
+    digs = []
+    for _ in range(digits):
+        rr, d = extract(d, g_bits)
+        digs.append(rr)
+    return digs
+
+
+def lane_round(a, digs, key, lane, q, m_pos):
+    """One lane's round after the digits: a [B, 2, TG, 8] its accumulator at
+    coefficient t + k N/8, digs the signed digits [B, 2, TG, 8] of both
+    polynomials per kept digit, key [4 d2, N] the lane's rows of the round,
+    m_pos [B] the exponents -> the new accumulator [B, 2, TG, 8]."""
+    B, _, TG, _ = a.shape
+    N = 8 * TG
+    d2 = key.shape[0] // 4
+    fw, fws, iw, iws = tables(N, lane)
+    grp = groups(N.bit_length() - 1)
+    red_sh = int(fws[0])
+    u = None
+    for l, dig in enumerate(digs):
+        dig = torch.where(dig < 0, dig + q, dig)
+        x = forward_regs(scatter(dig, grp[0][0]), q, fw, fws)   # [B, 2, TG, 8]
+        pts = torch.arange(TG)[:, None] * 8 + torch.arange(8)[None, :]
+        ks = key[:, pts].reshape(4, d2, TG, 8)
+        s0, s1 = ks[:, 2 * l], ks[:, 2 * l + 1]
+        v0, v1 = umulhi(s0 + 1, q), umulhi(s1 + 1, q)
+        p = (mulmod_lazy(x[:, None, 0], v0, s0, q)
+             + mulmod_lazy(x[:, None, 1], v1, s1, q))        # [B, 4, TG, 8]
+        u = p if u is None else u + p
+        assert (u < 1 << 32).all()
+    u = u - umulhi(u, red_sh) * q
+    u = csub(inverse_regs(u, q, iw, iws), q)                   # [B, 4, TG, 8]
+    out = scatter(u, grp[0][0])                                # [B, 4, N]
+    j = owned(grp[0][0], TG)
+    m_pos = m_pos.to(torch.int64)[:, None, None]
+    m_neg = (2 * N - m_pos) & (2 * N - 1)
+    a = a.clone()
+    for o in range(2):
+        r0 = (j - m_pos) & (2 * N - 1)
+        r1_ = (j - m_neg) & (2 * N - 1)
+        c0 = torch.gather(out[:, o], 1, (r0 & (N - 1)).reshape(B, -1)).reshape(B, TG, 8)
+        c1 = torch.gather(out[:, 2 + o], 1, (r1_ & (N - 1)).reshape(B, -1)).reshape(B, TG, 8)
+        v0 = torch.where(r0 < N, c0, q - c0)
+        v1 = torch.where(r1_ < N, c1, q - c1)
+        s = a[:, o] + v0 + (q - u[:, o]) + v1 + (q - u[:, 2 + o])
+        assert (s < 5 * q).all()
+        a[:, o] = csub(csub(csub(s, 4 * q), 2 * q), q)
+    return a
+
+
 def emulate_rotation(acc1, acc2, a_idx, key, q1, q2, base_g, throw):
     """What every block of the kernel computes, for all blocks at once:
     acc [B, 2, N], a_idx [B, n], key [n, 8 d2, N] int32 as from pack_bsk_rns;
@@ -208,67 +270,68 @@ def emulate_rotation(acc1, acc2, a_idx, key, q1, q2, base_g, throw):
     B, _, N = acc1.shape
     n, rows, _ = key.shape
     d2, TG, g_bits = rows // 8, N // 8, base_g.bit_length() - 1
-    digits = d2 // 2
-    grp = groups(N.bit_length() - 1)
-    c12 = pow(q2, -1, q1)
-    c12_sh = (c12 << 32) // q1
-    Q = q1 * q2
+    C0 = groups(N.bit_length() - 1)[0][0]
     acc = [acc1.to(torch.int64), acc2.to(torch.int64)]
     key = key.to(torch.int64) & M32
-    pos0 = owned(grp[0][0], TG)                  # coefficient t + k N/8
+    pos0 = owned(C0, TG)                         # coefficient t + k N/8
     for r in range(n):
-        r1, r2 = acc[0][..., pos0], acc[1][..., pos0]   # [B, 2, TG, 8]
-        diff = torch.where(r1 >= r2, r1 - r2, r1 + q1 - r2)
-        c = csub(mulmod_lazy(diff, c12, c12_sh, q1), q1)
-        xv = r2 + q2 * c
-        d = torch.where(xv >= Q >> 1, xv - Q, xv)
-        for _ in range(throw):
-            _, d = extract(d, g_bits)
-        digs = []
-        for _ in range(digits):
-            rr, d = extract(d, g_bits)
-            digs.append(rr)
-        new = []
-        for lane, q in enumerate((q1, q2)):
-            fw, fws, iw, iws = tables(N, lane)
-            red_sh = int(fws[0])
-            u = None
-            for l in range(digits):
-                dig = torch.where(digs[l] < 0, digs[l] + q, digs[l])
-                x = forward_regs(scatter(dig, grp[0][0]), q, fw, fws)   # [B, 2, TG, 8]
-                pts = torch.arange(TG)[:, None] * 8 + torch.arange(8)[None, :]
-                ks = key[r, lane * 4 * d2:(lane + 1) * 4 * d2][:, pts]   # [4 d2, TG, 8]
-                ks = ks.reshape(4, d2, TG, 8)
-                s0, s1 = ks[:, 2 * l], ks[:, 2 * l + 1]
-                v0, v1 = umulhi(s0 + 1, q), umulhi(s1 + 1, q)
-                p = (mulmod_lazy(x[:, None, 0], v0, s0, q)
-                     + mulmod_lazy(x[:, None, 1], v1, s1, q))        # [B, 4, TG, 8]
-                u = p if u is None else u + p
-                assert (u < 1 << 32).all()
-            u = u - umulhi(u, red_sh) * q
-            u = csub(inverse_regs(u, q, iw, iws), q)                   # [B, 4, TG, 8]
-            out = scatter(u, grp[0][0])                                # [B, 4, N]
-            j = pos0
-            m_pos = a_idx[:, r].to(torch.int64)[:, None, None]
-            m_neg = (2 * N - m_pos) & (2 * N - 1)
-            a = acc[lane][..., pos0]
-            for o in range(2):
-                r0 = (j - m_pos) & (2 * N - 1)
-                r1_ = (j - m_neg) & (2 * N - 1)
-                c0 = torch.gather(out[:, o], 1, (r0 & (N - 1)).reshape(B, -1)).reshape(B, TG, 8)
-                c1 = torch.gather(out[:, 2 + o], 1, (r1_ & (N - 1)).reshape(B, -1)).reshape(B, TG, 8)
-                v0 = torch.where(r0 < N, c0, q - c0)
-                v1 = torch.where(r1_ < N, c1, q - c1)
-                s = a[:, o] + v0 + (q - u[:, o]) + v1 + (q - u[:, 2 + o])
-                assert (s < 5 * q).all()
-                a[:, o] = csub(csub(csub(s, 4 * q), 2 * q), q)
-            new.append(scatter(a, grp[0][0]))
-        acc = new
+        digs = centred_digits(acc[0][..., pos0], acc[1][..., pos0], q1, q2, g_bits,
+                              throw, d2 // 2)    # [B, 2, TG, 8] each
+        acc = [scatter(lane_round(acc[lane][..., pos0], digs,
+                                  key[r, lane * 4 * d2:(lane + 1) * 4 * d2], lane,
+                                  (q1, q2)[lane], a_idx[:, r]), C0)
+               for lane in range(2)]
     return acc[0].to(torch.int32), acc[1].to(torch.int32)
 
 
+def emulate_cluster_rotation(acc1, acc2, a_idx, key, q1, q2, base_g, throw):
+    """The N = 4096 layout of the kernel: a cluster of two blocks, rank =
+    residue lane, each with its own shared memory, laid out as the kernel
+    lays it out (words: accumulator [2][N] at 0, the forward's buffer at
+    2N, the digits [2 parities][N] at 4N, the inverse's output at 6N and
+    its buffer at 10N; 14N in all). A read of the peer is a read of the
+    other block's array at the same word. Rank r takes polynomial r in the
+    CRT, reading its own lane's residue and the peer's; each rank writes
+    its polynomial's digit l at parity l mod 2 and, after the cluster
+    barrier, reads its own and the peer's. Both ranks finish a step before
+    either starts the next, as the cluster barriers order them."""
+    B, _, N = acc1.shape
+    n, rows, _ = key.shape
+    d2, TG, g_bits = rows // 8, N // 8, base_g.bit_length() - 1
+    C0 = groups(N.bit_length() - 1)[0][0]
+    key = key.to(torch.int64) & M32
+    pos0 = owned(C0, TG)
+    flat = lambda off: off + pos0                # noqa: E731  words t + k N/8 at off
+    smem = [torch.full((B, 14 * N), -1, dtype=torch.int64) for _ in range(2)]
+    for rank, a in enumerate((acc1, acc2)):
+        smem[rank][:, :2 * N] = a.to(torch.int64).reshape(B, 2 * N)
+    for r in range(n):
+        mine = []
+        for rank in range(2):
+            own = smem[rank][:, flat(rank * N)]
+            other = smem[rank ^ 1][:, flat(rank * N)]
+            r1, r2 = (other, own) if rank else (own, other)
+            mine.append(centred_digits(r1, r2, q1, q2, g_bits, throw, d2 // 2))
+        digs = [[], []]
+        for l in range(d2 // 2):
+            at = 4 * N + (l & 1) * N
+            for rank in range(2):
+                smem[rank][:, flat(at)] = mine[rank][l]
+            for rank in range(2):
+                own, other = smem[rank][:, flat(at)], smem[rank ^ 1][:, flat(at)]
+                digs[rank].append(torch.stack((other, own) if rank else (own, other), 1))
+        for rank in range(2):
+            a = torch.stack([smem[rank][:, flat(o * N)] for o in range(2)], 1)
+            a = lane_round(a, digs[rank], key[r, rank * 4 * d2:(rank + 1) * 4 * d2], rank,
+                           (q1, q2)[rank], a_idx[:, r])
+            for o in range(2):
+                smem[rank][:, flat(o * N)] = a[:, o]
+    return tuple(smem[rank][:, :2 * N].reshape(B, 2, N).to(torch.int32) for rank in range(2))
+
+
 @pytest.mark.parametrize("N,d2,throw,base_log", [(256, 4, 1, 18), (512, 2, 1, 27),
-                                                  (256, 6, 0, 9), (1024, 8, 0, 7)])
+                                                  (256, 6, 0, 9), (1024, 8, 0, 7),
+                                                  (4096, 2, 1, 27)])
 def test_emulated_kernel_round_equals_plain(N, d2, throw, base_log):
     q1, q2 = Q1, Q2
     B, n = 3, 2
@@ -282,6 +345,25 @@ def test_emulated_kernel_round_equals_plain(N, d2, throw, base_log):
     key = rotate_rns_kernel.pack_bsk_rns(bsk, q1, q2)
     want = blindrotate_rns.blind_rotate_rns(*acc, a_idx, key, q1, q2, 1 << base_log, throw)
     got = emulate_rotation(*acc, a_idx, key, q1, q2, 1 << base_log, throw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("d2,throw,base_log", [(4, 1, 18), (2, 1, 27)],
+                         ids=["base18", "base27"])
+def test_emulated_cluster_round_equals_plain(d2, throw, base_log):
+    """N = 4096: the two blocks of a cluster, each reading the peer's
+    residues and digits, give the plain rotation; the block's buffers fit
+    the 227 KB a block may use."""
+    N, B, n = 4096, 2, 2
+    assert 14 * N * 4 + 4 <= 232448
+    rng = np.random.default_rng(base_log)
+    acc = [torch.from_numpy(rng.integers(0, qi, (B, 2, N)).astype(np.int32)) for qi in (Q1, Q2)]
+    a_idx = torch.from_numpy(rng.integers(0, 2 * N, (B, n)).astype(np.int32))
+    a_idx[0] = torch.tensor([0, 2 * N - 1])
+    bsk = rng.integers(0, Q1 * Q2, (n, 2, d2, 2, N)).astype(np.uint64)
+    key = rotate_rns_kernel.pack_bsk_rns(bsk, Q1, Q2)
+    want = blindrotate_rns.blind_rotate_rns(*acc, a_idx, key, Q1, Q2, 1 << base_log, throw)
+    got = emulate_cluster_rotation(*acc, a_idx, key, Q1, Q2, 1 << base_log, throw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

@@ -43,7 +43,9 @@
 // [4][N], which also holds the waiting sums and the inverse's output: 32 N
 // bytes, 32 KB at N = 1024, so 512 threads per SM and at most 128 registers
 // a thread (__launch_bounds__(N/8, 4096/N) at every N; ptxas: 125-128, no
-// spills). As in blind_rotate_rns.cu, twiddles and keys are read with
+// spills). N = 4096 needs no other layout: one block of 512 threads and
+// 128 KB, the register NTT at 12 index bits (two block-wide exchanges per
+// transform, register_ntt.cuh). As in blind_rotate_rns.cu, twiddles and keys are read with
 // coherent loads and each transform takes the thread index anew from shared
 // memory, so that ptxas does not hoist one transform's loads or addresses
 // into another's registers.
@@ -297,6 +299,8 @@ extern "C" int tfhe_blind_rotate(const void* acc_in, void* acc_out,
       return launch<10>(acc_in, acc_out, a_idx, bsk, tw, B, n, Q, g_bits, digits, throw_digits, s);
     case 2048:
       return launch<11>(acc_in, acc_out, a_idx, bsk, tw, B, n, Q, g_bits, digits, throw_digits, s);
+    case 4096:
+      return launch<12>(acc_in, acc_out, a_idx, bsk, tw, B, n, Q, g_bits, digits, throw_digits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

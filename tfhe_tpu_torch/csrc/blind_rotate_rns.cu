@@ -84,6 +84,35 @@
 // for several ciphertexts would not be the first gain; it would also not
 // fit one SM's shared memory and registers next to this design.
 //
+// N = 4096: a cluster of two blocks, one per residue lane. One lane's share
+// at N = 4096 is what one block holds at N = 2048 twice over: the block
+// above would need 80 N bytes of shared memory (320 KB, above the 227 KB a
+// block may have) and N/4 = 1024 threads at 128 registers (twice an SM's
+// 65536). So each ciphertext runs on a cluster of two blocks (the launch's
+// cluster dimension 2) on two SMs, block rank = residue lane, each block
+// the N/8 = 512 threads of one lane with that lane's buffers: the
+// accumulator [2][N], the forward's buffer [2][N], its own polynomial's
+// digits [2 parities][N], the inverse's output [4][N] and buffer [4][N],
+// 56 N bytes, 224 KB, none aliased. This is the Hopper counterpart of the
+// reference's multi-block bootstrap (cooperative blocks and grid.sync()).
+// Only three things cross between the lanes, through distributed shared
+// memory (ld.shared::cluster at a mapa address) and the cluster barrier
+// (barrier.cluster arrive.release / wait.acquire):
+// - the CRT reads the other lane's residue of its polynomial from the
+//   peer's accumulator;
+// - each block writes the digits of its own polynomial and reads the other
+//   polynomial's from the peer, so the barrier after the write is the
+//   cluster's; the parity double-buffering stays, since the peer may still
+//   read digit l while this block writes digit l + 1;
+// - the round's last barrier is the cluster's, since the next round's CRT
+//   reads the peer's accumulator; it also keeps a block from leaving while
+//   its peer still reads it.
+// Every other barrier (the forward's and inverse's exchanges, the
+// monomials) stays in the block: 1 + digits cluster barriers a round. The
+// register NTT is the same 512-thread group at 12 index bits (groups of
+// C = 11, 8, 5, 2; two block-wide exchanges per transform, register_ntt.cuh).
+// N <= 2048 keeps the one-block layout above, instantiated unchanged.
+//
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -103,13 +132,48 @@ __device__ __forceinline__ int64_t extract(int64_t& d, int g_bits) {
   return r;
 }
 
+// Distributed shared memory of a cluster: this block's rank, the cluster
+// address of the word at p in block `rank`'s shared memory, a load from
+// such an address, and the barrier of the whole cluster (shared-memory
+// writes before it are seen by every block of the cluster after it).
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return int(r);
+}
+
+__device__ __forceinline__ uint32_t peer_address(const void* p, int rank) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t ld_peer(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The kernel runs as clusters of two one-lane blocks at N = 4096, as one
+// two-lane block per ciphertext below.
+template <int LOGN>
+constexpr bool kCluster = LOGN > 11;
+
 // acc1/acc2: [B][2][N] residues mod q1 / q2. bsk: [n][8*d2][N] u32, rows
 // lane*4*d2 + (key*2 + out)*d2 + 2l + j, Shoup companions only, points in
 // the forward NTT's order. tw: [2 lanes][4][N] rows fwd, fwd', inv, inv'
 // (register_ntt.cuh; x' = Shoup companion); fwd[0] = 1, so fwd'[0] =
-// floor(2^32 / q) reduces the lazy sums.
+// floor(2^32 / q) reduces the lazy sums. With kCluster, block 2b + lane of
+// the grid runs lane `lane` of ciphertext b.
 template <int LOGN>
-__global__ void __launch_bounds__((1 << LOGN) / 4, 2048 >> LOGN)
+__global__ void __launch_bounds__((1 << LOGN) / (LOGN > 11 ? 8 : 4),
+                                  LOGN > 11 ? 1 : 2048 >> LOGN)
 blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
                         const uint32_t* __restrict__ acc2_in,
                         uint32_t* __restrict__ acc1_out,
@@ -122,17 +186,28 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
   constexpr int N = 1 << LOGN;
   constexpr int TG = N / 8;                 // threads per lane
   constexpr int G = rntt::groups<LOGN>();
+  constexpr bool CL = kCluster<LOGN>;
+  constexpr int L = CL ? 1 : 2;             // lanes in this block
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* acc = smem;          // [2 lanes][2][N], natural order
-  uint32_t* fbuf = acc + 4 * N;  // [2 lanes][2][N], swizzled
-  int32_t* digs = reinterpret_cast<int32_t*>(fbuf + 4 * N);  // [2 parities][2][N]
-  uint32_t* out = fbuf;          // fbuf and digs: the inverse's output
-                                 // [2 lanes][4][N], natural order
-  uint32_t* ibuf = fbuf + 8 * N; // [2 lanes][4][N], swizzled
+  uint32_t* acc = smem;              // [L lanes][2][N], natural order
+  uint32_t* fbuf = acc + 2 * L * N;  // [L lanes][2][N], swizzled
+  int32_t* digs = reinterpret_cast<int32_t*>(fbuf + 2 * L * N);  // [2 parities][L][N]
+  uint32_t* out = CL ? fbuf + 4 * N  // the inverse's output [L lanes][4][N],
+                     : fbuf;         // natural order; in one block over fbuf and digs
+  uint32_t* ibuf = out + 4 * L * N;  // [L lanes][4][N], swizzled
 
-  const int lane = threadIdx.x / TG;        // TG >= 32: a warp is in one lane
-  const int t = threadIdx.x % TG;
-  const size_t b = blockIdx.x;
+  int lane, t;
+  size_t b;
+  if constexpr (CL) {
+    lane = cluster_rank();
+    t = threadIdx.x;
+    b = blockIdx.x / 2;
+  } else {
+    lane = threadIdx.x / TG;                // TG >= 32: a warp is in one lane
+    t = threadIdx.x % TG;
+    b = blockIdx.x;
+  }
+  const int slot = CL ? 0 : lane;           // the lane's place in this block's buffers
   const int d2 = 2 * digits;
   const uint32_t q = lane ? q2 : q1;
   const uint32_t* fw = tw + lane * 4 * N;
@@ -142,8 +217,10 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
   const uint32_t red_sh = __ldg(fws);       // floor(2^32 / q)
   const uint64_t Q = uint64_t(q1) * q2;
   const uint64_t half_Q = Q >> 1;
-  uint32_t* my_acc = acc + lane * 2 * N;
-  uint32_t* my_out = out + lane * 4 * N;
+  uint32_t* my_acc = acc + slot * 2 * N;
+  uint32_t* my_out = out + slot * 4 * N;
+  // the peer block's shared memory (cluster address of its first word)
+  const uint32_t peer = CL ? peer_address(smem, lane ^ 1) : 0u;
 
   // fresh(t) is t read anew from shared memory: the addresses each NTT makes
   // from it are made where it runs, not kept in registers from another
@@ -152,17 +229,23 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
   auto fresh = [&](int v) { return v + *static_cast<volatile int*>(&zero); };
 
   if (threadIdx.x == 0) zero = 0;
-  for (int i = threadIdx.x; i < 2 * N; i += 2 * TG) {
-    acc[i] = acc1_in[b * 2 * N + i];
-    acc[2 * N + i] = acc2_in[b * 2 * N + i];
+  if constexpr (CL) {
+    const uint32_t* in = lane ? acc2_in : acc1_in;
+    for (int i = threadIdx.x; i < 2 * N; i += TG) acc[i] = in[b * 2 * N + i];
+    cluster_sync();
+  } else {
+    for (int i = threadIdx.x; i < 2 * N; i += 2 * TG) {
+      acc[i] = acc1_in[b * 2 * N + i];
+      acc[2 * N + i] = acc2_in[b * 2 * N + i];
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // the lazy sums of digits before the last wait in the inverse's buffer,
   // among the 256 words per polynomial that the warp's own first exchange of
   // the inverse writes: register k at word 32k + (t mod 32), so one base and
   // constant offsets address all of them
-  uint32_t* sums = ibuf + lane * 4 * N + 8 * (t & ~31) + (t & 31);
+  uint32_t* sums = ibuf + slot * 4 * N + 8 * (t & ~31) + (t & 31);
 
   for (int r = 0; r < n; ++r) {
     const uint32_t* key = bsk + ((size_t)r * 8 * d2 + lane * 4 * d2) * N + 8 * t;
@@ -174,7 +257,15 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const int j = lane * N + t + k * TG;
-      const uint32_t r1 = acc[j], r2 = acc[2 * N + j];
+      uint32_t r1, r2;
+      if constexpr (CL) {  // this lane's residue here, the other's in the peer
+        const uint32_t own = acc[j], other = ld_peer(peer + 4 * j);
+        r1 = lane ? other : own;
+        r2 = lane ? own : other;
+      } else {
+        r1 = acc[j];
+        r2 = acc[2 * N + j];
+      }
       const uint32_t diff = r1 >= r2 ? r1 - r2 : r1 + q1 - r2;
       const uint32_t c = csub(mulmod_lazy(diff, c12, c12_sh, q1), q1);
       const uint64_t xv = uint64_t(r2) + uint64_t(q2) * c;
@@ -186,18 +277,32 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
     // digit l of both polynomials, through shared memory into this lane,
     // then the lane's forward NTT of the two: x[o][k] at point 8t + k
     auto digit_forward = [&](int l, uint32_t (&x)[2][8]) {
-      int32_t* dg = digs + (l & 1) * 2 * N;
+      int32_t* dg = digs + (l & 1) * L * N;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) dg[lane * N + t + k * TG] = int32_t(extract(d[k], g_bits));
-      __syncthreads();
-#pragma unroll
-      for (int o = 0; o < 2; ++o)
+      for (int k = 0; k < 8; ++k) dg[slot * N + t + k * TG] = int32_t(extract(d[k], g_bits));
+      if constexpr (CL) {
+        cluster_sync();
+        // this lane's polynomial here, the other one in the peer
+        const uint32_t pdg = peer + 4 * (4 * N + (l & 1) * N);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
-          const int32_t rr = dg[o * N + t + k * TG];
-          x[o][k] = rr < 0 ? uint32_t(rr + int32_t(q)) : uint32_t(rr);
+          const int32_t own = dg[t + k * TG];
+          const int32_t other = int32_t(ld_peer(pdg + 4 * (t + k * TG)));
+          const int32_t r0 = lane ? other : own, r1 = lane ? own : other;
+          x[0][k] = r0 < 0 ? uint32_t(r0 + int32_t(q)) : uint32_t(r0);
+          x[1][k] = r1 < 0 ? uint32_t(r1 + int32_t(q)) : uint32_t(r1);
         }
-      rntt::forward<LOGN, 0, 2>(x, fbuf + lane * 2 * N, fresh(t), fw, fws, q);
+      } else {
+        __syncthreads();
+#pragma unroll
+        for (int o = 0; o < 2; ++o)
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const int32_t rr = dg[o * N + t + k * TG];
+            x[o][k] = rr < 0 ? uint32_t(rr + int32_t(q)) : uint32_t(rr);
+          }
+      }
+      rntt::forward<LOGN, 0, 2>(x, fbuf + slot * 2 * N, fresh(t), fw, fws, q);
     };
     // the lazy external product of digit l for output ko = key*2 + out:
     // p[k] = sum_j x_j K[key][out][2l + j] at point 8t + k, < 4q
@@ -248,12 +353,13 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
     for (int ko = 0; ko < 4; ++ko)
 #pragma unroll
       for (int k = 0; k < 8; ++k) u[ko][k] -= __umulhi(u[ko][k], red_sh) * q;
-    rntt::inverse<LOGN, G - 1, 4>(u, ibuf + lane * 4 * N, fresh(t), iw, iws, q);
+    rntt::inverse<LOGN, G - 1, 4>(u, ibuf + slot * 4 * N, fresh(t), iw, iws, q);
 
     // a[o] += (X^m_pos - 1) u[o] + (X^m_neg - 1) u[2 + o]: write the inverse's
-    // output once, read it rotated. It overwrites the other lane's forward
-    // buffer and digits: below N = 512 no exchange of the inverse was
-    // block-wide, so wait here for the other lane to be done with them.
+    // output once, read it rotated. In one block it overwrites the other
+    // lane's forward buffer and digits: below N = 512 no exchange of the
+    // inverse was block-wide, so wait here for the other lane to be done
+    // with them. (A cluster's block has its own output buffer.)
     if constexpr (LOGN < 9) __syncthreads();
 #pragma unroll
     for (int ko = 0; ko < 4; ++ko)
@@ -280,14 +386,48 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
         s = csub(csub(csub(s, 4 * q), 2 * q), q);  // s < 5q
         my_acc[o * N + j] = s;
       }
-    __syncthreads();
+    if constexpr (CL)
+      cluster_sync();  // the next CRT reads the peer's accumulator
+    else
+      __syncthreads();
   }
 
-  for (int i = threadIdx.x; i < 2 * N; i += 2 * TG) {
-    acc1_out[b * 2 * N + i] = acc[i];
-    acc2_out[b * 2 * N + i] = acc[2 * N + i];
+  if constexpr (CL) {
+    uint32_t* dst = lane ? acc2_out : acc1_out;
+    for (int i = threadIdx.x; i < 2 * N; i += TG) dst[b * 2 * N + i] = acc[i];
+  } else {
+    for (int i = threadIdx.x; i < 2 * N; i += 2 * TG) {
+      acc1_out[b * 2 * N + i] = acc[i];
+      acc2_out[b * 2 * N + i] = acc[2 * N + i];
+    }
   }
 }
+
+// Dynamic shared memory of a block: 80 N bytes, 56 N in a cluster.
+template <int LOGN>
+constexpr size_t smem_bytes() {
+  return (kCluster<LOGN> ? 14 : 20) * (size_t(1) << LOGN) * sizeof(uint32_t);
+}
+
+// The launch configuration of the cluster kernel: 2B blocks of N/8
+// threads, clusters of two along x.
+template <int LOGN>
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = {};
+  ClusterLaunch(int B, cudaStream_t stream) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(2 * B);
+    cfg.blockDim = dim3((1 << LOGN) / 8);
+    cfg.dynamicSmemBytes = smem_bytes<LOGN>();
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
 
 template <int LOGN>
 cudaError_t launch(const void* acc1_in, const void* acc2_in, void* acc1_out,
@@ -296,17 +436,29 @@ cudaError_t launch(const void* acc1_in, const void* acc2_in, void* acc1_out,
                    unsigned c12, unsigned c12_sh, int g_bits, int digits,
                    int throw_digits, cudaStream_t stream) {
   const size_t N = size_t(1) << LOGN;
-  const size_t smem = 20 * N * sizeof(uint32_t);
+  const size_t smem = smem_bytes<LOGN>();
   cudaError_t err = cudaFuncSetAttribute(
       blind_rotate_rns_kernel<LOGN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  blind_rotate_rns_kernel<LOGN><<<B, N / 4, smem, stream>>>(
-      static_cast<const uint32_t*>(acc1_in),
-      static_cast<const uint32_t*>(acc2_in), static_cast<uint32_t*>(acc1_out),
-      static_cast<uint32_t*>(acc2_out), static_cast<const int32_t*>(a_idx),
-      static_cast<const uint32_t*>(bsk), static_cast<const uint32_t*>(tw), n,
-      q1, q2, c12, c12_sh, g_bits, digits, throw_digits);
+  if constexpr (kCluster<LOGN>) {
+    ClusterLaunch<LOGN> cl(B, stream);
+    err = cudaLaunchKernelEx(
+        &cl.cfg, blind_rotate_rns_kernel<LOGN>,
+        static_cast<const uint32_t*>(acc1_in), static_cast<const uint32_t*>(acc2_in),
+        static_cast<uint32_t*>(acc1_out), static_cast<uint32_t*>(acc2_out),
+        static_cast<const int32_t*>(a_idx), static_cast<const uint32_t*>(bsk),
+        static_cast<const uint32_t*>(tw), n, (uint32_t)q1, (uint32_t)q2,
+        (uint32_t)c12, (uint32_t)c12_sh, g_bits, digits, throw_digits);
+    if (err != cudaSuccess) return err;
+  } else {
+    blind_rotate_rns_kernel<LOGN><<<B, N / 4, smem, stream>>>(
+        static_cast<const uint32_t*>(acc1_in),
+        static_cast<const uint32_t*>(acc2_in), static_cast<uint32_t*>(acc1_out),
+        static_cast<uint32_t*>(acc2_out), static_cast<const int32_t*>(a_idx),
+        static_cast<const uint32_t*>(bsk), static_cast<const uint32_t*>(tw), n,
+        q1, q2, c12, c12_sh, g_bits, digits, throw_digits);
+  }
   return cudaGetLastError();
 }
 
@@ -331,7 +483,20 @@ extern "C" int tfhe_blind_rotate_rns(const void* acc1_in, const void* acc2_in,
       return launch<10>(acc1_in, acc2_in, acc1_out, acc2_out, a_idx, bsk, tw, B, n, q1, q2, c12, c12_sh, g_bits, digits, throw_digits, s);
     case 2048:
       return launch<11>(acc1_in, acc2_in, acc1_out, acc2_out, a_idx, bsk, tw, B, n, q1, q2, c12, c12_sh, g_bits, digits, throw_digits, s);
+    case 4096:
+      return launch<12>(acc1_in, acc2_in, acc1_out, acc2_out, a_idx, bsk, tw, B, n, q1, q2, c12, c12_sh, g_bits, digits, throw_digits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The most clusters of the N = 4096 kernel the card holds at once
+// (cudaOccupancyMaxActiveClusters), in *clusters. Returns the cudaError_t.
+extern "C" int tfhe_blind_rotate_rns_clusters(int* clusters) {
+  cudaError_t err = cudaFuncSetAttribute(
+      blind_rotate_rns_kernel<12>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<12>());
+  if (err != cudaSuccess) return err;
+  ClusterLaunch<12> cl(1, 0);
+  return cudaOccupancyMaxActiveClusters(clusters, blind_rotate_rns_kernel<12>, &cl.cfg);
 }

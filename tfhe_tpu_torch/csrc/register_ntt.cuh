@@ -1,5 +1,5 @@
 // Register-resident negacyclic NTT over one prime q < 2^28, merged twiddles,
-// for one group of N / 8 threads per polynomial (N = 2^LOGN, 256..2048).
+// for one group of N / 8 threads per polynomial (N = 2^LOGN, 256..4096).
 //
 // Forward: Cooley-Tukey stages with half-length N/2 .. 1 and the twiddle
 // psi^brv(m) at index m + i (m = N / 2t blocks, i = the block), natural
@@ -23,11 +23,14 @@
 // go through shared memory once. Only an exchange out of or into a group
 // with C > 7 crosses warps and needs the block's barrier; the others stay
 // inside a warp (__syncwarp): at N = 2048 the groups are C = 10, 7, 4, 2,
-// three exchanges per transform, one of them block-wide.
+// three exchanges per transform, one of them block-wide; at N = 4096 they
+// are C = 11, 8, 5, 2, and two of the three exchanges are block-wide.
 //
 // Shared memory holds a polynomial at word swz(j), an XOR swizzle of the
 // bits 5..10 of j into the bank bits that makes every group's reads and
-// writes free of bank conflicts at all four ring sizes.
+// writes free of bank conflicts at all five ring sizes: at N = 4096 bit 11
+// is a register bit of group 0 and a thread bit of the others, constant
+// across a warp's access in every group, so it needs no term.
 //
 // Lazy ranges: the forward takes values < 4q and returns values < 4q
 // (Harvey's butterfly); the inverse takes values < 2q and returns values

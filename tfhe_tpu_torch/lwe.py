@@ -88,11 +88,18 @@ class SeededSwitchingKey:
     @property
     def A(self) -> np.ndarray:
         """Materialized A [N, baseKS, dc, n] u64 (host, lazy, cached)."""
+        return self.materialize("cpu")
+
+    def materialize(self, device="cpu") -> np.ndarray:
+        """`.A` on the host, its rows drawn on `device` where it is not
+        cached yet: the stream is the same on every device, and a card
+        draws the 1.2e9 words of an N = 4096 key in seconds where the
+        host's CPU takes minutes."""
         if self._A is None:
             a = np.empty((self.rows, self.n), dtype=np.uint64)
-            for r0, r1 in seeded_blocks(self.rows, self.n, "cpu"):
+            for r0, r1 in seeded_blocks(self.rows, self.n, device):
                 a[r0:r1] = seeded_rows(self.seed, self.n, self.q_ks, r0, r1,
-                                       "cpu").numpy().astype(np.uint64)
+                                       device).cpu().numpy().astype(np.uint64)
             self._A = a.reshape(self.N, self.base_ks, self.digit_count,
                                 self.n)
         return self._A

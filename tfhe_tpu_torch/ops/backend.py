@@ -55,12 +55,12 @@ from .blindrotate import transpose_extract
 from .blindrotate_dm import dm_digits, dm_limbs, dm_rotate
 from .keyswitch import mkm_switch
 from .modmath import addmod, crt_combine, mod, negmod, submod
+from . import rotate64_kernel, rotate_kernel, rotate_rns_kernel
 from .rotate64_kernel import rotate64
 from .rotate_kernel import rotate
 from .rotate_rns_kernel import rotate_rns
 
 _FUNC_CHUNK = 8192   # ciphertexts per functional or DM bootstrap on the device
-_RING_DIMS = (256, 512, 1024, 2048)   # the rotation kernels' ring dimensions
 
 
 class DeviceLWE:
@@ -115,7 +115,7 @@ class TorchBackend:
         p, rg = params.lwe, params.rgsw
         return (rg.method == Method.GINX and p.Q < (1 << 28)
                 and p.q_ks < (1 << 31) and (2 * p.Q - 1) * rg.digits_g2 < (1 << 32)
-                and p.q <= (1 << 16) and rg.N in _RING_DIMS)
+                and p.q <= (1 << 16) and rg.N in rotate_kernel.RING_DIMS)
 
     @staticmethod
     def _is_mixed_set(params: BinFHEParams) -> bool:
@@ -129,7 +129,7 @@ class TorchBackend:
                 and p.q_ks & (p.q_ks - 1) == 0
                 and p.base_ks & (p.base_ks - 1) == 0
                 and (2 * p.Q - 1) * rg.digits_g2 < (1 << 32)
-                and rg.N in _RING_DIMS and p.q <= (1 << 16))
+                and rg.N in rotate_kernel.RING_DIMS and p.q <= (1 << 16))
 
     @staticmethod
     def _is_rns_set(params: BinFHEParams) -> bool:
@@ -142,7 +142,7 @@ class TorchBackend:
         q1, q2 = pr
         return (q2 < q1 < (1 << 28) and (2 * q1 - 1) * rg.digits_g2 < (1 << 32)
                 and rg.base_g <= (1 << 27) and (rg.base_g >> 1) < q2
-                and rg.N in _RING_DIMS
+                and rg.N in rotate_rns_kernel.RING_DIMS
                 and (1 << 32) < p.q_ks < (1 << 40)
                 and p.q_ks & (p.q_ks - 1) == 0
                 and p.base_ks & (p.base_ks - 1) == 0)
@@ -158,7 +158,7 @@ class TorchBackend:
         if (rg.method != Method.GINX or cls._is_gate_set(params)
                 or cls._is_rns_set(params)):
             return False
-        if not ((1 << 28) <= p.Q < (1 << 54) and rg.N in _RING_DIMS
+        if not ((1 << 28) <= p.Q < (1 << 54) and rg.N in rotate64_kernel.RING_DIMS
                 and 2 * p.Q * rg.digits_g2 < (1 << 62) and rg.base_g <= (1 << 27)):
             return False
         if p.q_ks < (1 << 31):
@@ -207,15 +207,17 @@ class TorchBackend:
         path = self._path(params)
         if path is None:
             raise NotImplementedError(
-                "TorchBackend runs GINX at N in {256, ..., 2048} with Q < 2^28, "
-                "(2Q - 1) * d2 < 2^32, q <= 2^16 and qKS < 2^31 (the classic "
-                "gate sets) or a power-of-two qKS in (2^32, 2^40) (the mixed "
-                "logQ = 11 sets), Q = q1*q2 with q2 < q1 < 2^28 and a "
-                "power-of-two qKS in (2^32, 2^40) (the accelerated RNS sets), "
-                "or one modulus 2^28 <= Q < 2^54 with qKS < 2^31 or a "
-                "power-of-two qKS in (2^32, 2^40) (the two-limb sets); and AP "
-                "with Q, qKS < 2^31 and a DM table under the JAX package's "
-                "guard; these parameters are not ported")
+                "TorchBackend runs GINX with Q < 2^28, (2Q - 1) * d2 < 2^32, "
+                "q <= 2^16 and qKS < 2^31 (the classic gate sets) or a "
+                "power-of-two qKS in (2^32, 2^40) (the mixed logQ = 11 sets), "
+                f"both at N in {rotate_kernel.RING_DIMS}; Q = q1*q2 with "
+                "q2 < q1 < 2^28 and a power-of-two qKS in (2^32, 2^40) (the "
+                f"accelerated RNS sets) at N in {rotate_rns_kernel.RING_DIMS}; "
+                "one modulus 2^28 <= Q < 2^54 with qKS < 2^31 or a "
+                "power-of-two qKS in (2^32, 2^40) (the two-limb sets) at N in "
+                f"{rotate64_kernel.RING_DIMS}; and AP with Q, qKS < 2^31 and a "
+                "DM table under the JAX package's guard; these parameters are "
+                "not ported")
         rg = params.rgsw
         # CGGI keys [n, 2, d2, 2, N]; DM keys [n, baseR, digitsR, d2, 2, N]
         # with every digit (DM throws none)

@@ -24,6 +24,7 @@ from .modmath import shoup64
 from .ntt_sched import schedule
 
 LAUNCHES = 0  # kernel launches made by `rotate64`
+RING_DIMS = (256, 512, 1024, 2048)   # the ring dimensions the kernel takes
 
 
 def pack_bsk64(bsk_hat: np.ndarray, Q: int) -> torch.Tensor:
@@ -58,8 +59,8 @@ def _kernel():
 
 def check_params(N: int, d2: int, Q: int, base_g: int) -> None:
     """Raise ValueError unless the kernel takes these parameters."""
-    if N not in (256, 512, 1024, 2048):
-        raise ValueError(f"the 64-bit kernel takes N in 256..2048, not {N}")
+    if N not in RING_DIMS:
+        raise ValueError(f"the 64-bit kernel takes N in {RING_DIMS}, not {N}")
     if not (d2 >= 2 and d2 % 2 == 0 and Q % 2 == 1 and Q < (1 << 54)
             and 2 * Q * d2 < (1 << 62)):
         raise ValueError("the 64-bit kernel needs an odd Q < 2^54 and "

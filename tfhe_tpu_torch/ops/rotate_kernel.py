@@ -21,6 +21,7 @@ from . import _build, blindrotate, ntt
 from . import modmath as mm
 
 LAUNCHES = 0  # kernel launches made by `rotate`
+RING_DIMS = (256, 512, 1024, 2048, 4096)   # the ring dimensions the kernel takes
 
 
 def _with_shoup(x: torch.Tensor, Q: int) -> torch.Tensor:
@@ -75,7 +76,7 @@ def rotate(acc: torch.Tensor, a_idx: torch.Tensor, bsk_pack: torch.Tensor,
         if t.device != acc.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous int32 tensor on {acc.device}")
     if (two != 2 or Nk != N or rows != 8 * d2 or d2 % 2
-            or tuple(a_idx.shape) != (B, n) or N not in (256, 512, 1024, 2048)):
+            or tuple(a_idx.shape) != (B, n) or N not in RING_DIMS):
         raise ValueError(f"bad shapes acc {tuple(acc.shape)}, a_idx "
                          f"{tuple(a_idx.shape)}, bsk_pack {tuple(bsk_pack.shape)}")
     if not (Q < (1 << 28) and (2 * Q - 1) * d2 < (1 << 32)):

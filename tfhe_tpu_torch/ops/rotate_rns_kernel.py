@@ -25,6 +25,9 @@ from .rotate_kernel import _with_shoup
 from ..ref import ntt as ref_ntt
 
 LAUNCHES = 0  # kernel launches made by `rotate_rns`
+# the ring dimensions the kernel takes: one two-lane block per ciphertext up
+# to 2048, a cluster of two one-lane blocks at 4096
+RING_DIMS = (256, 512, 1024, 2048, 4096)
 
 
 def pack_bsk_rns(bsk_coeff: np.ndarray, q1: int, q2: int) -> torch.Tensor:
@@ -63,10 +66,23 @@ def _kernel():
     return fn
 
 
+def max_active_clusters() -> int:
+    """The most two-block clusters of the N = 4096 kernel that the current
+    CUDA device runs at once (cudaOccupancyMaxActiveClusters)."""
+    fn = _build.load("blind_rotate_rns").tfhe_blind_rotate_rns_clusters
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: cudaError {err}")
+    return out.value
+
+
 def check_params(N: int, d2: int, q1: int, q2: int, base_g: int) -> None:
     """Raise ValueError unless the kernel takes these parameters."""
-    if N not in (256, 512, 1024, 2048):
-        raise ValueError(f"the RNS kernel takes N in 256..2048, not {N}")
+    if N not in RING_DIMS:
+        raise ValueError(f"the RNS kernel takes N in {RING_DIMS}, not {N}")
     if not (d2 >= 2 and d2 % 2 == 0 and q2 < q1 < (1 << 28)
             and (2 * q1 - 1) * d2 < (1 << 32)):
         raise ValueError("the RNS kernel needs q2 < q1 < 2^28 and "
