@@ -35,12 +35,18 @@ Then it drives the port's paths through `tfhe_tpu_torch.BinFHEContext`
   256-ciphertext AND, checked by decryption and on their first 8 outputs
   against the oracle;
 - ring dimension N = 4096: blind_rotate_rns (a cluster of two blocks, one
-  per residue lane) and blind_rotate at N = 4096 against their plain
-  versions, at batch 1024 and n = 1305 on a head of rows; then the STD128
-  accelerated sets at N = 4096 (seeded switching key) EvalSign and
-  EvalFunc, and the logQ = 11 set on the same keys EvalFloor and NAND, at
-  batch 1024 (bench.py's 4096, cut for the run's time limit), checked by
-  decryption and on their first output against the oracle;
+  per residue lane), blind_rotate64 (a cluster of two blocks, one per
+  polynomial, at the single prime ntt_prime(54, 8192)) and blind_rotate at
+  N = 4096 against their plain versions, at batch 1024 and n = 1305 on a
+  head of rows; then the STD128 accelerated sets at N = 4096 (seeded
+  switching key) EvalSign and EvalFunc, and the logQ = 11 set on the same
+  keys EvalFloor and NAND, at batch 1024 (bench.py's 4096, cut for the
+  run's time limit), checked by decryption and on their first output
+  against the oracle; then the same accelerated sets at the reference's
+  single 54-bit prime (`rns_modulus=False`) on the same secrets and
+  switching key, EvalSign, EvalDecomp and EvalFunc at batch 1024 on
+  blind_rotate64, checked by decryption and, for EvalSign and EvalFunc, on
+  their first output against the oracle;
 - CiphertextMulMatrix at 1024 x 1024 mod 2^35 against the host product,
   and the DM/AP accumulator: the 8 gates at TOY AP against the oracle and
   a batch-1024 STD128_AP NAND, checked by decryption and on its first 8
@@ -77,10 +83,12 @@ Then it drives the port's paths through `tfhe_tpu_torch.BinFHEContext`
   `pke/serial`: the depth-2 chain x*y*z at batch 8 and 64, eval_rotate,
   eval_add and eval_sub at batch 8, every slot decrypted, ciphertexts 0
   and B-1 torch.equal to the host `BFVRnsContext` or `BFVBehzContext`;
-- save and load (`BinFHEContext.save`/`load`): the STD128 NAND context
-  reloaded on the card gives the pre-save batch-4096 NAND outputs, and the
-  seeded TOY accelerated context reloads with its key still seed and B and
-  gives the host oracle's EvalSign bit for bit;
+- save and load (`BinFHEContext.save`/`load`): the STD128 NAND context,
+  saved in a thread of its own while the phases from the RNS functional
+  path to the seeded one run, reloaded on the card gives the pre-save
+  batch-4096 NAND outputs, and the seeded TOY accelerated context reloads
+  with its key still seed and B and gives the host oracle's EvalSign bit
+  for bit;
 - several devices (`parallel/mesh.py`, `parallel/limb_ntt.py`) on the
   contexts of the phases above: a ("batch",) mesh of every GPU, or of two
   shards on cuda:0 on a one-card machine, runs the batch-4096 STD128 NAND
@@ -115,7 +123,7 @@ GEMM_DIM = 1024             # K = M of the ciphertext-matrix product (examples/g
 GEMM_ITERS = 5
 DM_BATCH = 1024             # STD128_AP NAND batch on the DM path
 LWE_N_ACC = 1305           # rounds of the accelerated sets' rotation
-ROWS = list(range(64))      # rows held to the plain version at a main path's batch
+ROWS = list(range(32))      # rows held to the plain version at a main path's batch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 INT32_LANES_PER_SM = 64     # 32-bit integer multiply lanes per SM per clock
 # blind_rotate_rns at B = 4096, n = 1305, d2 = 4 in its earlier design (the
@@ -205,6 +213,37 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+def plain_rounds(fn, accs, a_idx, key, *args):
+    """fn(*accs, a_idx, key, *args), a plain rotation over the n rounds of
+    key [n, rows, N] and a_idx [B, n], run as n replays of a CUDA graph of
+    one round of fn, each fed the next round's exponents and key rows and
+    the last one's accumulators: the same torch kernels on the same values
+    as one eager call over all rounds, launched by the card instead of one
+    by one from Python (the eager call's ~1000 launches a round set its
+    time). `accs` is one accumulator or a tuple; returns what fn does."""
+    import torch
+
+    single = isinstance(accs, torch.Tensor)
+    state = [a.clone() for a in ((accs,) if single else accs)]
+    idx, rows = a_idx[:, :1].clone(), key[:1].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*state, idx, rows, *args)    # uploads the tables before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*state, idx, rows, *args)
+    out = (out,) if single else out
+    for r in range(key.shape[0]):
+        idx.copy_(a_idx[:, r:r + 1])
+        rows.copy_(key[r:r + 1])
+        graph.replay()
+        for s, o in zip(state, out):
+            s.copy_(o)
+    return state[0] if single else tuple(state)
+
+
 def int32_peak_per_s() -> float:
     """The card's 32-bit integer multiply rate: SMs x 64 lanes x the maximum
     SM clock that nvidia-smi reports."""
@@ -287,10 +326,12 @@ def rotate64_cases() -> dict:
     STD192Q_OPT (2^12) and STD256 (29 bits, 2^8, d2 = 8), the _OPT rows of
     STD128Q and STD256 sharing their rows' shapes; the reference's 54-bit
     prime at the accelerated sets' bases (2^18, d2 = 4, and 2^27, d2 = 2,
-    throw 1); and the smaller rings at 54-bit primes: N = 256 as the
-    accelerated sets' 2^18, N = 512 at base 2^27 with no throw, N = 1024 at
-    base 2^9 with four kept digits and two thrown, and N = 512 at base 2
-    (a 40-bit prime, 36 digits thrown)."""
+    throw 1); the same two at N = 4096 and its prime ntt_prime(54, 8192)
+    (the cluster layout; base 2^27 keeps one digit a round); and the
+    smaller rings at 54-bit primes: N = 256 as the accelerated sets' 2^18,
+    N = 512 at base 2^27 with no throw, N = 1024 at base 2^9 with four kept
+    digits and two thrown, and N = 512 at base 2 (a 40-bit prime, 36 digits
+    thrown)."""
     from tfhe_tpu_torch import ParamSet, from_param_set
     from tfhe_tpu_torch.utils.numtheory import ntt_prime
 
@@ -302,6 +343,9 @@ def rotate64_cases() -> dict:
     q54 = ntt_prime(54, 2 * 2048)
     cases["Q54, base 2^18"] = (2048, q54, 1 << 18, 4, 1)
     cases["Q54, base 2^27"] = (2048, q54, 1 << 27, 2, 1)
+    q54_4k = ntt_prime(54, 2 * RING_N)
+    cases["N=4096, Q54, base 2^18"] = (RING_N, q54_4k, 1 << 18, 4, 1)
+    cases["N=4096, Q54, base 2^27"] = (RING_N, q54_4k, 1 << 27, 2, 1)
     cases["N=256, Q54, base 2^18"] = (256, ntt_prime(54, 2 * 256), 1 << 18, 4, 1)
     cases["N=512, Q54, base 2^27"] = (512, ntt_prime(54, 2 * 512), 1 << 27, 2, 0)
     cases["N=1024, Q54, base 2^9"] = (1024, ntt_prime(54, 2 * 1024), 1 << 9, 8, 2)
@@ -316,11 +360,11 @@ def gate_kernel_vs_plain(rng, Q: int, peak: float) -> tuple[dict, dict]:
     then every case of `gate_cases` at a small odd batch (B = 5, the ragged
     edge of a batch) over 8 rounds, rows 0, 1 and 2 of the exponents 0, N
     and 2N - 1 in all rounds; then the main path's B = GATE_BATCH over all
-    512 rounds, which is returned and set beside EARLIER_GATE_MS. Last, the
-    mixed logQ = 11 shape of EvalFloor (B = GATE_BATCH, n = LWE_N_ACC,
-    N = 1024, d2 = 10: base 2^5, one digit thrown): the kernel over the whole
-    batch, the plain version on ROWS and the last row of the same inputs,
-    whose timing is returned second."""
+    512 rounds (`gate_rows_case`: the plain version on ROWS and the last
+    row), which is returned and set beside EARLIER_GATE_MS. Last, the mixed
+    logQ = 11 shape of EvalFloor (B = GATE_BATCH, n = LWE_N_ACC, N = 1024,
+    d2 = 10: base 2^5, one digit thrown) the same way, whose timing is
+    returned second."""
     import numpy as np
     import torch
 
@@ -353,12 +397,12 @@ def gate_kernel_vs_plain(rng, Q: int, peak: float) -> tuple[dict, dict]:
             f"throw={throw} B={B} n={n} (torch.equal, tolerance 0): max_abs_err {err}; "
             f"kernel {ms:.3f} ms, plain torch {plain_ms:.3f} ms, bound {b_ms:.3f} ms by "
             f"{b_by}, kernel at {100 * b_ms / ms:.1f}% of it ({time.time() - t0:.1f} s)")
-        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
 
     compare(64, 16)
     for N, Qc, d2, base_g, throw in gate_cases():
         compare(5, 8, N, Qc, d2, base_g, throw, edge=True)
-    timing = compare(GATE_BATCH, 512)
+    timing = gate_rows_case(rng, Q, peak, GATE_BATCH, 512, 1024, 8, 1 << 7, 0, ROWS)
+    worst = max(worst, timing["max_abs_err"])
     log(f"blind_rotate at B={GATE_BATCH} n=512 d2=8: {timing['ms']:.3f} ms, "
         f"{100 * timing['bound_ms'] / timing['ms']:.1f}% of its bound; the earlier design "
         f"(every NTT stage through shared memory, values and companions read) took "
@@ -367,15 +411,16 @@ def gate_kernel_vs_plain(rng, Q: int, peak: float) -> tuple[dict, dict]:
 
     mixed = gate_rows_case(rng, Q, peak, GATE_BATCH, LWE_N_ACC, 1024, 10, 1 << 5, 1, ROWS)
     worst = max(worst, mixed["max_abs_err"])
-    return {"max_abs_err": worst, **timing}, mixed
+    return {**timing, "max_abs_err": worst}, mixed
 
 
 def gate_rows_case(rng, Q: int, peak: float, B: int, n: int, N: int, d2: int,
                    base_g: int, throw: int, rows: list) -> dict:
     """blind_rotate at a main path's full shape: the kernel over the whole
-    batch (a first launch, then timed), the plain version on `rows` and the
-    last row of the same inputs, held equal with tolerance 0; rows 0, 1 and
-    2 of the exponents hold 0, N and 2N - 1 in all rounds."""
+    batch (a first launch, then timed), the plain version (`plain_rounds`)
+    on `rows` and the last row of the same inputs, held equal with
+    tolerance 0; rows 0, 1 and 2 of the exponents hold 0, N and 2N - 1 in
+    all rounds."""
     import numpy as np
     import torch
 
@@ -391,8 +436,8 @@ def gate_rows_case(rng, Q: int, peak: float, B: int, n: int, N: int, d2: int,
     kernel = lambda: rotate_kernel.rotate(acc, a_idx, bsk, Q, base_g, throw)  # noqa: E731
     got, first_ms = timed_once(kernel)
     rows = rows + [B - 1]
-    want, plain_ms = timed_once(lambda: blindrotate.blind_rotate(
-        acc[rows], a_idx[rows], bsk, Q, base_g, throw))
+    want, plain_ms = timed_once(lambda: plain_rounds(
+        blindrotate.blind_rotate, acc[rows], a_idx[rows], bsk, Q, base_g, throw))
     err = max_err(got[rows], want)
     check(torch.equal(got[rows], want), f"blind_rotate != plain at N={N}, B={B}, n={n}, "
           f"d2={d2}, rows 0..{len(rows) - 2} and {B - 1} (max abs err {err})")
@@ -401,10 +446,11 @@ def gate_rows_case(rng, Q: int, peak: float, B: int, n: int, N: int, d2: int,
     log(f"blind_rotate == plain at N={N} Q={Q} d2={d2} base 2^{base_g.bit_length() - 1} "
         f"throw={throw} B={B} n={n} on rows 0..{len(rows) - 2} and {B - 1} (torch.equal, "
         f"tolerance 0): max_abs_err {err}; kernel over all {B} rows {first_ms:.3f} ms (first "
-        f"launch) and {ms:.3f} ms, plain torch on the {len(rows)} rows {plain_ms:.3f} ms, "
+        f"launch) and {ms:.3f} ms, plain torch on the {len(rows)} rows (a graph a round) "
+        f"{plain_ms:.3f} ms, "
         f"bound {b_ms:.3f} ms by {b_by}, kernel at {100 * b_ms / ms:.1f}% of it "
         f"({time.time() - t0:.1f} s)")
-    return {"ms": ms, "plain_ms_rows": plain_ms, "plain_rows": len(rows), "bound_ms": b_ms,
+    return {"ms": ms, "plain_ms": plain_ms, "plain_rows": len(rows), "bound_ms": b_ms,
             "bound_by": b_by, "share": b_ms / ms, "max_abs_err": err}
 
 
@@ -413,9 +459,9 @@ def rns_case(rng, q1: int, q2: int, peak: float, B: int, n: int, d2: int, N: int
     """blind_rotate_rns against its plain version on the card at q1, q2
     with tolerance 0 (torch.equal), timed: the kernel over the whole batch,
     the plain version over it too or, with `rows`, on those rows and the
-    last one of the same inputs. Rows 0, 1 and 2 of the exponents hold 0,
-    N and 2N - 1 in all rounds; the key holds valid Shoup companions of
-    random values < qi."""
+    last one of the same inputs (`plain_rounds`). Rows 0, 1 and 2 of the
+    exponents hold 0, N and 2N - 1 in all rounds; the key holds valid Shoup
+    companions of random values < qi."""
     import numpy as np
     import torch
 
@@ -440,8 +486,12 @@ def rns_case(rng, q1: int, q2: int, peak: float, B: int, n: int, d2: int, N: int
     if rows is not None:
         rows = rows + [B - 1]
         p_acc, p_idx, got = [a[rows] for a in acc], a_idx[rows], [g[rows] for g in got]
-    want, plain_ms = timed_once(lambda: blindrotate_rns.blind_rotate_rns(
-        *p_acc, p_idx, key, q1, q2, base_g, throw))
+    if rows is None:
+        want, plain_ms = timed_once(lambda: blindrotate_rns.blind_rotate_rns(
+            *p_acc, p_idx, key, q1, q2, base_g, throw))
+    else:
+        want, plain_ms = timed_once(lambda: plain_rounds(
+            blindrotate_rns.blind_rotate_rns, p_acc, p_idx, key, q1, q2, base_g, throw))
     err = max(max_err(g, w) for g, w in zip(got, want))
     on = "" if rows is None else f" on rows 0..{len(rows) - 2} and {B - 1}"
     check(all(torch.equal(g, w) for g, w in zip(got, want)),
@@ -449,7 +499,8 @@ def rns_case(rng, q1: int, q2: int, peak: float, B: int, n: int, d2: int, N: int
           f"(max abs err {err})")
     ms = cuda_ms(kernel, reps=2)
     b_ms, b_by = bound(B, n, N, d2, 2, peak)
-    plain = "plain torch" if rows is None else f"plain torch on the {len(rows)} rows"
+    plain = ("plain torch" if rows is None
+             else f"plain torch on the {len(rows)} rows (a graph a round)")
     log(f"blind_rotate_rns == plain at N={N} d2={d2} throw={throw} B={B} n={n}{on} "
         f"(torch.equal, tolerance 0): max_abs_err {err}; kernel {ms:.3f} ms (first launch "
         f"{first_ms:.3f} ms), {plain} {plain_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}, "
@@ -465,16 +516,15 @@ def rns_kernel_vs_plain(rng, q1: int, q2: int, peak: float) -> dict:
     """blind_rotate_rns against its plain version on the card at the
     accelerated sets' q1, q2 (`rns_case`): at N = 2048 and throw = 1,
     d2 = 4 (base 2^18, EvalSign/EvalDecomp) and d2 = 2 (base 2^27,
-    EvalFunc) at B = 64 over 16 rounds and at B = 256 over all 1305 rounds;
-    then every ring size and digit count of the one-block layout at a small
-    odd batch (B = 5, the ragged edge of a batch) over 8 rounds with
-    throw = 0: N in {256, 512, 1024, 2048}, d2 in {2, 6, 8}; then the main
+    EvalFunc) at B = 64 over 16 rounds; then every ring size and digit
+    count of the one-block layout at a small odd batch (B = 5, the ragged
+    edge of a batch) over 8 rounds with throw = 0: N in {256, 512, 1024,
+    2048}, d2 in {2, 6, 8}; then the main
     path's B = FUNC_BATCH, n = 1305 at d2 = 4, the plain version on ROWS
     and the last row, which is returned and set beside EARLIER_RNS_MS."""
     worst = 0
     for d2 in (4, 2):
-        for B, n in ((64, 16), (256, LWE_N_ACC)):
-            worst = max(worst, rns_case(rng, q1, q2, peak, B, n, d2)["max_abs_err"])
+        worst = max(worst, rns_case(rng, q1, q2, peak, 64, 16, d2)["max_abs_err"])
     for N in (256, 512, 1024, 2048):
         for d2 in (2, 6, 8):
             worst = max(worst, rns_case(rng, q1, q2, peak, 5, 8, d2, N, throw=0)["max_abs_err"])
@@ -487,113 +537,129 @@ def rns_kernel_vs_plain(rng, q1: int, q2: int, peak: float) -> dict:
     return {**timing, "max_abs_err": max(worst, timing["max_abs_err"])}
 
 
-def rotate64_kernel_vs_plain(rng, peak: float) -> tuple[dict, dict]:
+def rotate64_key(rng, Q: int, d2: int, n: int, N: int):
+    """A random key in pack_bsk64's layout on the card: valid companions of
+    random values < Q."""
+    import torch
+
+    from tfhe_tpu_torch.ops.modmath import shoup64
+
+    return torch.from_numpy(shoup64(rng.integers(0, Q, (n, 4 * d2, N)), Q)).cuda()
+
+
+def fewer_digits(key, d2: int):
+    """The rows of a pack_bsk64 key for the first d2 / 2 digits: a key of
+    d2 rows a (key, out) pair, from one with more."""
+    n, rows, N = key.shape
+    if rows == 4 * d2:
+        return key
+    return key.view(n, 4, rows // 4, N)[:, :, :d2].reshape(n, 4 * d2, N).contiguous()
+
+
+def rotate64_case(rng, peak: float, label: str, N: int, Q: int, base_g: int, d2: int,
+                  throw: int, B: int, n: int, rows: list | None = None, key=None) -> dict:
     """blind_rotate64 against its plain version on the card with tolerance
-    0 (torch.equal): every case of `rotate64_cases` at B = 64 over 16
-    rounds, rows 0, 1 and 2 of the exponents 0, N and 2N - 1 in all rounds;
-    then STD128Q at B = 256 over all 1024 rounds (the first timing
-    returned). Then the main paths' own shapes, all rounds: STD128Q at B = GATE_BATCH, n = 1024
-    (the NAND) and the 54-bit prime at B = SIGN64_BATCH, n = 1305, d2 = 4
-    and d2 = 2 (EvalSign); there the plain version runs on ROWS of the same
-    inputs (its time over the whole batch would be minutes) and those rows
-    of the kernel's output must equal it, and the kernel's own launches are
-    timed against their bound; those timings are returned beside the first.
-    Last, the kernel alone at the 54-bit prime, B = GATE_BATCH, n = 1305,
-    d2 = 4. The key holds valid companions of random values < Q. Returns
-    (the kernels line's numbers, the main shapes' timings)."""
+    0 (torch.equal), timed: the kernel over the whole batch (a first launch,
+    then timed), the plain version over it too or, with `rows`, on those
+    rows and the last one of the same inputs (`plain_rounds`). Rows 0, 1
+    and 2 of the exponents hold 0, N and 2N - 1 in all rounds; `key` (else a new
+    `rotate64_key`) holds valid companions of random values < Q."""
     import numpy as np
     import torch
 
     from tfhe_tpu_torch.ops import blindrotate64, rotate64_kernel
-    from tfhe_tpu_torch.ops.modmath import shoup64
+
+    t0 = time.time()
+    acc = torch.from_numpy(rng.integers(0, Q, (B, 2, N))).cuda()
+    a_np = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
+    a_np[:3] = np.array([0, N, 2 * N - 1], dtype=np.int32)[:, None]
+    a_idx = torch.from_numpy(a_np).cuda()
+    if key is None:
+        key = rotate64_key(rng, Q, d2, n, N)
+    kernel = lambda: rotate64_kernel.rotate64(acc, a_idx, key, Q, base_g, throw)  # noqa: E731
+    got, first_ms = timed_once(kernel)
+    p_acc, p_idx = acc, a_idx
+    if rows is not None:
+        rows = rows + [B - 1]
+        p_acc, p_idx, got = acc[rows], a_idx[rows], got[rows]
+    if rows is None:
+        want, plain_ms = timed_once(
+            lambda: blindrotate64.blind_rotate64(p_acc, p_idx, key, Q, base_g, throw))
+    else:
+        want, plain_ms = timed_once(lambda: plain_rounds(
+            blindrotate64.blind_rotate64, p_acc, p_idx, key, Q, base_g, throw))
+    err = max_err(got, want)
+    on = "" if rows is None else f" on rows 0..{len(rows) - 2} and {B - 1}"
+    check(torch.equal(got, want), f"blind_rotate64 != plain at {label}, B={B}, n={n}{on} "
+          f"(max abs err {err})")
+    ms = cuda_ms(kernel, reps=2 if rows is None else 1)
+    b_ms, b_by = bound(B, n, N, d2, 1, peak, word=8)
+    plain = ("plain torch" if rows is None
+             else f"plain torch on the {len(rows)} rows (a graph a round)")
+    log(f"blind_rotate64 == plain at {label} (N={N} d2={d2} throw={throw}) B={B} n={n}{on} "
+        f"(torch.equal, tolerance 0): max_abs_err {err}; kernel {ms:.3f} ms (first launch "
+        f"{first_ms:.3f} ms), {plain} {plain_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}, "
+        f"kernel at {100 * b_ms / ms:.1f}% of it ({time.time() - t0:.1f} s)")
+    out = {"ms": ms, "first_ms": first_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "share": b_ms / ms, "max_abs_err": err}
+    if rows is not None:
+        out["plain_rows"] = len(rows)
+    return out
+
+
+def rotate64_kernel_vs_plain(rng, peak: float) -> tuple[dict, dict]:
+    """blind_rotate64 against its plain version on the card with tolerance
+    0 (`rotate64_case`): every case of `rotate64_cases` at B = 64 over 16
+    rounds; then the main paths' own shapes, all rounds: STD128Q at
+    B = GATE_BATCH, n = 1024 (the NAND), set beside EARLIER_R64_MS and
+    returned for the kernels line, and the 54-bit prime at B = SIGN64_BATCH,
+    n = 1305, d2 = 4 and d2 = 2 (EvalSign); there the plain version runs on
+    ROWS and the last row of the same inputs (its time over the whole batch
+    would be minutes). Last, the kernel alone at the 54-bit prime,
+    B = GATE_BATCH, n = 1305, d2 = 4. Returns (the kernels line's numbers,
+    the main shapes' timings)."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch.ops import rotate64_kernel
 
     cases = rotate64_cases()
     worst = 0
 
-    def inputs(name, B, n, key=None):
-        N, Q, base_g, d2, throw = cases[name]
-        acc = torch.from_numpy(rng.integers(0, Q, (B, 2, N))).cuda()
-        a_np = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
-        a_np[:3] = np.array([0, N, 2 * N - 1], dtype=np.int32)[:, None]
-        a_idx = torch.from_numpy(a_np).cuda()
-        if key is None:
-            key = torch.from_numpy(shoup64(rng.integers(0, Q, (n, 4 * d2, N)), Q)).cuda()
-        return acc, a_idx, key
-
-    def launchers(name, acc, a_idx, key):
-        _, Q, base_g, _, throw = cases[name]
-        return lambda: rotate64_kernel.rotate64(acc, a_idx, key, Q, base_g, throw), \
-            lambda: blindrotate64.blind_rotate64(acc, a_idx, key, Q, base_g, throw)
-
-    def compare(name, B, n):
+    def case(name, B, n, rows=None, key=None):
         nonlocal worst
-        t0 = time.time()
-        kernel, plain = launchers(name, *inputs(name, B, n))
-        got = kernel()
-        want, plain_ms = timed_once(plain)
-        err = max_err(got, want)
-        worst = max(worst, err)
-        check(torch.equal(got, want), f"blind_rotate64 != plain at {name}, B={B}, n={n} "
-              f"(max abs err {err})")
-        ms = cuda_ms(kernel, reps=2)
-        N, d2 = cases[name][0], cases[name][3]
-        b_ms, b_by = bound(B, n, N, d2, 1, peak, word=8)
-        log(f"blind_rotate64 == plain at {name} (N={N} d2={d2}) B={B} n={n} "
-            f"(torch.equal, tolerance 0): max_abs_err {err}; kernel {ms:.3f} ms, plain "
-            f"torch {plain_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}, kernel at "
-            f"{100 * b_ms / ms:.1f}% of it ({time.time() - t0:.1f} s)")
-        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        out = rotate64_case(rng, peak, name, *cases[name], B, n, rows, key)
+        worst = max(worst, out["max_abs_err"])
+        return out
 
-    def compare_rows(name, B, n, key=None):
-        """The kernel over the whole batch, the plain version on ROWS of
-        it; returns the key for another batch of the same shape."""
-        nonlocal worst
-        t0 = time.time()
-        acc, a_idx, key = inputs(name, B, n, key)
-        kernel, _ = launchers(name, acc, a_idx, key)
-        got, first_ms = timed_once(kernel)
-        rows = ROWS + [B - 1]
-        _, plain = launchers(name, acc[rows], a_idx[rows], key)
-        want, plain_ms = timed_once(plain)
-        err = max_err(got[rows], want)
-        worst = max(worst, err)
-        check(torch.equal(got[rows], want), f"blind_rotate64 != plain at {name}, B={B}, "
-              f"n={n}, rows 0..{len(ROWS) - 1} and {B - 1} (max abs err {err})")
-        ms = cuda_ms(kernel, reps=1)
-        N, d2 = cases[name][0], cases[name][3]
-        b_ms, b_by = bound(B, n, N, d2, 1, peak, word=8)
-        log(f"blind_rotate64 == plain at {name} (N={N} d2={d2}) B={B} n={n} on rows "
-            f"0..{len(ROWS) - 1} and {B - 1} (torch.equal, tolerance 0): max_abs_err "
-            f"{err}; kernel over all {B} rows {first_ms:.3f} ms (first launch) and "
-            f"{ms:.3f} ms, plain torch on the {len(rows)} rows {plain_ms:.3f} ms, bound "
-            f"{b_ms:.3f} ms by {b_by}, kernel at {100 * b_ms / ms:.1f}% of it "
-            f"({time.time() - t0:.1f} s)")
-        shapes[f"{name}, B={B}, n={n}"] = {"ms": ms, "first_ms": first_ms,
-                                           "bound_ms": b_ms, "share": b_ms / ms}
-        return key
-
-    shapes = {}
     for name in cases:
-        compare(name, 64, 16)
-    timing = compare("STD128Q", 256, 1024)
-    compare_rows("STD128Q", GATE_BATCH, 1024)
-    ms = shapes[f"STD128Q, B={GATE_BATCH}, n=1024"]["ms"]
-    log(f"blind_rotate64 at STD128Q B={GATE_BATCH} n=1024: {ms:.3f} ms; the earlier "
+        case(name, 64, 16)
+    shapes = {}
+    N, Q, base_g, d2, throw = cases["Q54, base 2^18"]
+    key = rotate64_key(rng, Q, d2, LWE_N_ACC, N)
+    for name, B, n, k in (("STD128Q", GATE_BATCH, 1024, None),
+                          ("Q54, base 2^18", SIGN64_BATCH, LWE_N_ACC, key),
+                          ("Q54, base 2^27", SIGN64_BATCH, LWE_N_ACC, fewer_digits(key, 2))):
+        shapes[f"{name}, B={B}, n={n}"] = case(name, B, n, ROWS, k)
+    timing = shapes[f"STD128Q, B={GATE_BATCH}, n=1024"]
+    log(f"blind_rotate64 at STD128Q B={GATE_BATCH} n=1024: {timing['ms']:.3f} ms; the earlier "
         f"design (every NTT stage through shared memory, twist and untwist passes, a "
         f"Barrett pass) took {EARLIER_R64_MS} ms on an NVIDIA H100 80GB HBM3 at 700 W: "
-        f"{EARLIER_R64_MS / ms:.2f}x")
-    key = compare_rows("Q54, base 2^18", SIGN64_BATCH, LWE_N_ACC)
-    compare_rows("Q54, base 2^27", SIGN64_BATCH, LWE_N_ACC)
-    kernel, _ = launchers("Q54, base 2^18", *inputs("Q54, base 2^18", GATE_BATCH,
-                                                     LWE_N_ACC, key))
+        f"{EARLIER_R64_MS / timing['ms']:.2f}x")
+
+    acc = torch.from_numpy(rng.integers(0, Q, (GATE_BATCH, 2, N))).cuda()
+    a_idx = torch.from_numpy(rng.integers(0, 2 * N, (GATE_BATCH, LWE_N_ACC)).astype(
+        np.int32)).cuda()
+    kernel = lambda: rotate64_kernel.rotate64(acc, a_idx, key, Q, base_g, throw)  # noqa: E731
     kernel()
     ms = cuda_ms(kernel, reps=1)
-    b_ms, b_by = bound(GATE_BATCH, LWE_N_ACC, 2048, 4, 1, peak, word=8)
+    b_ms, b_by = bound(GATE_BATCH, LWE_N_ACC, N, d2, 1, peak, word=8)
     log(f"blind_rotate64 alone at Q54, base 2^18 B={GATE_BATCH} n={LWE_N_ACC}: {ms:.3f} "
         f"ms, bound {b_ms:.3f} ms by {b_by}, kernel at {100 * b_ms / ms:.1f}% of it")
     shapes[f"Q54, base 2^18, B={GATE_BATCH}, n={LWE_N_ACC}"] = {
         "ms": ms, "bound_ms": b_ms, "share": b_ms / ms}
-    return {"max_abs_err": worst, **timing}, shapes
+    line = {k: timing[k] for k in ("ms", "plain_ms", "plain_rows", "bound_ms", "bound_by")}
+    return {"max_abs_err": worst, **line}, shapes
 
 
 GATE_TRUTH = {
@@ -690,16 +756,20 @@ def std128_nand(rng, card: str) -> dict:
 
 
 def accelerated_contexts(param_set, log_qs=(17, 12), rns_modulus=None, func=True,
-                         seeded=False, N=0):
+                         seeded=False, N=0, shared=None):
     """The sign/decomp context (logQ 17, time optimization, bases {2^18,
     2^27}; logQ 23 resolves to the same parameters) and, with `func`, the
     EvalFunc context (logQ 12, arbFunc), numDigitsToThrow 1, keys made on
-    the host once per LWE block: the func context reuses the ring secret
-    and the switching key. With `seeded`, the switching key is the seeded
-    (threefry) key of bench.py's accelerated rows, its <A, s> summed on the
-    card. Q is q1*q2, or with rns_modulus=False the reference's single
+    the host once per LWE block: the func context takes the sign context's
+    base-2^27 bootstrapping key (the same Q, N, base and digits thrown),
+    and with it the ring secret and the switching key. With `seeded`, the
+    switching key is the seeded (threefry) key of bench.py's accelerated
+    rows, its <A, s> summed on the card. Q is q1*q2, or with rns_modulus=False the reference's single
     54-bit prime. N is the ring dimension asked of `from_gpu_style` (0: the
-    set's own). Returns (sign_cc, func_cc or None, sk, keygen seconds)."""
+    set's own). `shared` = {"sk": LWE secret, "sk_n": ring secret, "ksk":
+    switching key} of another context of the same n, N, qKS and baseKS
+    gives the keys other than the bootstrapping keys. Returns (sign_cc,
+    func_cc or None, sk, keygen seconds)."""
     from tfhe_tpu_torch import BinFHEContext
 
     t0 = time.time()
@@ -707,15 +777,23 @@ def accelerated_contexts(param_set, log_qs=(17, 12), rns_modulus=None, func=True
     sign_cc.generate_binfhe_context(param_set, arb_func=False, log_q=log_qs[0], N=N,
                                     num_digits_to_throw=1, time_optimization=True,
                                     rns_modulus=rns_modulus)
-    sk = sign_cc.key_gen()
-    sign_cc.bt_key_gen(sk, bases={1 << 18, 1 << 27})
+    if shared is None:
+        sk = sign_cc.key_gen()
+        sign_cc.bt_key_gen(sk, bases={1 << 18, 1 << 27})
+    else:
+        sk = shared["sk"]
+        sign_cc.bt_key_gen(sk, sk_n=shared["sk_n"], ksk=shared["ksk"],
+                           bases={1 << 18, 1 << 27})
     func_cc = None
     if func:
         func_cc = BinFHEContext(seed=SEED + 1, seeded_ksk=seeded)
         func_cc.generate_binfhe_context(param_set, arb_func=True, log_q=log_qs[1], N=N,
                                         num_digits_to_throw=1, rns_modulus=rns_modulus)
-        key = sign_cc.bt_key
-        func_cc.bt_key_gen(sk, sk_n=key.sk_n, ksk=key.ksk)
+        ps, pf = sign_cc.params.rgsw, func_cc.params.rgsw
+        check((ps.N, ps.Q, pf.base_g, ps.num_digits_to_throw)
+              == (pf.N, pf.Q, 1 << 27, pf.num_digits_to_throw),
+              "the func context cannot take the sign context's 2^27 key")
+        func_cc.bt_key_load(sign_cc.bt_key_map[1 << 27])
     return sign_cc, func_cc, sk, time.time() - t0
 
 
@@ -857,7 +935,8 @@ def std128_accelerated(rng, card: str, seeded: bool = False) -> tuple[dict, dict
           f"STD128 accelerated: not one {kind} for both contexts")
     log(f"STD128 accelerated: N={p.lwe.N} n={p.lwe.n} Q={p.lwe.Q} = "
         f"{p.rgsw.rns_primes[0]} * {p.rgsw.rns_primes[1]}, qKS=2^35, baseKS=32; "
-        f"keygen (sign map 2^18, 2^27 + func 2^27, one {kind}) {keygen_s:.1f} s")
+        f"keygen (sign map 2^18, 2^27, the func context on its 2^27 key, one {kind}) "
+        f"{keygen_s:.1f} s")
     t0 = time.time()
     sign_cc.device_setup("cuda")
     func_cc.device_setup("cuda")
@@ -1055,17 +1134,23 @@ def std128_mixed(rng, card: str) -> None:
 
 
 def ring4096_kernels(rng, q1: int, q2: int, Q: int, peak: float) -> dict:
-    """Both kernels at N = 4096 against their plain versions on the card,
-    with tolerance 0: blind_rotate_rns (the two-block cluster) at every
-    digit count at B = 5 over 8 rounds with throw 0, at the accelerated
-    sets' d2 = 4 and 2 at B = 64 over 16 rounds, then at the main path's
-    B = RING_BATCH, n = LWE_N_ACC, d2 = 4 and 2, the plain version on
-    RING_ROWS and the last row; blind_rotate at Q (the logQ = 11 set's
-    27-bit prime) at d2 in {2, 8, 12}, throw 0 and 1, B = 5 over 8 rounds,
-    then at the EvalFloor and NAND shape (B = RING_BATCH, n = LWE_N_ACC,
-    base 2^5, one digit thrown, d2 = 10) the same way. Returns the full
-    shapes' timings by kernel."""
-    from tfhe_tpu_torch.ops import rotate_rns_kernel
+    """The three kernels at N = 4096 against their plain versions on the
+    card, with tolerance 0: blind_rotate_rns (the two-block cluster) at
+    every digit count at B = 5 over 8 rounds with throw 0, at the
+    accelerated sets' d2 = 4 and 2 at B = 64 over 16 rounds, then at the
+    main path's B = RING_BATCH, n = LWE_N_ACC, d2 = 4 and 2, the plain
+    version on RING_ROWS and the last row; blind_rotate at Q (the logQ = 11
+    set's 27-bit prime) at d2 in {2, 8, 12}, throw 0 and 1, B = 5 over 8
+    rounds, then at the EvalFloor and NAND shape (B = RING_BATCH,
+    n = LWE_N_ACC, base 2^5, one digit thrown, d2 = 10) the same way;
+    blind_rotate64 (the two-block cluster) at the single prime
+    ntt_prime(54, 8192) at d2 in {2, 4, 6, 8}, throw 0 and 1, B = 5 over 8
+    rounds (its B = 64 cases are `rotate64_cases`' N = 4096 rows), then at
+    the single-prime path's B = RING_BATCH, n = LWE_N_ACC, d2 = 4 (base
+    2^18) and d2 = 2 (base 2^27), one digit thrown, the same way. Returns
+    the full shapes' timings by kernel."""
+    from tfhe_tpu_torch.ops import rotate64_kernel, rotate_rns_kernel
+    from tfhe_tpu_torch.utils.numtheory import ntt_prime
 
     clusters = rotate_rns_kernel.max_active_clusters()
     log(f"blind_rotate_rns at N={RING_N}: one ciphertext on a cluster of two blocks of "
@@ -1083,7 +1168,24 @@ def ring4096_kernels(rng, q1: int, q2: int, Q: int, peak: float) -> dict:
             gate_rows_case(rng, Q, peak, 5, 8, RING_N, d2, base_g, throw, [0, 1, 2, 3])
     gate = {"d2=10": gate_rows_case(rng, Q, peak, RING_BATCH, LWE_N_ACC, RING_N, 10,
                                     1 << 5, 1, RING_ROWS)}
-    return {"blind_rotate_rns": rns, "blind_rotate": gate}
+
+    clusters = rotate64_kernel.max_active_clusters()
+    log(f"blind_rotate64 at N={RING_N}: one ciphertext on a cluster of two blocks of "
+        f"{RING_N // 8} threads, 32 N = {32 * RING_N // 1024} KB of shared memory each; "
+        f"the card holds {clusters} such clusters at once (cudaOccupancyMaxActiveClusters)")
+    q54 = ntt_prime(54, 2 * RING_N)
+    bases = {2: 1 << 27, 4: 1 << 18, 6: 1 << 14, 8: 1 << 9}
+    for d2, base_g in bases.items():
+        for throw in (0, 1):
+            rotate64_case(rng, peak, f"N={RING_N}, Q54", RING_N, q54, base_g, d2, throw, 5, 8)
+    key = rotate64_key(rng, q54, 4, LWE_N_ACC, RING_N)
+    r64 = {f"d2={d2}": rotate64_case(rng, peak, f"N={RING_N}, Q54", RING_N, q54, bases[d2],
+                                     d2, 1, RING_BATCH, LWE_N_ACC, RING_ROWS,
+                                     fewer_digits(key, d2))
+           for d2 in (4, 2)}
+    del key
+    r64["max_active_clusters"] = clusters
+    return {"blind_rotate_rns": rns, "blind_rotate": gate, "blind_rotate64": r64}
 
 
 def ring4096_contexts(rng) -> dict:
@@ -1112,8 +1214,9 @@ def ring4096_contexts(rng) -> dict:
           "the N = 4096 contexts do not share one ring and switching key")
     log(f"N={RING_N}: accelerated STD128 n={p.lwe.n} Q={p.lwe.Q} = {p.rgsw.rns_primes[0]} * "
         f"{p.rgsw.rns_primes[1]}, logQ=11 Q={pm.lwe.Q} q={pm.lwe.q}, qKS=2^35, "
-        f"baseKS={p.lwe.base_ks}; keygen (sign map 2^18, 2^27 + func 2^27, one seeded "
-        f"switching key, <A, s> on the card) {keygen_s:.1f} s, logQ=11 key (base 2^5) "
+        f"baseKS={p.lwe.base_ks}; keygen (sign map 2^18, 2^27, the func context on its 2^27 "
+        f"key, one seeded switching key, <A, s> on the card) {keygen_s:.1f} s, logQ=11 key "
+        f"(base 2^5) "
         f"{mixed_keygen_s:.1f} s")
     timing = {"N": RING_N, "batch": RING_BATCH, "keygen_s": keygen_s,
               "mixed_keygen_s": mixed_keygen_s}
@@ -1152,7 +1255,7 @@ def ring4096_contexts(rng) -> dict:
     timing["oracle_s"] = time.time() - t0
     log(f"host oracle EvalSign, EvalFunc, EvalFloor and NAND on the first {h} of each "
         f"{timing['oracle_s']:.1f} s")
-    return {"contexts": (sign_cc, func_cc, floor_cc), "key": key, "ops": ops,
+    return {"contexts": (sign_cc, func_cc, floor_cc), "key": key, "sk": sk, "ops": ops,
             "timing": timing, "ref": ref}
 
 
@@ -1205,6 +1308,102 @@ def ring4096_path(state: dict, card: str) -> dict:
             f"{s / B * 1e3:.4f} ms/ciphertext, {B / s:.1f} ops/s on {card}")
     timing["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"N={RING_N} peak device memory {timing['peak_device_GiB']:.2f} GiB")
+    return timing
+
+
+def ring4096_single_prime(rng, card: str, shared: dict) -> dict:
+    """The single-prime path at N = 4096 on the card: the STD128
+    accelerated sets `from_gpu_style(STD128, ..., N=4096,
+    rns_modulus=False)` (n = 1305, Q = ntt_prime(54, 8192), qKS = 2^35,
+    baseKS = 32, one digit thrown) on the LWE secret, ring secret and
+    seeded switching key of the N = 4096 RNS contexts (`shared`; the key's A
+    block is already drawn for the host oracle), so that only the
+    bootstrapping keys of bases 2^18 and 2^27 are made. EvalSign (a first and a warm call) and
+    EvalDecomp on the sign context (logQ 17, bases 2^18 and 2^27), EvalFunc
+    (the cube LUT) on the func context (logQ 12, arbFunc), at batch
+    RING_BATCH: every output decrypts right, the first RING_HEAD of
+    EvalSign and EvalFunc equal the host oracle bit for bit. Each call's
+    wall time and blind_rotate64's launches and device seconds in it are
+    logged; returns them with the keygen, oracle and set-up seconds and the
+    peak device memory."""
+    import numpy as np
+    import torch
+
+    from tfhe_tpu_torch import ParamSet, TorchBackend
+    from tfhe_tpu_torch.ops import backend as backend_mod
+
+    sign_cc, func_cc, sk, keygen_s = accelerated_contexts(
+        ParamSet.STD128, rns_modulus=False, seeded=True, N=RING_N, shared=shared)
+    p = sign_cc.params
+    check(p.lwe.N == RING_N and p.rgsw.rns_primes is None
+          and all(TorchBackend._path(cc.params) == "two_limb" for cc in (sign_cc, func_cc))
+          and func_cc.bt_key.ksk is sign_cc.bt_key.ksk is shared["ksk"],
+          f"the N = {RING_N} single-prime contexts are not two-limb sets on the shared keys")
+    log(f"N={RING_N} accelerated STD128, one prime: n={p.lwe.n} Q={p.lwe.Q} qKS=2^35 "
+        f"baseKS={p.lwe.base_ks}; keygen (bootstrapping keys for bases 2^18 and 2^27, the "
+        f"func context on the 2^27 one, on the RNS contexts' secrets and seeded switching "
+        f"key) {keygen_s:.1f} s")
+    timing = {"card": card, "N": RING_N, "batch": RING_BATCH, "Q": p.lwe.Q,
+              "keygen_s": keygen_s}
+
+    B, h = RING_BATCH, RING_HEAD
+    ct_s, delta = sign_inputs(sign_cc, sk, rng, B)
+    ct_d, m_d, p_d, P_d = decomp_inputs(sign_cc, sk, rng, B)
+    ct_f, lut, want_f, p_f = func_inputs(func_cc, sk, rng, B)
+    t0 = time.time()
+    for cc in (sign_cc, func_cc):
+        cc.device_clean()
+    ref = {"EvalSign": sign_cc.eval_sign(head(ct_s, h)),
+           "EvalFunc": func_cc.eval_func(head(ct_f, h), lut)}
+    timing["oracle_s"] = time.time() - t0
+    log(f"host oracle EvalSign and EvalFunc on the first {h} of each "
+        f"{timing['oracle_s']:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    for cc in (sign_cc, func_cc):
+        cc.device_setup("cuda")
+    torch.cuda.synchronize()
+    timing["device_setup_s"] = time.time() - t0
+    log(f"device_setup of both contexts (pack_bsk64, the shared switching table) "
+        f"{timing['device_setup_s']:.1f} s, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    sign_ok = lambda out: np.array_equal(sign_cc.decrypt(sk, out, 2),  # noqa: E731
+                                         (delta >= 0).astype(np.uint64))
+    # (name, call, run, check of the outputs); the first EvalSign also
+    # converts and uploads the second gadget base's key
+    calls = [
+        ("EvalSign", "first", lambda: sign_cc.eval_sign(ct_s), sign_ok),
+        ("EvalSign", "warm", lambda: sign_cc.eval_sign(ct_s), sign_ok),
+        ("EvalDecomp", "first", lambda: sign_cc.eval_decomp(ct_d),
+         lambda out: decomp_ok(sign_cc, sk, out, m_d, p_d, P_d)),
+        ("EvalFunc", "first", lambda: func_cc.eval_func(ct_f, lut),
+         lambda out: np.array_equal(
+             np.asarray(func_cc.decrypt(sk, out, p_f), dtype=np.int64), want_f)),
+    ]
+    for name, call, run, ok in calls:
+        with KernelClock(backend_mod, "rotate64") as clock:
+            t0 = time.time()
+            out = run()
+            wall = time.time() - t0
+            kernel_s = clock.ms() / 1e3
+        check(sign_cc.backend.device.type == "cuda" and func_cc.backend.device.type == "cuda",
+              f"N={RING_N} single-prime {name} is not on the card")
+        check(ok(out), f"N={RING_N} single-prime {name} decryption at B={B}")
+        if name in ref:
+            check(same(head(out, h), ref[name]), f"N={RING_N} single-prime {name}: the first "
+                  f"{h} outputs differ from the host oracle")
+        key = f"{name}_{call}"
+        timing[f"{key}_ms_per_ct"] = wall / B * 1e3
+        timing[f"{key}_kernel_s"] = kernel_s
+        timing[f"{key}_launches"] = len(clock.events)
+        log(f"N={RING_N} single-prime {name} B={B} {call} call: all decrypt right"
+            f"{f', the first {h} equal the host oracle bit for bit' if name in ref else ''}; "
+            f"wall {wall:.4f} s = {wall / B * 1e3:.4f} ms/ciphertext; blind_rotate64 "
+            f"{kernel_s:.4f} s in {len(clock.events)} launches; outside it (wall - kernel) "
+            f"{wall - kernel_s:.4f} s ({100 * (wall - kernel_s) / wall:.1f}%) on {card}")
+    timing["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"N={RING_N} single-prime peak device memory {timing['peak_device_GiB']:.2f} GiB")
     return timing
 
 
@@ -1948,15 +2147,64 @@ def bfv(rng, card: str) -> dict:
     return out
 
 
-def serial_round_trip(rng, card: str, std: dict) -> dict:
+class Saver:
+    """`cc.save` of the STD128 gate context in a thread of its own, into a
+    temporary directory outside the repo: its 1 GiB switching-key block
+    goes through zlib on one host core (which releases the GIL) while the
+    card-bound phases run, torch keeping the other cores. `join()` waits
+    for it, gives torch its threads back and re-raises what the save
+    raised; `close()` removes the directory."""
+
+    def __init__(self, cc):
+        import os
+        import tempfile
+        import threading
+
+        import torch
+
+        self.dir = tempfile.TemporaryDirectory()
+        self.path = os.path.join(self.dir.name, "std128.npz")
+        self.error, self.seconds = None, None
+        # one core for zlib: torch's parallel host loops would otherwise
+        # wait on the thread that shares its core
+        self.threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, self.threads - 1))
+
+        def run():
+            t0 = time.time()
+            try:
+                cc.save(self.path)
+            except Exception as e:  # re-raised by join()
+                self.error = e
+            self.seconds = time.time() - t0
+
+        self.thread = threading.Thread(target=run, name="std128-save", daemon=True)
+        self.thread.start()
+
+    def join(self) -> str:
+        import torch
+
+        self.thread.join()
+        torch.set_num_threads(self.threads)
+        if self.error is not None:
+            raise self.error
+        return self.path
+
+    def close(self) -> None:
+        self.thread.join()
+        self.dir.cleanup()
+
+
+def serial_round_trip(rng, card: str, std: dict, saver: Saver) -> dict:
     """BinFHEContext.save and load on the main path: the STD128 NAND
-    context of `std128_nand` is saved (tempfile, outside the repo), loaded
-    into a new context on the card, and its batch-4096 NAND on the same
-    inputs must equal the pre-save outputs; then the TOY accelerated
-    context with the seeded switching key is saved and loaded (the key
-    still seed and B, its A never materialized) and its EvalSign on the
-    card must equal the saved context's host oracle bit for bit. Returns
-    the file sizes and the save, load and device_setup seconds."""
+    context of `std128_nand`, saved by `saver` while earlier phases ran,
+    is loaded into a new context on the card, and its batch-4096 NAND on
+    the same inputs must equal the pre-save outputs; then the TOY
+    accelerated context with the seeded switching key is saved and loaded
+    (the key still seed and B, its A never materialized) and its EvalSign
+    on the card must equal the saved context's host oracle bit for bit.
+    Returns the file sizes, the save's seconds (in its thread), the wait
+    for it, and the load and device_setup seconds."""
     import os
     import tempfile
 
@@ -1967,15 +2215,15 @@ def serial_round_trip(rng, card: str, std: dict) -> dict:
 
     out = {"card": card}
     cc = std["cc"]
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "std128.npz")
-        t0 = time.time()
-        cc.save(path)
-        out["std128_save_s"] = time.time() - t0
-        out["std128_file_MB"] = os.path.getsize(path) / 1e6
-        t0 = time.time()
-        loaded = BinFHEContext.load(path)
-        out["std128_load_s"] = time.time() - t0
+    t0 = time.time()
+    path = saver.join()
+    out["std128_save_wait_s"] = time.time() - t0
+    out["std128_save_s"] = saver.seconds
+    out["std128_file_MB"] = os.path.getsize(path) / 1e6
+    t0 = time.time()
+    loaded = BinFHEContext.load(path)
+    out["std128_load_s"] = time.time() - t0
+    saver.close()
     key, key2 = cc.bt_key, loaded.bt_key
     check(loaded.params == cc.params and np.array_equal(key2.bsk_coeff, key.bsk_coeff)
           and np.array_equal(key2.ksk.A, key.ksk.A) and np.array_equal(key2.ksk.B, key.ksk.B),
@@ -1991,8 +2239,9 @@ def serial_round_trip(rng, card: str, std: dict) -> dict:
     m1, m2 = std["m"]
     check(np.array_equal(loaded.decrypt(std["sk"], got), 1 - (m1 & m2)),
           "STD128 reloaded NAND decryption")
-    log(f"STD128 context saved ({out['std128_file_MB']:.1f} MB, "
-        f"{out['std128_save_s']:.1f} s), loaded ({out['std128_load_s']:.1f} s), "
+    log(f"STD128 context saved ({out['std128_file_MB']:.1f} MB, {out['std128_save_s']:.1f} s "
+        f"in its thread beside the phases before this one, {out['std128_save_wait_s']:.1f} s "
+        f"waited for here), loaded ({out['std128_load_s']:.1f} s), "
         f"device_setup {out['std128_device_setup_s']:.1f} s: NAND B={GATE_BATCH} on the "
         f"card equal to the pre-save outputs")
     del loaded
@@ -2414,18 +2663,9 @@ def main() -> int:
     gate_launches = rotate_kernel.LAUNCHES
     check(gate_launches > 0, "the gate path did not launch blind_rotate")
     log(f"gate path: blind_rotate launches {gate_launches} ({time.time() - t0:.1f} s)")
-
-    # save and load: the STD128 gate context and the seeded TOY context,
-    # reloaded on the card, counts read just after
-    reset_counts()
-    t0 = time.time()
-    serial_timing = serial_round_trip(rng, card, std)
-    serial_gate_launches = rotate_kernel.LAUNCHES
-    serial_rns_launches = rotate_rns_kernel.LAUNCHES
-    check(serial_gate_launches > 0 and serial_rns_launches > 0,
-          "the reloaded contexts did not launch blind_rotate and blind_rotate_rns")
-    log(f"serialization phase: blind_rotate launches {serial_gate_launches}, "
-        f"blind_rotate_rns launches {serial_rns_launches} ({time.time() - t0:.1f} s)")
+    # the STD128 context's save runs in a thread from here to the
+    # serialization phase
+    saver = Saver(std["cc"])
 
     # the RNS functional path, counts read just after it
     reset_counts()
@@ -2447,7 +2687,7 @@ def main() -> int:
     reset_counts()
     t0 = time.time()
     mesh_timing = mesh_phase(rng, card, std, accel, contexts)
-    del std, accel
+    del accel
     mesh_launches = (rotate_kernel.LAUNCHES, rotate_rns_kernel.LAUNCHES,
                      rotate64_kernel.LAUNCHES)
     check(all(n > 0 for n in mesh_launches), "the mesh phase did not launch blind_rotate, "
@@ -2468,6 +2708,20 @@ def main() -> int:
     log(f"seeded functional path: blind_rotate_rns launches {seeded_launches} "
         f"({time.time() - t0:.1f} s); keygen {seeded_timing['keygen_s']:.1f} s against "
         f"{plain_timing['keygen_s']:.1f} s with the host switching key")
+
+    # save and load: the STD128 gate context (saved by `saver` beside the
+    # phases since the gate path) and the seeded TOY context, reloaded on
+    # the card, counts read just after
+    reset_counts()
+    t0 = time.time()
+    serial_timing = serial_round_trip(rng, card, std, saver)
+    del std
+    serial_gate_launches = rotate_kernel.LAUNCHES
+    serial_rns_launches = rotate_rns_kernel.LAUNCHES
+    check(serial_gate_launches > 0 and serial_rns_launches > 0,
+          "the reloaded contexts did not launch blind_rotate and blind_rotate_rns")
+    log(f"serialization phase: blind_rotate launches {serial_gate_launches}, "
+        f"blind_rotate_rns launches {serial_rns_launches} ({time.time() - t0:.1f} s)")
 
     # the 17 classic GINX sets through TorchBackend, counts read just after
     reset_counts()
@@ -2517,14 +2771,29 @@ def main() -> int:
                                     peak)
     log(f"N={RING_N} kernels against their plain versions: {time.time() - t0:.1f} s")
     reset_counts()
-    ring_timing = ring4096_path(ring4096_contexts(rng), card)
+    state = ring4096_contexts(rng)
+    ring_timing = ring4096_path(state, card)
     ring_launches = (rotate_kernel.LAUNCHES, rotate_rns_kernel.LAUNCHES)
     check(all(n > 0 for n in ring_launches), "the N = 4096 path did not launch blind_rotate "
           f"and blind_rotate_rns: {ring_launches}")
+    shared = {"sk": state["sk"], "sk_n": state["key"].sk_n, "ksk": state["key"].ksk}
+    del state
     torch.cuda.empty_cache()
     ring_timing["phase_s"] = time.time() - t0
     log(f"N={RING_N} phase: blind_rotate launches {ring_launches[0]}, blind_rotate_rns "
         f"launches {ring_launches[1]} ({ring_timing['phase_s']:.1f} s)")
+    # the single 54-bit prime at N = 4096 on the same secrets and switching
+    # key (blind_rotate64 as two-block clusters), counts read just after
+    reset_counts()
+    t0 = time.time()
+    prime4k_timing = ring4096_single_prime(rng, card, shared)
+    prime4k_launches = rotate64_kernel.LAUNCHES
+    check(prime4k_launches > 0, "the N = 4096 single-prime path did not launch blind_rotate64")
+    del shared
+    torch.cuda.empty_cache()
+    prime4k_timing["phase_s"] = time.time() - t0
+    log(f"N={RING_N} single-prime phase: blind_rotate64 launches {prime4k_launches} "
+        f"({prime4k_timing['phase_s']:.1f} s)")
 
     # CiphertextMulMatrix and the DM accumulator: torch ops, no hand kernel
     t0 = time.time()
@@ -2569,6 +2838,7 @@ def main() -> int:
                       "seeded": seeded_timing, "ckks_auto": auto_timing,
                       "bgv": bgv_timing, "bfv": bfv_timing, "serial": serial_timing,
                       "mesh": mesh_timing, "ring4096": ring_timing,
+                      "ring4096_single_prime": prime4k_timing,
                       "total_s": time.time() - t_start}), flush=True)
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
@@ -2588,8 +2858,8 @@ def main() -> int:
         {"name": "blind_rotate64", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate64.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate64.py:324",
-         "launches": nand_launches + prime_launches + mesh_launches[2], **r64_timing,
-         "library_ms": None},
+         "launches": nand_launches + prime_launches + mesh_launches[2] + prime4k_launches,
+         **r64_timing, "ring4096": ring_kernels["blind_rotate64"], "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

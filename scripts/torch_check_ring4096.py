@@ -7,16 +7,19 @@ Builds the three kernels (`_build.build`, one nvcc per source), prints what
 ptxas says of every instantiation's registers and spills (nothing when the
 libraries were built before in the same tree: `chip_smoke.py` prints it
 too), then runs
-`chip_smoke.ring4096_kernels`: `blind_rotate_rns` (the two-block cluster
-layout) and `blind_rotate` at N = 4096 held to their plain versions with
-tolerance 0 at every digit count (B = 5), at the accelerated sets' d2 = 4
-and 2 (B = 64), and at the main paths' B = 1024, n = 1305 on a head of
-rows, each timed with CUDA events against the bound `chip_smoke.py`
-computes, and the card's resident clusters. Then the N <= 2048 main
-shapes beside them: `blind_rotate_rns` at B = 4096, n = 1305, d2 = 4 and
-`blind_rotate` at STD128, B = 4096, n = 512, d2 = 8 (the plain versions on
-one row and the last). Prints the card's name and power limit, and one
-JSON line of the timings. Imports no jax.
+`chip_smoke.ring4096_kernels`: `blind_rotate_rns` and `blind_rotate64`
+(both as two-block clusters) and `blind_rotate` at N = 4096 held to their
+plain versions with tolerance 0 at every digit count (B = 5), at the
+accelerated sets' d2 = 4 and 2 (B = 64 for the RNS kernel), and at the
+main paths' B = 1024, n = 1305 on a head of rows, each timed with CUDA
+events against the bound `chip_smoke.py` computes, and the card's resident
+clusters of each cluster kernel. Then `blind_rotate64` at N = 4096 at
+B = 64 (`chip_smoke.rotate64_cases`), and the N <= 2048 main shapes beside
+them: `blind_rotate_rns` at B = 4096, n = 1305, d2 = 4, `blind_rotate` at
+STD128, B = 4096, n = 512, d2 = 8, and `blind_rotate64` at the 54-bit
+prime, B = 1024, n = 1305, d2 = 4 and 2 (the plain versions on one row and
+the last). Prints the card's name and power limit, and one JSON line of
+the timings. Imports no jax.
 """
 
 from __future__ import annotations
@@ -59,6 +62,12 @@ def main() -> int:
                                    rows=[0])
     out["gate_N1024"] = cs.gate_rows_case(rng, from_param_set(ParamSet.STD128).lwe.Q, peak,
                                           cs.GATE_BATCH, 512, 1024, 8, 1 << 7, 0, [0])
+    cases = cs.rotate64_cases()
+    for name in ("N=4096, Q54, base 2^18", "N=4096, Q54, base 2^27"):
+        cs.rotate64_case(rng, peak, name, *cases[name], 64, 16)
+    for name in ("Q54, base 2^18", "Q54, base 2^27"):
+        out[f"r64_N2048, {name}"] = cs.rotate64_case(rng, peak, name, *cases[name],
+                                                     cs.SIGN64_BATCH, cs.LWE_N_ACC, [0])
     print(json.dumps(out), flush=True)
     return 0
 

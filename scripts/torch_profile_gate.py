@@ -17,8 +17,9 @@ With `--kernel-only` (about a minute): builds `csrc/blind_rotate.cu`,
 prints what ptxas says of its registers and spills, and runs
 `chip_smoke.gate_kernel_vs_plain`: the kernel held to its plain version
 (`torch.equal`) at B = 64, n = 16 at STD128 shapes, at every case of
-`chip_smoke.gate_cases` (B = 5, n = 8), and at B = 4096, n = 512, where it
-is timed with CUDA events against the bound `chip_smoke.py` computes, on
+`chip_smoke.gate_cases` (B = 5, n = 8), and at B = 4096, n = 512 and the
+mixed logQ = 11 shape (the plain version on a head of rows), where it is
+timed with CUDA events against the bound `chip_smoke.py` computes, on
 random keys, without keygen. Prints one JSON line. Imports no jax.
 """
 
@@ -57,9 +58,9 @@ def kernel_only(card: str) -> None:
         print(f"ptxas: {ln}", flush=True)
     rec = {"phase": "gate_kernel", "card": card, "build_s": time.time() - t0, "ptxas": ptxas}
     rng = np.random.default_rng(chip_smoke.SEED)
-    rec.update(chip_smoke.gate_kernel_vs_plain(
-        rng, from_param_set(ParamSet.STD128).lwe.Q, chip_smoke.int32_peak_per_s()))
-    rec["share"] = rec["bound_ms"] / rec["ms"]
+    line, rec["mixed"] = chip_smoke.gate_kernel_vs_plain(
+        rng, from_param_set(ParamSet.STD128).lwe.Q, chip_smoke.int32_peak_per_s())
+    rec.update(line)
     print(json.dumps(rec), flush=True)
 
 

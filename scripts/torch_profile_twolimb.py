@@ -34,9 +34,9 @@ from `csrc/register_ntt64.cuh`; the difference over 8), and writes the
 kernel's SASS and its opcode counts to `chiprun_out/blind_rotate64.sass`;
 then runs `chip_smoke.rotate64_kernel_vs_plain`: the kernel held to its
 plain version (`torch.equal`) in every case of `chip_smoke.rotate64_cases`
-(B = 64, n = 16), at STD128Q B = 256 over all 1024 rounds, and at the main
-paths' shapes (STD128Q B = 4096, n = 1024; the 54-bit prime B = 1024,
-n = 1305, d2 = 4 and 2; on 65 rows), each timed with CUDA events against
+(B = 64, n = 16; N = 4096 among them), and at the main paths' shapes
+(STD128Q B = 4096, n = 1024; the 54-bit prime B = 1024, n = 1305, d2 = 4
+and 2; on 33 rows), each timed with CUDA events against
 `chip_smoke.bound`, on random keys, without keygen. Prints one JSON line.
 Imports no jax.
 """

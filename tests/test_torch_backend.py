@@ -153,11 +153,11 @@ def test_ring4096_params_are_supported(param_set, log_q, arb, path):
 
 @pytest.mark.parametrize("params", [
     params_mod.from_param_set(params_mod.ParamSet.STD192, params_mod.Method.AP),
-    params_mod.from_gpu_style(params_mod.ParamSet.TOY, False, 17, N=4096,
-                              rns_modulus=False),                         # two-limb, N = 4096
+    params_mod.from_gpu_style(params_mod.ParamSet.TOY, False, 17, N=8192,
+                              rns_modulus=False),                         # two-limb, N = 8192
     params_mod.from_gpu_style(params_mod.ParamSet.TOY, True, 12, N=8192),   # RNS, N = 8192
     params_mod.from_param_set(params_mod.ParamSet.STD128Q, params_mod.Method.AP),
-], ids=["std192-AP", "two-limb-N4096", "logQ12-N8192", "std128q-AP"])
+], ids=["std192-AP", "two-limb-N8192", "logQ12-N8192", "std128q-AP"])
 def test_unsupported_params_raise(params):
     be = TorchBackend("cpu")
     assert not be.supports(params)

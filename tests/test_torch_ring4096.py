@@ -104,15 +104,16 @@ def on_jax_backend(jc, op):
 
 
 def test_kernel_wrappers_take_their_rings():
-    """The gate and RNS kernels take N = 4096, the 64-bit one not yet; none
-    takes N = 8192."""
-    assert rotate_kernel.RING_DIMS[-1] == rotate_rns_kernel.RING_DIMS[-1] == N
-    assert rotate64_kernel.RING_DIMS[-1] == 2048
+    """The gate, RNS and 64-bit kernels take N = 4096; none takes
+    N = 8192."""
+    assert (rotate_kernel.RING_DIMS[-1] == rotate_rns_kernel.RING_DIMS[-1]
+            == rotate64_kernel.RING_DIMS[-1] == N)
     rotate_rns_kernel.check_params(N, 4, Q1, Q2, 1 << 18)
+    rotate64_kernel.check_params(N, 4, (1 << 54) - 33, 1 << 18)
     with pytest.raises(ValueError):
         rotate_rns_kernel.check_params(2 * N, 4, Q1, Q2, 1 << 18)
     with pytest.raises(ValueError):
-        rotate64_kernel.check_params(N, 4, (1 << 54) - 33, 1 << 18)
+        rotate64_kernel.check_params(2 * N, 4, (1 << 54) - 33, 1 << 18)
 
 
 def test_sets_take_the_rns_and_mixed_paths(rns, mixed):

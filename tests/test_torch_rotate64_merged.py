@@ -12,7 +12,11 @@ inverse must equal `ops.ntt.forward` and `ops.ntt.inverse` exactly at every
 modulus the kernel serves, and a whole emulated rotation must equal the
 plain version (`blindrotate64.blind_rotate64`, itself held to the Pallas
 kernel in tests/test_torch_rotate64.py) with tolerance 0. The cases are the
-chip run's own (`chip_smoke.rotate64_cases`)."""
+chip run's own (`chip_smoke.rotate64_cases`). At N = 4096 the kernel runs
+each ciphertext on a cluster of two blocks, and the emulation keeps the two
+blocks' shared memory apart and lets one block run ahead of the other to
+the next cluster barrier, so that a buffer reused too early, or a block
+that leaves too soon, shows as a wrong result."""
 
 import numpy as np
 import pytest
@@ -147,82 +151,132 @@ def test_key_values_and_reduction_from_companions(q, N):
     assert ((red >= 0) & (red < 2 * q)).all() and torch.equal(red % q, s % q)
 
 
-def swap_halves(x, N):
-    """The forward's outputs [B, 2(half), TG, 8] through each half's buffer
-    of two u32 planes, at the words of the last group's own registers, read
-    back by the other half: -> [B, 2(half), TG, 8], half h holding the
-    polynomial of half 1 - h."""
-    TG = N // 8
-    words = swz(owned(2, TG)).reshape(-1)
-    buf = torch.full((x.shape[0], 2, 2, N), -1, dtype=torch.int64)    # [B, half, plane, N]
-    buf[..., 0, words] = (x & M32).reshape(*x.shape[:2], -1)
-    buf[..., 1, words] = (x >> 32 & M32).reshape(*x.shape[:2], -1)
-    got = (buf[..., 0, words] | buf[..., 1, words] << 32).reshape(x.shape)
-    assert (got >= 0).all()
-    return got.flip(1)
+def emulate_rotation(acc, a_idx, key, Q, base_g, throw, cluster=None, parity=None,
+                     last_barrier=True):
+    """What the kernel computes, for all ciphertexts at once: acc [B, 2, N],
+    a_idx [B, n], key [n, 4 d2, N] int64 from pack_bsk64. Half h holds
+    polynomial h of the accumulator and computes outputs ko = h + 2i of the
+    external product; the halves are the two halves of one block up to
+    N = 2048 and the two blocks of a cluster at N = 4096 (`cluster`, by
+    default N > 2048).
 
-
-def emulate_rotation(acc, a_idx, key, Q, base_g, throw):
-    """What every block of the kernel computes, for all blocks at once:
-    acc [B, 2, N], a_idx [B, n], key [n, 4 d2, N] int64 from pack_bsk64.
-    Half h of a block holds polynomial h of the accumulator and computes
-    outputs ko = h + 2i of the external product."""
+    Each half runs as a generator that stops at every barrier both halves
+    take part in: the digit's crossing, and in one block the round's end.
+    At each such barrier half 0 runs on to the next one before half 1
+    resumes, so half 1 reads half 0's forward buffer after half 0 has written
+    whatever it writes before the next common barrier: the latest such a
+    read can come. Each half's forward buffer [2 parities][2 planes][N] u32
+    is its own tensor, laid out as the kernel lays it out; the crossing
+    writes the forward's values there at the words of the last group's
+    registers and reads the other half's at the same words. `parity(r, l)`
+    picks the buffer of round r's digit l: the kernel's rule, l mod 2 in one
+    block and (r digits + l) mod 2 in a cluster, by default. A block of a
+    cluster that leaves zeroes its shared memory; with `last_barrier` it
+    leaves after the kernel's final cluster barrier."""
     B, _, N = acc.shape
     n, rows, _ = key.shape
     d2, TG = rows // 4, N // 8
     digits, g_bits = d2 // 2, base_g.bit_length() - 1
+    cluster = N > 2048 if cluster is None else cluster
+    if parity is None:
+        parity = (lambda r, l: (r * digits + l) & 1) if cluster else (lambda r, l: l & 1)
     grp = groups(N.bit_length() - 1)
     fw, fws, iw, iws = tables(N, Q)
     comp = key.reshape(n, 2, 2, d2, TG, 8)       # [n, key, out, d2, ...]: point 8t + k
     pos0 = owned(grp[0][0], TG)                  # coefficient t + k N/8
-    a = acc[..., pos0]                           # [B, 2(half), TG, 8]
-    for r in range(n):
-        d = torch.where(a < Q >> 1, a, a - Q)
-        for _ in range(throw):
-            _, d = extract(d, g_bits)
-        u = None
-        for l in range(digits):
-            rr, d = extract(d, g_bits)
-            x = forward_regs(scatter(torch.where(rr < 0, rr + Q, rr), grp[0][0]),
-                             Q, fw, fws)                              # [B, 2(half), TG, 8]
-            y = swap_halves(x, N)
-            # half h, output key i: rows 2l + h (for x) and 2l + 1 - h (for y)
-            # of K[i][out = h]
-            h = torch.arange(2)
-            k_x = comp[r, :, h, 2 * l + h]                            # [key, half, TG, 8]
-            k_y = comp[r, :, h, 2 * l + 1 - h]
-            p = (mulmod_lazy(x[:, None], mulhi64(k_x + 1, Q), k_x, Q)
-                 + mulmod_lazy(y[:, None], mulhi64(k_y + 1, Q), k_y, Q))  # [B, key, half, TG, 8]
-            u = p if u is None else u + p
-            assert ((u >= 0) & (u < 2 * Q * d2)).all()
-        u = u - mulhi64(u, fws[0]) * Q
-        u = csub(inverse_regs(u, Q, iw, iws), Q)                       # [B, key, half, TG, 8]
-        out = scatter(u, grp[0][0])                                    # [B, key, half, N]
-        m_pos = a_idx[:, r].to(torch.int64)[:, None, None]
-        m_neg = (2 * N - m_pos) & (2 * N - 1)
-        r0 = (pos0 - m_pos) & (2 * N - 1)
-        r1 = (pos0 - m_neg) & (2 * N - 1)
-        for h in range(2):
-            c0 = torch.gather(out[:, 0, h], 1, (r0 & (N - 1)).reshape(B, -1)).reshape(B, TG, 8)
-            c1 = torch.gather(out[:, 1, h], 1, (r1 & (N - 1)).reshape(B, -1)).reshape(B, TG, 8)
+    words = swz(owned(2, TG)).reshape(-1)        # the last group's words
+    fbuf = [torch.full((B, 4 * N), -1, dtype=torch.int64) for _ in range(2)]
+    result = [None, None]
+
+    def half(h):
+        a = acc[:, h][..., pos0]                 # [B, TG, 8]
+        for r in range(n):
+            d = torch.where(a < Q >> 1, a, a - Q)
+            for _ in range(throw):
+                _, d = extract(d, g_bits)
+            u = None
+            for l in range(digits):
+                rr, d = extract(d, g_bits)
+                x = forward_regs(scatter(torch.where(rr < 0, rr + Q, rr), grp[0][0]),
+                                 Q, fw, fws)                          # [B, TG, 8]
+                par = 2 * N * parity(r, l)
+                fbuf[h][:, par + words] = (x & M32).reshape(B, -1)
+                fbuf[h][:, par + N + words] = (x >> 32 & M32).reshape(B, -1)
+                yield                                                 # the crossing
+                other = fbuf[1 - h]
+                y = (other[:, par + words] | other[:, par + N + words] << 32).reshape(B, TG, 8)
+                # rows 2l + h (for x) and 2l + 1 - h (for y) of K[i][out = h]
+                k_x, k_y = comp[r, :, h, 2 * l + h], comp[r, :, h, 2 * l + 1 - h]
+                p = (mulmod_lazy(x[:, None], mulhi64(k_x + 1, Q), k_x, Q)
+                     + mulmod_lazy(y[:, None], mulhi64(k_y + 1, Q), k_y, Q))  # [B, key, TG, 8]
+                u = p if u is None else u + p
+                assert ((u >= 0) & (u < 2 * Q * d2)).all()
+            u = u - mulhi64(u, fws[0]) * Q
+            u = csub(inverse_regs(u, Q, iw, iws), Q)                   # [B, key, TG, 8]
+            out = scatter(u, grp[0][0])                                # [B, key, N]
+            m_pos = a_idx[:, r].to(torch.int64)[:, None, None]
+            m_neg = (2 * N - m_pos) & (2 * N - 1)
+            r0 = (pos0 - m_pos) & (2 * N - 1)
+            r1 = (pos0 - m_neg) & (2 * N - 1)
+            c0 = torch.gather(out[:, 0], 1, (r0 & (N - 1)).reshape(B, -1)).reshape(B, TG, 8)
+            c1 = torch.gather(out[:, 1], 1, (r1 & (N - 1)).reshape(B, -1)).reshape(B, TG, 8)
             v0 = torch.where(r0 < N, c0, Q - c0)
             v1 = torch.where(r1 < N, c1, Q - c1)
-            s = a[:, h] + v0 + (Q - u[:, 0, h]) + v1 + (Q - u[:, 1, h])
+            s = a + v0 + (Q - u[:, 0]) + v1 + (Q - u[:, 1])
             assert (s < 5 * Q).all()
-            a[:, h] = csub(csub(csub(s, 4 * Q), 2 * Q), Q)
-    return scatter(a, grp[0][0])
+            a = csub(csub(csub(s, 4 * Q), 2 * Q), Q)
+            if not cluster:
+                yield                                                 # the round's end
+        if cluster and last_barrier:
+            yield                                                     # the final barrier
+        result[h] = scatter(a, grp[0][0])
+        if cluster:
+            fbuf[h].zero_()                                           # the block leaves
+
+    running = [half(0), half(1)]
+    while running:
+        for g in list(running):
+            try:
+                next(g)
+            except StopIteration:
+                running.remove(g)
+    return torch.stack(result, 1)
+
+
+def rotation_inputs(N, Q, d2, B=3, n=2, seed=0):
+    """acc, a_idx and a pack_bsk64 key from a seed; rows 0 and 1 of the
+    exponents hold 0, 2N - 1, N and 1."""
+    rng = np.random.default_rng(seed)
+    acc = torch.from_numpy(rng.integers(0, Q, (B, 2, N)))
+    acc[0, 0, :3] = torch.tensor([0, Q - 1, Q >> 1])
+    a_idx = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
+    a_idx[0, :2] = [0, 2 * N - 1]
+    a_idx[1, :2] = [N, 1]
+    key = rotate64_kernel.pack_bsk64(rng.integers(0, Q, (n, 2, d2, 2, N)).astype(np.uint64), Q)
+    return acc, torch.from_numpy(a_idx), key
 
 
 @pytest.mark.parametrize("N,Q,base_g,d2,throw", CASES.values(), ids=CASES.keys())
 def test_emulated_rotate64_kernel_equals_plain(N, Q, base_g, d2, throw):
-    B, n = 3, 2
-    rng = np.random.default_rng(N + d2 + throw)
-    acc = torch.from_numpy(rng.integers(0, Q, (B, 2, N)))
-    acc[0, 0, :3] = torch.tensor([0, Q - 1, Q >> 1])
-    a_idx = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
-    a_idx[0] = [0, 2 * N - 1]
-    a_idx[1] = [N, 1]
-    a_idx = torch.from_numpy(a_idx)
-    key = rotate64_kernel.pack_bsk64(rng.integers(0, Q, (n, 2, d2, 2, N)).astype(np.uint64), Q)
+    acc, a_idx, key = rotation_inputs(N, Q, d2, seed=N + d2 + throw)
     want = blindrotate64.blind_rotate64(acc, a_idx, key, Q, base_g, throw)
     assert torch.equal(emulate_rotation(acc, a_idx, key, Q, base_g, throw), want)
+
+
+@pytest.mark.parametrize("hazard", ["parity of l alone", "no final barrier"])
+def test_cluster_hazards_show_in_the_emulation(hazard):
+    """The emulated cluster equals the plain version only with the kernel's
+    two guards: at base 2^27 (one kept digit, d2 = 2) the parity of l alone
+    reuses the forward's buffer while the peer still reads it, and a block
+    that leaves without the final cluster barrier takes its buffer away from
+    the peer's last read. Both also give the plain result in one block,
+    whose round-end barriers cover both halves."""
+    name = "N=4096, Q54, base 2^27"
+    N, Q, base_g, d2, throw = CASES[name]
+    acc, a_idx, key = rotation_inputs(N, Q, d2, B=2, seed=27)
+    want = blindrotate64.blind_rotate64(acc, a_idx, key, Q, base_g, throw)
+    kw = ({"parity": lambda r, l: l & 1} if hazard == "parity of l alone"
+          else {"last_barrier": False})
+    assert not torch.equal(emulate_rotation(acc, a_idx, key, Q, base_g, throw, **kw), want)
+    assert torch.equal(emulate_rotation(acc, a_idx, key, Q, base_g, throw, cluster=False,
+                                        **kw), want)

@@ -14,17 +14,17 @@
 // version (tfhe_tpu_torch/ops/blindrotate64.py) and the JAX package exactly.
 // The TPU's (lo, hi) u32-pair arithmetic is plain 64-bit arithmetic here.
 //
-// Design: blind_rotate.cu's carried to 64-bit words, with each ciphertext's
-// two polynomials on two halves of the block. One thread block of N/4
-// threads owns one ciphertext for all n rounds; the loop over rounds inside
-// the block replaces the TPU's sequential `rounds` grid axis. Half h (N/8
-// threads) owns polynomial h of the accumulator, 8 coefficients a thread,
-// coefficient t + k N/8 of thread t, in registers for all rounds, and runs
-// the NTTs in registers (register_ntt64.cuh): merged twiddles, so no twist
-// or untwist pass, N^-1 folded into the inverse's last stage, three radix-2
-// stages per register group (3 + 3 + 3 + 2 at N = 2048) with one block-wide
-// exchange per transform through swizzled shared memory held as two u32
-// planes. A round:
+// Design (N <= 2048): blind_rotate.cu's carried to 64-bit words, with each
+// ciphertext's two polynomials on two halves of the block. One thread block
+// of N/4 threads owns one ciphertext for all n rounds; the loop over rounds
+// inside the block replaces the TPU's sequential `rounds` grid axis. Half h
+// (N/8 threads) owns polynomial h of the accumulator, 8 coefficients a
+// thread, coefficient t + k N/8 of thread t, in registers for all rounds,
+// and runs the NTTs in registers (register_ntt64.cuh): merged twiddles, so
+// no twist or untwist pass, N^-1 folded into the inverse's last stage, three
+// radix-2 stages per register group (3 + 3 + 3 + 2 at N = 2048) with one
+// block-wide exchange per transform through swizzled shared memory held as
+// two u32 planes. A round:
 // - each thread centres its 8 coefficients, drops the thrown digits once
 //   and keeps the rest in int64 registers, from which each kept digit is
 //   taken in turn: no digit is recomputed;
@@ -76,14 +76,42 @@
 // earlier design (every NTT stage through shared memory, separate twist and
 // untwist passes, digits recomputed from the start, a Barrett pass, about 40
 // barriers a round, 16 warps) took 1743.611 ms there, 26.5%.
+//
+// N = 4096: a cluster of two blocks, one per polynomial. The block above
+// would need N/4 = 1024 threads at 128 registers (twice an SM's 65536) and
+// 64 N = 256 KB of shared memory (above the 227 KB a block may have). Its
+// halves already cross only once a digit, so each ciphertext runs on a
+// cluster of two blocks (the launch's cluster dimension 2) on two SMs, block
+// rank = half h = polynomial h, each block the N/8 = 512 threads of one
+// half with that half's buffers: the forward's [2 parities][2 planes][N] and
+// the inverse's [2][2 planes][N] u32, 32 N bytes, 128 KB, one block of 16
+// warps per SM. The digit's crossing is the one thing that leaves the block:
+// after a cluster barrier (barrier.cluster arrive.release / wait.acquire,
+// cluster.cuh) each block reads the other polynomial's forward values from
+// the peer's forward buffer (ld.shared::cluster at a mapa address, two
+// 32-bit loads a value since the planes are N words apart). Every other
+// barrier (the forward's and the inverse's exchanges, the two around the
+// monomials) stays in the block, so the round-end barriers no longer hold
+// a block until its peer has read its buffer: the parity of the forward's
+// buffer counts digits across rounds (r digits + l), so a block writes a
+// parity again only after the next digit's cluster barrier, which its peer
+// reaches after its read (with one kept digit, d2 = 2, the parity of l
+// alone would be 0 every round). The kernel ends with a cluster barrier,
+// so that no block leaves while its peer may still read it. N <= 2048 keeps
+// the one-block layout, instantiated unchanged.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "register_ntt64.cuh"
 
 namespace {
 
+using dsmem::cluster_rank;
+using dsmem::cluster_sync;
+using dsmem::ld_peer;
+using dsmem::peer_address;
 using rntt64::csub;
 using rntt64::ld_global2;
 using rntt64::mulmod_lazy;
@@ -104,7 +132,26 @@ __device__ __forceinline__ int64_t extract(int64_t& d, int g_bits) {
 // register_ntt64.cuh, each entry beside its companion; forward entry 0 is 1,
 // so its companion floor(2^64 / Q) reduces the lazy sums.
 template <int LOGN>
-__global__ void __launch_bounds__((1 << LOGN) / 4, 1)
+constexpr bool kCluster = LOGN > 11;
+
+// The peer block's forward values of the last group, read as `rntt64::load`
+// reads its own: the two u32 planes of the words at cluster address buf.
+template <int LOGN>
+__device__ __forceinline__ void load_peer(u64 (&x)[1][8], uint32_t buf, int t) {
+  constexpr int C = rntt64::Group<LOGN, rntt64::groups<LOGN>() - 1>::C;
+  constexpr int N = 1 << LOGN;
+  const int ra = rntt64::swz(rntt64::tpart<C>(t));
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t a = buf + 4 * (ra ^ rntt64::swz(k << (C - 2)));
+    x[0][k] = u64(ld_peer(a)) | (u64(ld_peer(a + 4 * N)) << 32);
+  }
+}
+
+// With kCluster, blocks 2b and 2b + 1 of the grid (one cluster) run halves
+// 0 and 1 of ciphertext b.
+template <int LOGN>
+__global__ void __launch_bounds__((1 << LOGN) / (LOGN > 11 ? 8 : 4), 1)
 blind_rotate64_kernel(const u64* __restrict__ acc_in, u64* __restrict__ acc_out,
                       const int32_t* __restrict__ a_idx,
                       const u64* __restrict__ bsk, const u64* __restrict__ tw,
@@ -112,17 +159,29 @@ blind_rotate64_kernel(const u64* __restrict__ acc_in, u64* __restrict__ acc_out,
   constexpr int N = 1 << LOGN;
   constexpr int TG = N / 8;                 // threads per half
   constexpr int G = rntt64::groups<LOGN>();
+  constexpr bool CL = kCluster<LOGN>;
   extern __shared__ __align__(16) uint32_t smem[];
   // half h owns polynomial h of the accumulator, its digits' forward NTTs
   // and the outputs ko = h and 2 + h of the external product
-  const int h = threadIdx.x / TG;
-  uint32_t* fbuf = smem + 4 * N * h;                  // [2 parities][2 planes][N]
-  const uint32_t* fbuf_other = smem + 4 * N * (1 - h);
-  uint32_t* ibuf = smem + 8 * N + 4 * N * h;          // [2][2 planes][N]
+  int h, t;
+  size_t b;
+  if constexpr (CL) {
+    h = cluster_rank();
+    t = threadIdx.x;
+    b = blockIdx.x / 2;
+  } else {
+    h = threadIdx.x / TG;
+    t = threadIdx.x % TG;
+    b = blockIdx.x;
+  }
+  const int slot = CL ? 0 : h;                        // the half's place in this block
+  uint32_t* fbuf = smem + 4 * N * slot;               // [2 parities][2 planes][N]
+  const uint32_t* fbuf_other = smem + 4 * N * (1 - h);  // one block only
+  uint32_t* ibuf = smem + (CL ? 4 : 8) * N + 4 * N * slot;  // [2][2 planes][N]
   u64* out = reinterpret_cast<u64*>(ibuf);            // the inverse's output [2][N]
+  // the peer block's forward buffer (cluster address of its first word)
+  const uint32_t peer = CL ? peer_address(smem, h ^ 1) : 0u;
 
-  const int t = threadIdx.x % TG;
-  const size_t b = blockIdx.x;
   const int d2 = 2 * digits;
   const u64* fw = tw;
   const u64* iw = tw + 2 * N;
@@ -165,19 +224,26 @@ blind_rotate64_kernel(const u64* __restrict__ acc_in, u64* __restrict__ acc_out,
     // digit l of polynomial h through the forward NTT into x, and that of
     // polynomial 1 - h from the other half into y: point 8t + k. The values
     // cross through the forward's buffer, at the words of the thread's own
-    // last group, which the other half reads after a block-wide barrier
+    // last group, which the other half reads after a block-wide barrier (in
+    // a cluster: the peer's buffer, after the cluster's barrier; the parity
+    // counts digits across rounds)
     auto digit_forward = [&](int l, u64 (&x)[1][8], u64 (&y)[1][8]) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         const int64_t rr = extract(d[k], g_bits);
         x[0][k] = rr < 0 ? u64(rr + int64_t(Q)) : u64(rr);
       }
-      const int par = 2 * N * (l & 1);
+      const int par = 2 * N * ((CL ? r * digits + l : l) & 1);
       rntt64::forward<LOGN, 0, 1>(x, fbuf + par, fresh(t), fw, Q);
       __syncwarp();
       rntt64::store<LOGN, G - 1, 1>(x, fbuf + par, t);
-      __syncthreads();
-      rntt64::load<LOGN, G - 1, 1>(y, fbuf_other + par, t);
+      if constexpr (CL) {
+        cluster_sync();
+        load_peer<LOGN>(y, peer + 4 * par, t);
+      } else {
+        __syncthreads();
+        rntt64::load<LOGN, G - 1, 1>(y, fbuf_other + par, t);
+      }
     };
     // the lazy external product of digit l for output ko = h + 2i:
     // p[k] = sum_j x_j K[key][out][2l + j] at point 8t + k, < 4Q; row
@@ -259,11 +325,20 @@ blind_rotate64_kernel(const u64* __restrict__ acc_in, u64* __restrict__ acc_out,
       acc[k] = csub(csub(csub(s, 4 * Q), 2 * Q), Q);  // s < 5Q
     }
     // the next round's sums and inverse overwrite the output only after its
-    // first digit's exchange with the other half (a block-wide barrier)
+    // first digit's exchange with the other half (a block-wide barrier, or
+    // the cluster's)
   }
+  // no block of a cluster leaves while its peer may still read it
+  if constexpr (CL) cluster_sync();
 
 #pragma unroll
   for (int k = 0; k < 8; ++k) acc_out[(b * 2 + h) * N + t + k * TG] = acc[k];
+}
+
+// Dynamic shared memory of a block: 64 N bytes, 32 N in a cluster.
+template <int LOGN>
+constexpr size_t smem_bytes() {
+  return (kCluster<LOGN> ? 8 : 16) * (size_t(1) << LOGN) * sizeof(uint32_t);
 }
 
 template <int LOGN>
@@ -271,15 +346,25 @@ cudaError_t launch(const void* acc_in, void* acc_out, const void* a_idx,
                    const void* bsk, const void* tw, int B, u64 Q, int n,
                    int g_bits, int digits, int throw_digits, cudaStream_t stream) {
   const size_t N = size_t(1) << LOGN;
-  const size_t smem = 16 * N * sizeof(uint32_t);
+  const size_t smem = smem_bytes<LOGN>();
   cudaError_t err = cudaFuncSetAttribute(
       blind_rotate64_kernel<LOGN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  blind_rotate64_kernel<LOGN><<<B, N / 4, smem, stream>>>(
-      static_cast<const u64*>(acc_in), static_cast<u64*>(acc_out),
-      static_cast<const int32_t*>(a_idx), static_cast<const u64*>(bsk),
-      static_cast<const u64*>(tw), n, Q, g_bits, digits, throw_digits);
+  if constexpr (kCluster<LOGN>) {
+    dsmem::PairLaunch cl(B, (1 << LOGN) / 8, smem, stream);
+    err = cudaLaunchKernelEx(
+        &cl.cfg, blind_rotate64_kernel<LOGN>, static_cast<const u64*>(acc_in),
+        static_cast<u64*>(acc_out), static_cast<const int32_t*>(a_idx),
+        static_cast<const u64*>(bsk), static_cast<const u64*>(tw), n, Q, g_bits,
+        digits, throw_digits);
+    if (err != cudaSuccess) return err;
+  } else {
+    blind_rotate64_kernel<LOGN><<<B, N / 4, smem, stream>>>(
+        static_cast<const u64*>(acc_in), static_cast<u64*>(acc_out),
+        static_cast<const int32_t*>(a_idx), static_cast<const u64*>(bsk),
+        static_cast<const u64*>(tw), n, Q, g_bits, digits, throw_digits);
+  }
   return cudaGetLastError();
 }
 
@@ -309,7 +394,20 @@ extern "C" int tfhe_blind_rotate64(const void* acc_in, void* acc_out,
       return launch<10>(acc_in, acc_out, a_idx, bsk, tw, B, Q, n, g_bits, digits, throw_digits, s);
     case 2048:
       return launch<11>(acc_in, acc_out, a_idx, bsk, tw, B, Q, n, g_bits, digits, throw_digits, s);
+    case 4096:
+      return launch<12>(acc_in, acc_out, a_idx, bsk, tw, B, Q, n, g_bits, digits, throw_digits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The most clusters of the N = 4096 kernel the card holds at once
+// (cudaOccupancyMaxActiveClusters), in *clusters. Returns the cudaError_t.
+extern "C" int tfhe_blind_rotate64_clusters(int* clusters) {
+  cudaError_t err = cudaFuncSetAttribute(
+      blind_rotate64_kernel<12>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<12>());
+  if (err != cudaSuccess) return err;
+  dsmem::PairLaunch cl(1, (1 << 12) / 8, smem_bytes<12>(), 0);
+  return cudaOccupancyMaxActiveClusters(clusters, blind_rotate64_kernel<12>, &cl.cfg);
 }

@@ -116,10 +116,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "register_ntt.cuh"
 
 namespace {
 
+using dsmem::cluster_rank;
+using dsmem::cluster_sync;
+using dsmem::ld_peer;
+using dsmem::peer_address;
 using rntt::csub;
 using rntt::mulmod_lazy;
 
@@ -130,34 +135,6 @@ __device__ __forceinline__ int64_t extract(int64_t& d, int g_bits) {
   if (r >= (base >> 1)) r -= base;
   d = (d - r) >> g_bits;
   return r;
-}
-
-// Distributed shared memory of a cluster: this block's rank, the cluster
-// address of the word at p in block `rank`'s shared memory, a load from
-// such an address, and the barrier of the whole cluster (shared-memory
-// writes before it are seen by every block of the cluster after it).
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return int(r);
-}
-
-__device__ __forceinline__ uint32_t peer_address(const void* p, int rank) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t ld_peer(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared::cluster.u32 %0, [%1];" : "=r"(v) : "r"(addr));
-  return v;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
-               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // The kernel runs as clusters of two one-lane blocks at N = 4096, as one
@@ -409,26 +386,6 @@ constexpr size_t smem_bytes() {
   return (kCluster<LOGN> ? 14 : 20) * (size_t(1) << LOGN) * sizeof(uint32_t);
 }
 
-// The launch configuration of the cluster kernel: 2B blocks of N/8
-// threads, clusters of two along x.
-template <int LOGN>
-struct ClusterLaunch {
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = {};
-  ClusterLaunch(int B, cudaStream_t stream) {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 2;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(2 * B);
-    cfg.blockDim = dim3((1 << LOGN) / 8);
-    cfg.dynamicSmemBytes = smem_bytes<LOGN>();
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-};
-
 template <int LOGN>
 cudaError_t launch(const void* acc1_in, const void* acc2_in, void* acc1_out,
                    void* acc2_out, const void* a_idx, const void* bsk,
@@ -442,7 +399,7 @@ cudaError_t launch(const void* acc1_in, const void* acc2_in, void* acc1_out,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if constexpr (kCluster<LOGN>) {
-    ClusterLaunch<LOGN> cl(B, stream);
+    dsmem::PairLaunch cl(B, (1 << LOGN) / 8, smem, stream);
     err = cudaLaunchKernelEx(
         &cl.cfg, blind_rotate_rns_kernel<LOGN>,
         static_cast<const uint32_t*>(acc1_in), static_cast<const uint32_t*>(acc2_in),
@@ -497,6 +454,6 @@ extern "C" int tfhe_blind_rotate_rns_clusters(int* clusters) {
       blind_rotate_rns_kernel<12>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes<12>());
   if (err != cudaSuccess) return err;
-  ClusterLaunch<12> cl(1, 0);
+  dsmem::PairLaunch cl(1, (1 << 12) / 8, smem_bytes<12>(), 0);
   return cudaOccupancyMaxActiveClusters(clusters, blind_rotate_rns_kernel<12>, &cl.cfg);
 }

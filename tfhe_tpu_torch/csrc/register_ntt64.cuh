@@ -1,7 +1,9 @@
 // Register-resident negacyclic NTT over one modulus q < 2^54 in 64-bit words,
 // merged twiddles, for one group of N / 8 threads per polynomial (N = 2^LOGN,
-// 256..2048): the 64-bit counterpart of register_ntt.cuh, whose index
-// machinery (tpart, swz, Group, groups) it uses as it is.
+// 256..4096): the 64-bit counterpart of register_ntt.cuh, whose index
+// machinery (tpart, swz, Group, groups) it uses as it is, at 12 index bits
+// too (groups of C = 11, 8, 5, 2 at N = 4096, two of the three exchanges
+// block-wide).
 //
 // The transforms are register_ntt.cuh's: forward Cooley-Tukey stages with
 // half-length N/2 .. 1 and the twiddle psi^brv(m) at index m + i, natural
@@ -23,7 +25,8 @@
 // Shared memory holds a polynomial as two u32 planes of N words, the low
 // halves and then the high halves, each at word swz(j): every access of a
 // group is then the 32-bit kernels' access twice, free of bank conflicts by
-// the same argument (tests/test_torch_ntt_merged.py).
+// the same argument at every N up to 4096 (tests/test_torch_ntt_merged.py;
+// the high plane starts N words on, a multiple of the 32 banks).
 
 #pragma once
 

@@ -95,3 +95,17 @@ def load(name: str) -> ctypes.CDLL:
         with _lock:
             _libs.setdefault(name, ctypes.CDLL(_lib_path(name)))
     return _libs[name]
+
+
+def max_active_clusters(name: str) -> int:
+    """The most two-block clusters of csrc/<name>.cu's N = 4096 kernel that
+    the current CUDA device runs at once: the library's
+    `tfhe_<name>_clusters` (cudaOccupancyMaxActiveClusters)."""
+    fn = getattr(load(name), f"tfhe_{name}_clusters")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed on {name}: cudaError {err}")
+    return out.value

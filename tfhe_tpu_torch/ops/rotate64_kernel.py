@@ -24,7 +24,9 @@ from .modmath import shoup64
 from .ntt_sched import schedule
 
 LAUNCHES = 0  # kernel launches made by `rotate64`
-RING_DIMS = (256, 512, 1024, 2048)   # the ring dimensions the kernel takes
+# the ring dimensions the kernel takes: one two-half block per ciphertext up
+# to 2048, a cluster of two one-polynomial blocks at 4096
+RING_DIMS = (256, 512, 1024, 2048, 4096)
 
 
 def pack_bsk64(bsk_hat: np.ndarray, Q: int) -> torch.Tensor:
@@ -55,6 +57,12 @@ def _kernel():
                    + [ctypes.c_ulonglong] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def max_active_clusters() -> int:
+    """The most two-block clusters of the N = 4096 kernel that the current
+    CUDA device runs at once (cudaOccupancyMaxActiveClusters)."""
+    return _build.max_active_clusters("blind_rotate64")
 
 
 def check_params(N: int, d2: int, Q: int, base_g: int) -> None:

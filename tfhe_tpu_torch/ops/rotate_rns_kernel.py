@@ -69,14 +69,7 @@ def _kernel():
 def max_active_clusters() -> int:
     """The most two-block clusters of the N = 4096 kernel that the current
     CUDA device runs at once (cudaOccupancyMaxActiveClusters)."""
-    fn = _build.load("blind_rotate_rns").tfhe_blind_rotate_rns_clusters
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = ctypes.c_int(0)
-    err = fn(ctypes.byref(out))
-    if err:
-        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: cudaError {err}")
-    return out.value
+    return _build.max_active_clusters("blind_rotate_rns")
 
 
 def check_params(N: int, d2: int, q1: int, q2: int, base_g: int) -> None:

@@ -215,13 +215,14 @@ def eval_acc_cggi(params: RGSWParams, ek: CGGIEvalKey, acc_coeff: np.ndarray,
     round i uses index (q - a_i mod q) * (2N / q).
 
     Routes through the native C++ engine (tfhe_tpu_torch/native) when available and
-    the base is a power of two — bit-exact with the numpy loop below."""
+    the base is a power of two — bit-exact with the numpy loop below. A Python-int
+    (object) accumulator, which the scheme builds for Q >= 2^31, goes there as
+    uint64 too (Q < 2^62) and comes back as Python ints."""
     M = 2 * params.N
     factor = M // a_modulus
     n = len(a_vec)
     Q, base_g = params.Q, params.base_g
-    if (acc_coeff.dtype != object and base_g & (base_g - 1) == 0
-            and Q < (1 << 62)):
+    if base_g & (base_g - 1) == 0 and Q < (1 << 62):
         from .. import native
         a_scaled = ((np.int64(a_modulus)
                      - np.asarray(a_vec, dtype=np.int64) % a_modulus)
@@ -232,7 +233,7 @@ def eval_acc_cggi(params: RGSWParams, ek: CGGIEvalKey, acc_coeff: np.ndarray,
                               base_g.bit_length() - 1,
                               params.digits_g - params.num_digits_to_throw,
                               params.num_digits_to_throw):
-            return acc[0]
+            return acc[0].astype(acc_coeff.dtype)
     for i in range(n):
         a_scaled = int((a_modulus - int(a_vec[i])) % a_modulus) * factor
         acc_coeff = add_to_acc_cggi(params, ek.bsk_hat[i, 0], ek.bsk_hat[i, 1],
