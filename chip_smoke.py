@@ -20,14 +20,14 @@ Then it drives the port's paths through `tfhe_tpu_torch.BinFHEContext`
 - the same path with bench.py's seeded (threefry) switching key: its
   <A, s> summed on the card at keygen and its table regenerated there; TOY
   bit for bit against the oracle on the A block materialized on the host,
-  STD128 at batch 4096 checked by decryption, the table's rows 0-63, the
+  STD128 at batch 1024 checked by decryption, the table's rows 0-63, the
   first chunk boundary and the last row torch.equal to the host threefry;
 - the 17 GINX classic sets (LWE dimension cut to 12) against the oracle;
 - the two-limb paths: a batch-4096 STD128Q NAND checked by decryption and,
   for its first 8 outputs, bit for bit against the oracle; EvalFunc,
   EvalSign and EvalDecomp on the TOY accelerated sets at the single 54-bit
   prime bit for bit against the oracle, and EvalSign at full width on the
-  STD128 accelerated set with that prime at batch 1024, checked by
+  STD128 accelerated set with that prime at batch 256, checked by
   decryption;
 - the mixed logQ = 11 path (blind_rotate with the 35-bit key switch): the
   8 gates, EvalFloor and EvalFunc at TOY against the oracle, then at STD128
@@ -44,9 +44,18 @@ Then it drives the port's paths through `tfhe_tpu_torch.BinFHEContext`
   run's time limit), checked by decryption and on their first output
   against the oracle; then the same accelerated sets at the reference's
   single 54-bit prime (`rns_modulus=False`) on the same secrets and
-  switching key, EvalSign, EvalDecomp and EvalFunc at batch 1024 on
+  switching key, EvalSign, EvalDecomp and EvalFunc at batch 256 on
   blind_rotate64, checked by decryption and, for EvalSign and EvalFunc, on
   their first output against the oracle;
+- ring dimension N = 8192 on the gate kernel: blind_rotate as a cluster
+  of two blocks a ciphertext against its plain version (B = 5 at d2 2, 8
+  and 12, then B = 1024, n = 1305 at d2 10 and 12 on a head of rows), then
+  the STD128 logQ = 11 sets at N = 8192 (seeded switching key, a
+  [1835008, 1306] float64 table on the card) NAND and EvalFloor (one digit
+  thrown) and EvalFunc (arbFunc) at batch 1024, checked by decryption and
+  against the oracle on their first output, or for EvalFloor and EvalFunc,
+  whose rows decrypt wrong at a rate the parameters' noise sets (Q stays
+  27 bits at this ring), on their first output that decrypts wrong;
 - CiphertextMulMatrix at 1024 x 1024 mod 2^35 against the host product,
   and the DM/AP accumulator: the 8 gates at TOY AP against the oracle and
   a batch-1024 STD128_AP NAND, checked by decryption and on its first 8
@@ -85,7 +94,7 @@ Then it drives the port's paths through `tfhe_tpu_torch.BinFHEContext`
   and B-1 torch.equal to the host `BFVRnsContext` or `BFVBehzContext`;
 - save and load (`BinFHEContext.save`/`load`): the STD128 NAND context,
   saved in a thread of its own while the phases from the RNS functional
-  path to the seeded one run, reloaded on the card gives the pre-save
+  path to the single-prime one run, reloaded on the card gives the pre-save
   batch-4096 NAND outputs, and the seeded TOY accelerated context reloads
   with its key still seed and B and gives the host oracle's EvalSign bit
   for bit;
@@ -116,7 +125,8 @@ import warnings
 SEED = 20261016
 GATE_BATCH = 4096
 FUNC_BATCH = 4096
-SIGN64_BATCH = 1024         # single-prime EvalSign batch
+SEEDED_BATCH = 1024         # the seeded functional path's batch, cut for the run's time
+SIGN64_BATCH = 1024         # blind_rotate64's single-prime main shape
 CHES_BATCH = 256            # the CHES AND's batch (examples/ches_experiments.py)
 CHES_ITERS = 20             # warm iterations of the CHES AND timed
 GEMM_DIM = 1024             # K = M of the ciphertext-matrix product (examples/gemm.py)
@@ -173,6 +183,10 @@ RING_N = 4096              # the ring of the N = 4096 phase
 RING_BATCH = 1024           # its batch: bench.py's 4096, cut for the run's time limit
 RING_ROWS = list(range(8))   # rows of its full-width launches held to the plain version
 RING_HEAD = 1               # rows of each of its operations held to the host oracle
+PRIME_BATCH = 256           # the single-prime paths' batch, cut for the run's time
+RING8192_N = 8192           # the ring of the N = 8192 phase
+RING8192_Q = 133857281      # from_gpu_style(STD128, ..., log_q=11, N=8192).lwe.Q
+RING8192_BATCH = 1024       # its batch: bench.py's 4096, cut for the run's time limit
 MESH_TOY_BATCH = 5          # TOY ciphertexts over the two-shard mesh: an uneven split
 LIMB_SHARDS = (2, 4)        # shards of the ring-sharded eval_mult_limb
 LIMB_ITERS = 3
@@ -305,9 +319,12 @@ GATE_BASES = {2: 1 << 14, 6: 1 << 10, 8: 1 << 7, 12: 1 << 5}   # gadget base by 
 def gate_cases():
     """(N, Q, d2, base, throw) of every ring size, digit count and modulus
     the gate kernel serves: Q 134215681 at N <= 1024, 268369921 at d2 <= 8,
-    134176769 at N = 2048, each with throw 0 and 1; and one base above 2Q,
-    whose only digit is the centred value itself."""
-    cases = []
+    134176769 at N = 2048, each with throw 0 and 1; one base above 2Q,
+    whose only digit is the centred value itself; and the two-block cluster
+    at N = 8192 with the logQ = 11 set's prime there (RING8192_Q) at d2 2, 8
+    and 12, throw 0 and 1 (N = 4096's cases are `ring4096_kernels`')."""
+    cases = [(RING8192_N, RING8192_Q, d2, GATE_BASES[d2], throw)
+             for d2 in (2, 8, 12) for throw in (0, 1)]
     for N in (256, 512, 1024, 2048):
         for d2 in (2, 6, 8, 12):
             for Q in GATE_MODULI:
@@ -357,8 +374,9 @@ def gate_kernel_vs_plain(rng, Q: int, peak: float) -> tuple[dict, dict]:
     """blind_rotate against its plain version on the card with tolerance 0
     (torch.equal: the arithmetic is exact and modular), each case timed: at
     STD128 shapes (N = 1024, d2 = 8, baseG = 2^7) B = 64 over 16 rounds;
-    then every case of `gate_cases` at a small odd batch (B = 5, the ragged
-    edge of a batch) over 8 rounds, rows 0, 1 and 2 of the exponents 0, N
+    then every case of `gate_cases` below N = 8192 (those run in
+    `ring8192_kernels`) at a small odd batch (B = 5, the ragged edge of a
+    batch) over 8 rounds, rows 0, 1 and 2 of the exponents 0, N
     and 2N - 1 in all rounds; then the main path's B = GATE_BATCH over all
     512 rounds (`gate_rows_case`: the plain version on ROWS and the last
     row), which is returned and set beside EARLIER_GATE_MS. Last, the mixed
@@ -400,7 +418,8 @@ def gate_kernel_vs_plain(rng, Q: int, peak: float) -> tuple[dict, dict]:
 
     compare(64, 16)
     for N, Qc, d2, base_g, throw in gate_cases():
-        compare(5, 8, N, Qc, d2, base_g, throw, edge=True)
+        if N < RING8192_N:
+            compare(5, 8, N, Qc, d2, base_g, throw, edge=True)
     timing = gate_rows_case(rng, Q, peak, GATE_BATCH, 512, 1024, 8, 1 << 7, 0, ROWS)
     worst = max(worst, timing["max_abs_err"])
     log(f"blind_rotate at B={GATE_BATCH} n=512 d2=8: {timing['ms']:.3f} ms, "
@@ -414,13 +433,45 @@ def gate_kernel_vs_plain(rng, Q: int, peak: float) -> tuple[dict, dict]:
     return {**timing, "max_abs_err": worst}, mixed
 
 
+def card_bsk(seed: int, Q: int, n: int, d2: int, N: int):
+    """A random key in `rotate_kernel.pack_bsk`'s layout [n, 8 d2, N] int32,
+    drawn on the card from `seed`: values uniform mod Q and beside them
+    their Shoup companions, as pack_bsk stores them (the order of a random
+    row's points does not matter). The host would take minutes over the
+    full shapes at N = 8192 (half a billion values at d2 = 12)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = torch.empty((n, 2, 4 * d2, N), dtype=torch.int32, device="cuda")
+    step = max(1, (1 << 26) // (4 * d2 * N))
+    for r in range(0, n, step):
+        vals = torch.randint(0, Q, (min(step, n - r), 4 * d2, N), generator=gen,
+                             device="cuda", dtype=torch.int64)
+        for vs, x in enumerate((vals, (vals << 32) // Q)):
+            out[r:r + step, vs] = torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+    return out.reshape(n, 8 * d2, N)
+
+
+def kernel_resources(name: str, logn: int) -> str:
+    """What ptxas said of the LOGN = logn instantiation of csrc/<name>.cu's
+    kernel in this run's build: its stack and spill line and its register
+    line."""
+    from tfhe_tpu_torch.ops import _build
+
+    lines = _build.ptxas_report(name)
+    for i, ln in enumerate(lines):
+        if "Function properties for" in ln and f"ILi{logn}E" in ln:
+            return "; ".join(lines[i + 1:i + 3])
+    return "not in this run's build log"
+
+
 def gate_rows_case(rng, Q: int, peak: float, B: int, n: int, N: int, d2: int,
                    base_g: int, throw: int, rows: list) -> dict:
     """blind_rotate at a main path's full shape: the kernel over the whole
     batch (a first launch, then timed), the plain version (`plain_rounds`)
     on `rows` and the last row of the same inputs, held equal with
     tolerance 0; rows 0, 1 and 2 of the exponents hold 0, N and 2N - 1 in
-    all rounds."""
+    all rounds. The key is drawn on the card from a seed of `rng`."""
     import numpy as np
     import torch
 
@@ -431,8 +482,7 @@ def gate_rows_case(rng, Q: int, peak: float, B: int, n: int, N: int, d2: int,
     a_np = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
     a_np[:3] = np.array([0, N, 2 * N - 1], dtype=np.int32)[:, None]
     a_idx = torch.from_numpy(a_np).cuda()
-    bsk = rotate_kernel.pack_bsk(rng.integers(0, Q, (n, 2, d2, 2, N)).astype(np.uint64),
-                                 Q).cuda()
+    bsk = card_bsk(int(rng.integers(1 << 62)), Q, n, d2, N)
     kernel = lambda: rotate_kernel.rotate(acc, a_idx, bsk, Q, base_g, throw)  # noqa: E731
     got, first_ms = timed_once(kernel)
     rows = rows + [B - 1]
@@ -913,8 +963,9 @@ def seeded_table_rows(ksk, table) -> list:
     return spans
 
 
-def std128_accelerated(rng, card: str, seeded: bool = False) -> tuple[dict, dict]:
-    """The RNS functional path at full width, batch FUNC_BATCH: EvalSign,
+def std128_accelerated(rng, card: str, seeded: bool = False,
+                       B: int = FUNC_BATCH) -> tuple[dict, dict]:
+    """The RNS functional path at full width, batch B: EvalSign,
     EvalDecomp and EvalFunc on the STD128 accelerated sets, checked by
     decryption, one warm run of each timed. With `seeded`, bench.py's
     configuration: the seeded switching key, generated on the card, its
@@ -959,7 +1010,7 @@ def std128_accelerated(rng, card: str, seeded: bool = False) -> tuple[dict, dict
             f"threefry; one chunk of A ({lwe.KSK_ROW_CHUNK} rows, 2 planes of u32 words) "
             f"regenerated in {timing['threefry_chunk_ms']:.3f} ms on {card}")
 
-    B = FUNC_BATCH
+    timing["batch"] = B
     ct_s, delta = sign_inputs(sign_cc, sk, rng, B)
     ct_d, m_d, p_d, P_d = decomp_inputs(sign_cc, sk, rng, B)
     ct_f, lut, want_f, p_f = func_inputs(func_cc, sk, rng, B)
@@ -999,29 +1050,41 @@ def floor_inputs(cc, sk, rng, B):
     return cc.encrypt(sk, m, "FRESH", p), m, p
 
 
-def floor_ok(cc, sk, out, m, p) -> bool:
+def floor_right(cc, sk, out, m, p):
+    """Which rows of an EvalFloor output decrypt to m // 2 in p / 2."""
     import numpy as np
 
-    return np.array_equal(np.asarray(cc.decrypt(sk, out, p // 2), dtype=np.int64), m // 2)
+    return np.asarray(cc.decrypt(sk, out, p // 2), dtype=np.int64) == m // 2
+
+
+def floor_ok(cc, sk, out, m, p) -> bool:
+    return bool(floor_right(cc, sk, out, m, p).all())
 
 
 def head(ct, rows: int = 8):
     return type(ct)(ct.a[:rows], ct.b[:rows], ct.modulus)
 
 
-def mixed_contexts(param_set, throws=(0, 1), arb_func=False, N=0, sk=None, shared=None):
+def take(ct, rows):
+    """The ciphertexts of `rows` (an index array) of a batch."""
+    return type(ct)(ct.a[rows], ct.b[rows], ct.modulus)
+
+
+def mixed_contexts(param_set, throws=(0, 1), arb_func=False, N=0, sk=None, shared=None,
+                   seeded=False):
     """`from_gpu_style(param_set, arb_func, 11, N, num_digits_to_throw=t)`
     for each t of `throws`, keys made on the host once per LWE block: the
     contexts share the LWE secret, the ring secret and the switching key,
     or take `sk` and `shared` = {"sk_n": ring secret, "ksk": switching key}
-    from another context of the same n, N, qKS and baseKS. Returns
-    ({throw: context}, sk, keygen seconds)."""
+    from another context of the same n, N, qKS and baseKS. With `seeded`,
+    a switching key made here is the seeded (threefry) one, its <A, s>
+    summed on the card. Returns ({throw: context}, sk, keygen seconds)."""
     from tfhe_tpu_torch import BinFHEContext
 
     t0 = time.time()
     out, shared = {}, shared or {}
     for t in throws:
-        cc = BinFHEContext(seed=SEED + t)
+        cc = BinFHEContext(seed=SEED + t, seeded_ksk=seeded)
         cc.generate_binfhe_context(param_set, arb_func=arb_func, log_q=11, N=N,
                                    num_digits_to_throw=t)
         if sk is None:
@@ -1196,9 +1259,7 @@ def ring4096_contexts(rng) -> dict:
     arbFunc, the cube LUT), and the logQ = 11 set on the same LWE secret,
     ring secret and switching key for EvalFloor and NAND (base 2^5, one
     digit thrown, d2 = 10); keys made on the host, inputs at batch
-    RING_BATCH, and the host oracle's outputs on the first RING_HEAD rows
-    of each operation (its switching key the seeded A block drawn on the
-    card). Returns the phase's state for `ring4096_path`."""
+    RING_BATCH. Returns the phase's state for `ring_path`."""
     import numpy as np
 
     from tfhe_tpu_torch import Gate, ParamSet
@@ -1221,93 +1282,118 @@ def ring4096_contexts(rng) -> dict:
     timing = {"N": RING_N, "batch": RING_BATCH, "keygen_s": keygen_s,
               "mixed_keygen_s": mixed_keygen_s}
 
-    B, h = RING_BATCH, RING_HEAD
+    B = RING_BATCH
     ct_s, delta = sign_inputs(sign_cc, sk, rng, B)
     ct_f, lut, want_f, p_f = func_inputs(func_cc, sk, rng, B)
     ct_fl, m_fl, p_fl = floor_inputs(floor_cc, sk, rng, B)
     m1, m2 = rng.integers(0, 2, B), rng.integers(0, 2, B)
     ct1, ct2 = floor_cc.encrypt(sk, m1), floor_cc.encrypt(sk, m2)
-    # name -> (context, run(context, inputs), inputs, check of the outputs)
+    # name -> (context, run(context, inputs), inputs, right(outputs, rows):
+    # which of the rows decrypt right, and whether the parameters' noise lets
+    # some rows decrypt wrong)
     ops = {
         "EvalSign": (sign_cc, lambda c, x: c.eval_sign(x[0]), (ct_s,),
-                     lambda out: np.array_equal(sign_cc.decrypt(sk, out, 2),
-                                                (delta >= 0).astype(np.uint64))),
+                     lambda out, r: sign_cc.decrypt(sk, out, 2) == (delta[r] >= 0), False),
         "EvalFunc": (func_cc, lambda c, x: c.eval_func(x[0], lut), (ct_f,),
-                     lambda out: np.array_equal(
-                         np.asarray(func_cc.decrypt(sk, out, p_f), dtype=np.int64), want_f)),
+                     lambda out, r: np.asarray(func_cc.decrypt(sk, out, p_f),
+                                               dtype=np.int64) == want_f[r], False),
         "EvalFloor": (floor_cc, lambda c, x: c.eval_floor(x[0], 1), (ct_fl,),
-                      lambda out: floor_ok(floor_cc, sk, out, m_fl, p_fl)),
+                      lambda out, r: floor_right(floor_cc, sk, out, m_fl[r], p_fl), False),
         "NAND": (floor_cc, lambda c, x: c.eval_bin_gate(Gate.NAND, *x), (ct1, ct2),
-                 lambda out: np.array_equal(floor_cc.decrypt(sk, out), 1 - (m1 & m2))),
+                 lambda out, r: floor_cc.decrypt(sk, out) == 1 - (m1[r] & m2[r]), False),
     }
-    # the oracle's switching key: the seeded A block drawn on the card (the
-    # host's CPU would take minutes), held to the host threefry on spot rows
-    # in `ring4096_path`
-    t0 = time.time()
-    key.ksk.materialize("cuda")
-    timing["host_A_s"] = time.time() - t0
-    log(f"the seeded key's A block [{key.ksk.rows}, {p.lwe.n}] drawn on the card for the "
-        f"host oracle in {timing['host_A_s']:.1f} s")
-    t0 = time.time()
-    for cc in (sign_cc, func_cc, floor_cc):
-        cc.device_clean()
-    ref = {name: run(cc, [head(c, h) for c in cts]) for name, (cc, run, cts, _) in ops.items()}
-    timing["oracle_s"] = time.time() - t0
-    log(f"host oracle EvalSign, EvalFunc, EvalFloor and NAND on the first {h} of each "
-        f"{timing['oracle_s']:.1f} s")
     return {"contexts": (sign_cc, func_cc, floor_cc), "key": key, "sk": sk, "ops": ops,
-            "timing": timing, "ref": ref}
+            "timing": timing}
 
 
-def ring4096_path(state: dict, card: str) -> dict:
-    """The N = 4096 contexts of `ring4096_contexts` on the card: device
-    setup, the seeded table's and the oracle's A block's spot rows held to
-    the host threefry, then each operation at batch RING_BATCH: every
-    output decrypts right, the first RING_HEAD equal the host oracle bit
-    for bit; a first and a warm call of each timed. The contexts are freed
-    on return."""
+def ring_path(state: dict, card: str) -> dict:
+    """The contexts of `ring4096_contexts` or `ring8192_contexts` on the
+    card (contexts on one bootstrapping key share one backend): device
+    setup, the seeded table's spot rows held to the host threefry, then
+    each operation at the state's batch, a first and a warm call timed:
+    every row decrypts right, except where the parameters' noise lets rows
+    decrypt wrong (at most a third of them), whose count is logged; the
+    contexts' device state is freed. Then the host oracle (its switching
+    key the seeded A block, drawn on the card and held to the host threefry
+    on the same spot rows) on the first RING_HEAD rows of each operation,
+    or on the first row that decrypts wrong: the card's outputs equal it
+    bit for bit, so that the oracle's output decrypts wrong there too."""
     import numpy as np
     import torch
 
     from tfhe_tpu_torch import convert, lwe
 
-    sign_cc, func_cc, floor_cc = state["contexts"]
+    contexts = state["contexts"]
     ops, timing = state["ops"], {"card": card, **state["timing"]}
-    B, h, ksk = RING_BATCH, RING_HEAD, state["key"].ksk
+    N, B, h, ksk = timing["N"], timing["batch"], RING_HEAD, state["key"].ksk
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    for cc in (sign_cc, func_cc, floor_cc):
-        cc.device_setup("cuda")
+    backends = {}
+    for cc in contexts:
+        if id(cc.bt_key) in backends:
+            cc.use_backend(backends[id(cc.bt_key)])
+        else:
+            cc.device_setup("cuda")
+            backends[id(cc.bt_key)] = cc.backend
     torch.cuda.synchronize()
     timing["device_setup_s"] = time.time() - t0
     timing["device_GiB"] = torch.cuda.memory_allocated() / 2**30
-    log(f"device_setup of the three contexts (RNS and pack_bsk keys, one {ksk.rows} "
-        f"x {ksk.n + 1} float64 switching table regenerated on the card) "
-        f"{timing['device_setup_s']:.1f} s, device memory {timing['device_GiB']:.2f} GiB")
-    spans = seeded_table_rows(ksk, convert.switching_table(ksk, sign_cc.backend.device))
-    host_a = ksk.A.reshape(ksk.rows, -1)
-    check(all(np.array_equal(host_a[r0:r1], lwe.seeded_rows(
-        ksk.seed, ksk.n, ksk.q_ks, r0, r1, "cpu").numpy()) for r0, r1 in spans),
-        f"N={RING_N}: the oracle's A block differs from the host threefry")
-    log(f"seeded switching table and the oracle's A block: rows "
-        f"{', '.join(f'{a}..{b - 1}' for a, b in spans)} equal to the host threefry")
-    for name, (cc, run, cts, ok) in ops.items():
+    log(f"N={N}: device_setup of the {len(contexts)} contexts ({len(backends)} backend(s): "
+        f"their kernels' keys, one {ksk.rows} x {ksk.n + 1} float64 switching table "
+        f"regenerated on the card) {timing['device_setup_s']:.1f} s, device memory "
+        f"{timing['device_GiB']:.2f} GiB")
+    spans = seeded_table_rows(ksk, convert.switching_table(ksk, contexts[0].backend.device))
+    log(f"seeded switching table: rows {', '.join(f'{a}..{b - 1}' for a, b in spans)} equal "
+        f"to the host threefry")
+    outs, held = {}, {}
+    for name, (cc, run, cts, right, noisy) in ops.items():
         t0 = time.time()
         out = run(cc, cts)
         first_s = time.time() - t0
-        check(cc.backend.device.type == "cuda", f"N={RING_N} {name} is not on the card")
-        check(ok(out), f"N={RING_N} {name} decryption at B={B}")
-        check(same(head(out, h), state["ref"][name]),
-              f"N={RING_N} {name}: the first {h} outputs differ from the host oracle")
+        check(cc.backend.device.type == "cuda", f"N={N} {name} is not on the card")
+        check(out.a.shape == (B, cc.params.lwe.n), f"N={N} {name} output shape {out.a.shape}")
+        wrong = np.nonzero(~right(out, slice(None)))[0]
+        check(len(wrong) <= (B // 3 if noisy else 0),
+              f"N={N} {name} decryption at B={B}: {len(wrong)} rows wrong")
         t0 = time.time()
         run(cc, cts)
         s = time.time() - t0
+        outs[name], held[name] = out, wrong[:1] if len(wrong) else np.arange(h)
+        timing[f"{name}_first_s"] = first_s
         timing[f"{name}_ms_per_ct"] = s / B * 1e3
-        log(f"N={RING_N} STD128 {name} B={B}: all decrypt right, the first {h} equal the host "
-            f"oracle bit for bit; first call {first_s:.3f} s; warm {s:.4f} s = "
-            f"{s / B * 1e3:.4f} ms/ciphertext, {B / s:.1f} ops/s on {card}")
+        timing[f"{name}_rows_wrong"] = int(len(wrong))
+        log(f"N={N} STD128 {name} B={B}: {B - len(wrong)} of {B} rows decrypt right"
+            f"{f' ({100 * len(wrong) / B:.1f}% wrong, the first row {wrong[0]})' if len(wrong) else ''}"
+            f"; first call {first_s:.3f} s; warm {s:.4f} s = {s / B * 1e3:.4f} ms/ciphertext, "
+            f"{B / s:.1f} ops/s on {card}")
     timing["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
-    log(f"N={RING_N} peak device memory {timing['peak_device_GiB']:.2f} GiB")
+    log(f"N={N} peak device memory {timing['peak_device_GiB']:.2f} GiB on {card}")
+    del backends
+    for cc in contexts:
+        cc.device_clean()
+    torch.cuda.empty_cache()
+
+    # the oracle's switching key: the seeded A block drawn on the card (the
+    # host's CPU would take minutes), held to the host threefry
+    t0 = time.time()
+    host_a = ksk.materialize("cuda").reshape(ksk.rows, -1)
+    timing["host_A_s"] = time.time() - t0
+    check(all(np.array_equal(host_a[r0:r1], lwe.seeded_rows(
+        ksk.seed, ksk.n, ksk.q_ks, r0, r1, "cpu").numpy()) for r0, r1 in spans),
+        f"N={N}: the oracle's A block differs from the host threefry")
+    log(f"the seeded key's A block [{ksk.rows}, {ksk.n}] drawn on the card for the host "
+        f"oracle in {timing['host_A_s']:.1f} s, the same rows equal to the host threefry")
+    t0 = time.time()
+    for name, (cc, run, cts, _, _) in ops.items():
+        rows = held[name]
+        ref = run(cc, [take(c, rows) for c in cts])
+        check(same(take(outs[name], rows), ref),
+              f"N={N} {name}: rows {rows.tolist()} differ from the host oracle")
+        timing[f"{name}_oracle_rows"] = rows.tolist()
+    timing["oracle_s"] = time.time() - t0
+    log(f"N={N} host oracle on {', '.join(f'{n} row(s) {held[n].tolist()}' for n in ops)}: the "
+        f"card's outputs equal it bit for bit, so where the card's decrypt wrong the oracle's "
+        f"do too ({timing['oracle_s']:.1f} s)")
     return timing
 
 
@@ -1321,7 +1407,7 @@ def ring4096_single_prime(rng, card: str, shared: dict) -> dict:
     bootstrapping keys of bases 2^18 and 2^27 are made. EvalSign (a first and a warm call) and
     EvalDecomp on the sign context (logQ 17, bases 2^18 and 2^27), EvalFunc
     (the cube LUT) on the func context (logQ 12, arbFunc), at batch
-    RING_BATCH: every output decrypts right, the first RING_HEAD of
+    PRIME_BATCH: every output decrypts right, the first RING_HEAD of
     EvalSign and EvalFunc equal the host oracle bit for bit. Each call's
     wall time and blind_rotate64's launches and device seconds in it are
     logged; returns them with the keygen, oracle and set-up seconds and the
@@ -1343,10 +1429,10 @@ def ring4096_single_prime(rng, card: str, shared: dict) -> dict:
         f"baseKS={p.lwe.base_ks}; keygen (bootstrapping keys for bases 2^18 and 2^27, the "
         f"func context on the 2^27 one, on the RNS contexts' secrets and seeded switching "
         f"key) {keygen_s:.1f} s")
-    timing = {"card": card, "N": RING_N, "batch": RING_BATCH, "Q": p.lwe.Q,
+    timing = {"card": card, "N": RING_N, "batch": PRIME_BATCH, "Q": p.lwe.Q,
               "keygen_s": keygen_s}
 
-    B, h = RING_BATCH, RING_HEAD
+    B, h = PRIME_BATCH, RING_HEAD
     ct_s, delta = sign_inputs(sign_cc, sk, rng, B)
     ct_d, m_d, p_d, P_d = decomp_inputs(sign_cc, sk, rng, B)
     ct_f, lut, want_f, p_f = func_inputs(func_cc, sk, rng, B)
@@ -1405,6 +1491,89 @@ def ring4096_single_prime(rng, card: str, shared: dict) -> dict:
     timing["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"N={RING_N} single-prime peak device memory {timing['peak_device_GiB']:.2f} GiB")
     return timing
+
+
+def ring8192_kernels(rng, peak: float) -> dict:
+    """blind_rotate at N = 8192 (a cluster of two blocks of 512 threads per
+    ciphertext) against its plain version on the card, with tolerance 0:
+    every N = 8192 case of `gate_cases` (RING8192_Q, d2 2, 8 and 12, throw 0
+    and 1) at B = 5 over 8 rounds, rows 0, 1 and 2 of the exponents 0, N and
+    2N - 1; then the path's shapes, B = RING8192_BATCH, n = LWE_N_ACC, base
+    2^5: d2 = 10 (one digit thrown: NAND, EvalFloor) and d2 = 12 (none:
+    EvalFunc), the plain version on RING_ROWS and the last row. Logs the
+    card's resident clusters and
+    ptxas's registers and spills; returns the full shapes' timings."""
+    from tfhe_tpu_torch.ops import rotate_kernel
+
+    N, Q = RING8192_N, RING8192_Q
+    clusters = rotate_kernel.max_active_clusters()
+    resources = kernel_resources("blind_rotate", 13)
+    log(f"blind_rotate at N={N}: one ciphertext on a cluster of two blocks of {N // 16} "
+        f"threads, 28 N = {28 * N // 1024} KB of shared memory each; ptxas: {resources}; "
+        f"the card holds {clusters} such clusters at once (cudaOccupancyMaxActiveClusters)")
+    for Nc, Qc, d2, base_g, throw in gate_cases():
+        if Nc == N:
+            gate_rows_case(rng, Qc, peak, 5, 8, N, d2, base_g, throw, [0, 1, 2, 3])
+    out = {"max_active_clusters": clusters, "ptxas": resources}
+    for d2, throw in ((10, 1), (12, 0)):
+        out[f"d2={d2}"] = gate_rows_case(rng, Q, peak, RING8192_BATCH, LWE_N_ACC, N, d2,
+                                         1 << 5, throw, RING_ROWS)
+    return out
+
+
+def ring8192_contexts(rng) -> dict:
+    """Ring dimension N = 8192 at full width on the mixed logQ = 11 path:
+    `from_gpu_style(STD128, False, 11, N=8192)` (n = 1305, Q = RING8192_Q,
+    q = 16384, qKS = 2^35, baseKS = 32, base 2^5, one digit thrown: d2 =
+    10) with bench.py's seeded switching key for NAND and EvalFloor, and
+    `from_gpu_style(STD128, True, 11, N=8192)` (arbFunc, q = 8192, one digit
+    thrown) on the same keys (the bootstrapping key does not depend on q)
+    for EvalFunc (the cube LUT); keys made on the host, inputs at batch
+    RING8192_BATCH. At this ring Q stays 27 bits while q doubles, and the
+    bootstraps' output noise, about 67 in units of q = 16384 against 25 at
+    N = 4096 (an H100 run at B = 1024), makes some rows of EvalFloor and
+    EvalFunc, whose second bootstraps need it below beta = 128, decrypt
+    wrong: `ring_path` holds the first such row to the host oracle. Returns
+    the phase's state for `ring_path`."""
+    import numpy as np
+
+    from tfhe_tpu_torch import BinFHEContext, Gate, ParamSet
+
+    N, B = RING8192_N, RING8192_BATCH
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True).stdout
+    log(f"host memory (free -g) before the N={N} keys:\n{free.rstrip()}")
+    mixed, sk, keygen_s = mixed_contexts(ParamSet.STD128, throws=(1,), N=N, seeded=True)
+    floor_cc = mixed[1]
+    key = floor_cc.bt_key
+    func_cc = BinFHEContext(seed=SEED + 2, seeded_ksk=True)
+    func_cc.generate_binfhe_context(ParamSet.STD128, arb_func=True, log_q=11, N=N,
+                                    num_digits_to_throw=1)
+    p, pf = floor_cc.params, func_cc.params
+    check((p.rgsw.N, p.rgsw.Q, p.rgsw.base_g, p.rgsw.num_digits_to_throw, p.lwe.n)
+          == (pf.rgsw.N, pf.rgsw.Q, pf.rgsw.base_g, pf.rgsw.num_digits_to_throw, pf.lwe.n)
+          and p.lwe.Q == RING8192_Q, f"the N = {N} arbFunc context cannot take the key")
+    func_cc.bt_key_load(key)
+    log(f"N={N} STD128 logQ=11: n={p.lwe.n} Q={p.lwe.Q} q={p.lwe.q} (arbFunc {pf.lwe.q}) "
+        f"qKS=2^35 baseKS={p.lwe.base_ks} base 2^5, one digit thrown (d2 = 10); keygen (one "
+        f"bootstrapping key for both contexts, one seeded switching key, <A, s> on the "
+        f"card) {keygen_s:.1f} s")
+    timing = {"N": N, "batch": B, "keygen_s": keygen_s}
+
+    ct_fl, m_fl, p_fl = floor_inputs(floor_cc, sk, rng, B)
+    m1, m2 = rng.integers(0, 2, B), rng.integers(0, 2, B)
+    ct1, ct2 = floor_cc.encrypt(sk, m1), floor_cc.encrypt(sk, m2)
+    ct_f, lut, want_f, p_f = func_inputs(func_cc, sk, rng, B)
+    ops = {
+        "NAND": (floor_cc, lambda c, x: c.eval_bin_gate(Gate.NAND, *x), (ct1, ct2),
+                 lambda out, r: floor_cc.decrypt(sk, out) == 1 - (m1[r] & m2[r]), False),
+        "EvalFloor": (floor_cc, lambda c, x: c.eval_floor(x[0], 1), (ct_fl,),
+                      lambda out, r: floor_right(floor_cc, sk, out, m_fl[r], p_fl), True),
+        "EvalFunc": (func_cc, lambda c, x: c.eval_func(x[0], lut), (ct_f,),
+                     lambda out, r: np.asarray(func_cc.decrypt(sk, out, p_f),
+                                               dtype=np.int64) == want_f[r], True),
+    }
+    return {"contexts": (floor_cc, func_cc), "key": key, "sk": sk, "ops": ops,
+            "timing": timing}
 
 
 def gemm(rng, card: str) -> None:
@@ -2424,7 +2593,7 @@ def std128q_nand(rng, card: str) -> None:
 def single_prime_sign(rng, card: str) -> None:
     """EvalSign at the STD128 accelerated set with the reference's single
     54-bit prime (rns_modulus=False): N = 2048, n = 1305, qKS = 2^35,
-    bases {2^18, 2^27}, one digit thrown, batch SIGN64_BATCH, a first and
+    bases {2^18, 2^27}, one digit thrown, batch PRIME_BATCH, a first and
     a warm call, each checked by decryption. The two-limb sets have no device chain (as in the JAX
     package): each bootstrap's test polynomial is built on the host."""
     import numpy as np
@@ -2443,7 +2612,7 @@ def single_prime_sign(rng, card: str) -> None:
     sign_cc.device_setup("cuda")
     torch.cuda.synchronize()
     log(f"device_setup {time.time() - t0:.1f} s")
-    ct, delta = sign_inputs(sign_cc, sk, rng, SIGN64_BATCH)
+    ct, delta = sign_inputs(sign_cc, sk, rng, PRIME_BATCH)
     # the first call also converts and uploads the second gadget base's key
     for call in ("first", "warm"):
         with KernelClock(backend_mod, "rotate64") as clock:
@@ -2452,9 +2621,9 @@ def single_prime_sign(rng, card: str) -> None:
             wall = time.time() - t0
             kernel_s = clock.ms() / 1e3
         check(np.array_equal(sign_cc.decrypt(sk, out, 2), (delta >= 0).astype(np.uint64)),
-              f"single-prime EvalSign decryption at B={SIGN64_BATCH}")
-        log(f"single-prime EvalSign B={SIGN64_BATCH} {call} call: all decrypt right; wall "
-            f"{wall:.4f} s = {wall / SIGN64_BATCH * 1e3:.4f} ms/ciphertext; blind_rotate64 "
+              f"single-prime EvalSign decryption at B={PRIME_BATCH}")
+        log(f"single-prime EvalSign B={PRIME_BATCH} {call} call: all decrypt right; wall "
+            f"{wall:.4f} s = {wall / PRIME_BATCH * 1e3:.4f} ms/ciphertext; blind_rotate64 "
             f"{kernel_s:.4f} s in {len(clock.events)} launches; outside it (wall - kernel) "
             f"{100 * (wall - kernel_s) / wall:.1f}% on {card}")
     log(f"single-prime EvalSign peak device memory "
@@ -2702,26 +2871,12 @@ def main() -> int:
     reset_counts()
     t0 = time.time()
     toy_accelerated(rng, seeded=True)
-    seeded_timing, _ = std128_accelerated(rng, card, seeded=True)
+    seeded_timing, _ = std128_accelerated(rng, card, seeded=True, B=SEEDED_BATCH)
     seeded_launches = rotate_rns_kernel.LAUNCHES
     check(seeded_launches > 0, "the seeded functional path did not launch blind_rotate_rns")
     log(f"seeded functional path: blind_rotate_rns launches {seeded_launches} "
         f"({time.time() - t0:.1f} s); keygen {seeded_timing['keygen_s']:.1f} s against "
         f"{plain_timing['keygen_s']:.1f} s with the host switching key")
-
-    # save and load: the STD128 gate context (saved by `saver` beside the
-    # phases since the gate path) and the seeded TOY context, reloaded on
-    # the card, counts read just after
-    reset_counts()
-    t0 = time.time()
-    serial_timing = serial_round_trip(rng, card, std, saver)
-    del std
-    serial_gate_launches = rotate_kernel.LAUNCHES
-    serial_rns_launches = rotate_rns_kernel.LAUNCHES
-    check(serial_gate_launches > 0 and serial_rns_launches > 0,
-          "the reloaded contexts did not launch blind_rotate and blind_rotate_rns")
-    log(f"serialization phase: blind_rotate launches {serial_gate_launches}, "
-        f"blind_rotate_rns launches {serial_rns_launches} ({time.time() - t0:.1f} s)")
 
     # the 17 classic GINX sets through TorchBackend, counts read just after
     reset_counts()
@@ -2749,6 +2904,20 @@ def main() -> int:
     log(f"single-prime functional path: blind_rotate64 launches {prime_launches} "
         f"({time.time() - t0:.1f} s)")
 
+    # save and load: the STD128 gate context (saved by `saver` beside the
+    # phases since the gate path) and the seeded TOY context, reloaded on
+    # the card, counts read just after
+    reset_counts()
+    t0 = time.time()
+    serial_timing = serial_round_trip(rng, card, std, saver)
+    del std
+    serial_gate_launches = rotate_kernel.LAUNCHES
+    serial_rns_launches = rotate_rns_kernel.LAUNCHES
+    check(serial_gate_launches > 0 and serial_rns_launches > 0,
+          "the reloaded contexts did not launch blind_rotate and blind_rotate_rns")
+    log(f"serialization phase: blind_rotate launches {serial_gate_launches}, "
+        f"blind_rotate_rns launches {serial_rns_launches} ({time.time() - t0:.1f} s)")
+
     # the mixed logQ = 11 path (blind_rotate with the 35-bit key switch),
     # counts read just after it
     reset_counts()
@@ -2772,7 +2941,7 @@ def main() -> int:
     log(f"N={RING_N} kernels against their plain versions: {time.time() - t0:.1f} s")
     reset_counts()
     state = ring4096_contexts(rng)
-    ring_timing = ring4096_path(state, card)
+    ring_timing = ring_path(state, card)
     ring_launches = (rotate_kernel.LAUNCHES, rotate_rns_kernel.LAUNCHES)
     check(all(n > 0 for n in ring_launches), "the N = 4096 path did not launch blind_rotate "
           f"and blind_rotate_rns: {ring_launches}")
@@ -2794,6 +2963,22 @@ def main() -> int:
     prime4k_timing["phase_s"] = time.time() - t0
     log(f"N={RING_N} single-prime phase: blind_rotate64 launches {prime4k_launches} "
         f"({prime4k_timing['phase_s']:.1f} s)")
+
+    # ring dimension N = 8192 on the gate kernel: blind_rotate (a cluster of
+    # two blocks a ciphertext) against its plain version, then the logQ = 11
+    # gates, EvalFloor and EvalFunc through the contexts (keys, inputs and
+    # the host oracle first), counts read just after the contexts' run
+    t0 = time.time()
+    ring8k_kernels = ring8192_kernels(rng, peak)
+    log(f"N={RING8192_N} blind_rotate against its plain version: {time.time() - t0:.1f} s")
+    reset_counts()
+    ring8k_timing = ring_path(ring8192_contexts(rng), card)
+    ring8k_launches = rotate_kernel.LAUNCHES
+    check(ring8k_launches > 0, "the N = 8192 path did not launch blind_rotate")
+    torch.cuda.empty_cache()
+    ring8k_timing["phase_s"] = time.time() - t0
+    log(f"N={RING8192_N} phase: blind_rotate launches {ring8k_launches} "
+        f"({ring8k_timing['phase_s']:.1f} s)")
 
     # CiphertextMulMatrix and the DM accumulator: torch ops, no hand kernel
     t0 = time.time()
@@ -2838,15 +3023,15 @@ def main() -> int:
                       "seeded": seeded_timing, "ckks_auto": auto_timing,
                       "bgv": bgv_timing, "bfv": bfv_timing, "serial": serial_timing,
                       "mesh": mesh_timing, "ring4096": ring_timing,
-                      "ring4096_single_prime": prime4k_timing,
+                      "ring4096_single_prime": prime4k_timing, "ring8192": ring8k_timing,
                       "total_s": time.time() - t_start}), flush=True)
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate.py:253",
          "launches": (gate_launches + mixed_launches + serial_gate_launches + mesh_launches[0]
-                      + ring_launches[0]),
-         **gate_timing, "ring4096": ring_kernels["blind_rotate"],
+                      + ring_launches[0] + ring8k_launches),
+         **gate_timing, "ring4096": ring_kernels["blind_rotate"], "ring8192": ring8k_kernels,
          "library_ms": None},
         {"name": "blind_rotate_rns", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate_rns.cu",

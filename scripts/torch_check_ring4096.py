@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The N = 4096 kernels alone, on one GPU (about a minute of command).
+"""The N = 4096 kernels alone, on one GPU (about a minute of command), or
+the gate kernel at N = 8192 (`--ring 8192`, about a minute and a half).
 
-    python3 scripts/torch_check_ring4096.py
+    python3 scripts/torch_check_ring4096.py [--ring 8192]
 
 Builds the three kernels (`_build.build`, one nvcc per source), prints what
 ptxas says of every instantiation's registers and spills (nothing when the
@@ -20,6 +21,14 @@ STD128, B = 4096, n = 512, d2 = 8, and `blind_rotate64` at the 54-bit
 prime, B = 1024, n = 1305, d2 = 4 and 2 (the plain versions on one row and
 the last). Prints the card's name and power limit, and one JSON line of
 the timings. Imports no jax.
+
+With `--ring 8192`: `chip_smoke.ring8192_kernels` (`blind_rotate` as a
+two-block cluster at every N = 8192 case of `chip_smoke.gate_cases`, B = 5,
+then at B = 1024, n = 1305, d2 = 10 and 12 on a head of rows, with ptxas's
+registers and spills and the resident clusters), and beside it the gate
+kernel's main shapes below N = 8192: STD128 (B = 4096, n = 512, d2 = 8),
+mixed logQ = 11 (B = 4096, n = 1305, N = 1024, d2 = 10) and N = 4096
+(B = 1024, n = 1305, d2 = 10), the plain version on one row and the last.
 """
 
 from __future__ import annotations
@@ -44,6 +53,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_check_ring4096: no CUDA device", file=sys.stderr)
         return 1
+    ring = int(sys.argv[sys.argv.index("--ring") + 1]) if "--ring" in sys.argv else cs.RING_N
+    if ring not in (cs.RING_N, cs.RING8192_N):
+        print(f"torch_check_ring4096: --ring takes {cs.RING_N} or {cs.RING8192_N}",
+              file=sys.stderr)
+        return 2
     t0 = time.time()
     _build.build()
     for name in _build.KERNELS:
@@ -55,6 +69,18 @@ def main() -> int:
                          check=True).stdout.strip(), flush=True)
     peak = cs.int32_peak_per_s()
     rng = np.random.default_rng(cs.SEED)
+    if ring == cs.RING8192_N:
+        out = {"ring8192": cs.ring8192_kernels(rng, peak)}
+        std = from_param_set(ParamSet.STD128).lwe.Q
+        mixed = from_gpu_style(ParamSet.STD128, False, 11).lwe.Q
+        mixed4k = from_gpu_style(ParamSet.STD128, False, 11, N=cs.RING_N).lwe.Q
+        for name, Q, B, n, N, d2, base_g, throw in (
+                ("gate_N1024", std, cs.GATE_BATCH, 512, 1024, 8, 1 << 7, 0),
+                ("mixed_N1024", mixed, cs.GATE_BATCH, cs.LWE_N_ACC, 1024, 10, 1 << 5, 1),
+                ("mixed_N4096", mixed4k, cs.RING_BATCH, cs.LWE_N_ACC, cs.RING_N, 10, 1 << 5, 1)):
+            out[name] = cs.gate_rows_case(rng, Q, peak, B, n, N, d2, base_g, throw, [0])
+        print(json.dumps(out), flush=True)
+        return 0
     q1, q2 = from_gpu_style(ParamSet.STD128, True, 12, N=cs.RING_N).rgsw.rns_primes
     Q = from_gpu_style(ParamSet.STD128, False, 11, N=cs.RING_N).lwe.Q
     out = cs.ring4096_kernels(rng, q1, q2, Q, peak)

@@ -17,7 +17,8 @@ With `--kernel-only` (about a minute): builds `csrc/blind_rotate.cu`,
 prints what ptxas says of its registers and spills, and runs
 `chip_smoke.gate_kernel_vs_plain`: the kernel held to its plain version
 (`torch.equal`) at B = 64, n = 16 at STD128 shapes, at every case of
-`chip_smoke.gate_cases` (B = 5, n = 8), and at B = 4096, n = 512 and the
+`chip_smoke.gate_cases` below N = 8192 (B = 5, n = 8; N = 8192 is
+`scripts/torch_check_ring4096.py --ring 8192`), and at B = 4096, n = 512 and the
 mixed logQ = 11 shape (the plain version on a head of rows), where it is
 timed with CUDA events against the bound `chip_smoke.py` computes, on
 random keys, without keygen. Prints one JSON line. Imports no jax.

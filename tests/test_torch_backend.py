@@ -188,10 +188,11 @@ def test_supported_sets():
 
 
 def test_context_device_setup_refuses_unsupported():
-    """A ring dimension the kernels do not take (N = 8192) raises in
-    setup, never on the card, and never runs on the oracle."""
+    """A ring dimension the kernels do not take (N = 16384 on the mixed
+    path) raises in setup, never on the card, and never runs on the
+    oracle."""
     cc = tfhe_tpu_torch.BinFHEContext(seed=1, device="cpu")
-    cc.generate_binfhe_context(params_mod.ParamSet.TOY, arb_func=False, log_q=11, N=8192)
+    cc.generate_binfhe_context(params_mod.ParamSet.TOY, arb_func=False, log_q=11, N=16384)
     cc.bt_key_load(torch_scheme.BTKey(bsk_coeff=np.zeros(1), ksk=None,
                                       base_g=cc.params.rgsw.base_g))
     with pytest.raises(NotImplementedError):

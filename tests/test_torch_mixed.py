@@ -86,15 +86,19 @@ def jax_backend(jc):
 @pytest.mark.parametrize("param_set", [ParamSet.TOY, ParamSet.STD128], ids=lambda s: s.name)
 def test_logq11_sets_are_supported_as_in_jax(param_set):
     """Every logQ = 11 set (arbFunc or not, 0 or 1 digit thrown) takes the
-    mixed path, as JaxBackend takes it; at N = 8192 the port refuses what
-    the kernel cannot run."""
+    mixed path, as JaxBackend takes it, at the set's own ring and at
+    N = 8192; at N = 16384, which JaxBackend also takes, the port refuses
+    what the kernel cannot run."""
     for arb in (False, True):
         for throw in (0, 1):
-            jp = jax_params.from_gpu_style(param_set, arb, 11, num_digits_to_throw=throw)
-            tp = convert.params_from(jp)
-            assert TorchBackend.supports(tp) == JaxBackend().supports(jp) is True
-            assert TorchBackend._path(tp) == "mixed"
-    big = convert.params_from(jax_params.from_gpu_style(param_set, False, 11, N=8192))
+            for N in (0, 8192):
+                jp = jax_params.from_gpu_style(param_set, arb, 11, N=N,
+                                               num_digits_to_throw=throw)
+                tp = convert.params_from(jp)
+                assert TorchBackend.supports(tp) == JaxBackend().supports(jp) is True
+                assert TorchBackend._path(tp) == "mixed"
+    big = convert.params_from(jax_params.from_gpu_style(param_set, False, 11, N=16384))
+    assert JaxBackend().supports(jax_params.from_gpu_style(param_set, False, 11, N=16384))
     assert TorchBackend._path(big) is None
 
 

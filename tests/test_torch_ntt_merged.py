@@ -86,30 +86,57 @@ def exchange(regs, N, c_from, c_to):
     return buf[..., swz(owned(c_to, TG))]
 
 
+def fwd_group(regs, j, top, lo, q, fw, fws):
+    """The forward stages of bits top..lo on registers [..., T, 8] whose
+    indices are j [T, 8] (any T threads of a group)."""
+    N = fw.shape[0]
+    for b in range(top, lo - 1, -1):
+        r = b - lo
+        for k in range(8):
+            if k >> r & 1:
+                continue
+            k2 = k | 1 << r
+            assert torch.equal(j[:, k2], j[:, k] + (1 << b))
+            idx = twiddle_index(N, j[:, 0], k >> (r + 1), b)
+            assert torch.equal(idx, (N | j[:, k]) >> (b + 1))
+            u = csub(regs[..., k], 2 * q)
+            v = mulmod_lazy(regs[..., k2], fw[idx], fws[idx], q)
+            regs[..., k], regs[..., k2] = u + v, u + 2 * q - v
+    assert (regs < 4 * q).all()
+    return regs
+
+
+def inv_group(regs, j, top, lo, q, iw, iws):
+    """The inverse stages of bits lo..top; the stage of bit log2(N) - 1
+    folds in N^-1."""
+    N = iw.shape[0]
+    for b in range(lo, top + 1):
+        r = b - lo
+        for k in range(8):
+            if k >> r & 1:
+                continue
+            k2 = k | 1 << r
+            idx = twiddle_index(N, j[:, 0], k >> (r + 1), b)
+            u, v = regs[..., k].clone(), regs[..., k2].clone()
+            if b == N.bit_length() - 2:
+                regs[..., k] = mulmod_lazy(u + v, iw[0], iws[0], q)
+            else:
+                regs[..., k] = csub(u + v, 2 * q)
+            regs[..., k2] = mulmod_lazy(u + 2 * q - v, iw[idx], iws[idx], q)
+    assert (regs < 2 * q).all()
+    return regs
+
+
 def forward_regs(x, q, fw, fws):
     """Natural-order coefficients [..., N] (< 4q) -> the last group's
     registers [..., TG, 8]: point 8t + k, values < 4q."""
     N = x.shape[-1]
-    logn = N.bit_length() - 1
-    grp = groups(logn)
+    grp = groups(N.bit_length() - 1)
     regs = x[..., owned(grp[0][0], N // 8)]
     for g, (C, top, lo) in enumerate(grp):
         if g:
             regs = exchange(regs, N, grp[g - 1][0], C)
-        j = owned(C, N // 8)
-        for b in range(top, lo - 1, -1):
-            r = b - lo
-            for k in range(8):
-                if k >> r & 1:
-                    continue
-                k2 = k | 1 << r
-                assert torch.equal(j[:, k2], j[:, k] + (1 << b))
-                idx = twiddle_index(N, j[:, 0], k >> (r + 1), b)
-                assert torch.equal(idx, (N | j[:, k]) >> (b + 1))
-                u = csub(regs[..., k], 2 * q)
-                v = mulmod_lazy(regs[..., k2], fw[idx], fws[idx], q)
-                regs[..., k], regs[..., k2] = u + v, u + 2 * q - v
-        assert (regs < 4 * q).all()
+        regs = fwd_group(regs, owned(C, N // 8), top, lo, q, fw, fws)
     return regs
 
 
@@ -117,27 +144,12 @@ def inverse_regs(regs, q, iw, iws):
     """The last group's registers [..., TG, 8] (< 2q) -> group 0's:
     coefficient t + k N/8, values < 2q."""
     N = regs.shape[-2] * 8
-    logn = N.bit_length() - 1
-    grp = groups(logn)
+    grp = groups(N.bit_length() - 1)
     for g in range(len(grp) - 1, -1, -1):
         C, top, lo = grp[g]
         if g < len(grp) - 1:
             regs = exchange(regs, N, grp[g + 1][0], C)
-        j = owned(C, N // 8)
-        for b in range(lo, top + 1):
-            r = b - lo
-            for k in range(8):
-                if k >> r & 1:
-                    continue
-                k2 = k | 1 << r
-                idx = twiddle_index(N, j[:, 0], k >> (r + 1), b)
-                u, v = regs[..., k].clone(), regs[..., k2].clone()
-                if b == logn - 1:
-                    regs[..., k] = mulmod_lazy(u + v, iw[0], iws[0], q)
-                else:
-                    regs[..., k] = csub(u + v, 2 * q)
-                regs[..., k2] = mulmod_lazy(u + 2 * q - v, iw[idx], iws[idx], q)
-        assert (regs < 2 * q).all()
+        regs = inv_group(regs, owned(C, N // 8), top, lo, q, iw, iws)
     return regs
 
 
@@ -171,11 +183,16 @@ def test_merged_forward_and_inverse_equal_ntt(N, lane):
     assert torch.equal(got, ntt.inverse(y, q))
 
 
-@pytest.mark.parametrize("N", [256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("N", [256, 512, 1024, 2048, 4096, 8192])
 def test_register_exchanges_are_conflict_free_bijections(N):
     """Every group's layout covers each index once, every warp's access to a
     swizzled buffer hits 32 banks, and a block-wide barrier is needed only
-    where a group with C > 7 takes part."""
+    where a group with C > 7 takes part. At N = 8192 the N/8 threads are
+    the two blocks of a cluster (rank = thread bit 9): each block's words
+    (bit 9 of j in group 0, bit 12 in the others) fill its half of the
+    buffer once with that bit dropped, banks unchanged, so that only the
+    exchange between groups 0 and 1 crosses blocks, and there register k
+    of group 1, or of group 0 in the inverse, lies in block k / 4."""
     TG = N // 8
     phys = swz(torch.arange(N))
     assert torch.equal(phys.sort().values, torch.arange(N))
@@ -192,6 +209,23 @@ def test_register_exchanges_are_conflict_free_bijections(N):
         warp_of[ja.reshape(-1)] = (torch.arange(TG)[:, None] // 32).expand(TG, 8).reshape(-1)
         same_warp = torch.equal(warp_of[jb], (torch.arange(TG)[:, None] // 32).expand(TG, 8))
         assert same_warp == (max(c_a, c_b) <= 7)
+    if N < 8192:
+        return
+    half, rank = N // 2, torch.arange(TG)[:, None] >> 9             # [TG, 1]
+    k = torch.arange(8)[None, :]
+    for g, (C, _, _) in enumerate(grp):
+        j = owned(C, TG)
+        bit = 9 if g == 0 else 12
+        assert torch.equal(j >> bit & 1, rank.expand(TG, 8))         # the block's words
+        if g == 1:
+            assert torch.equal(j >> 9 & 1, (k >> 2).expand(TG, 8))   # the forward's crossing
+        if g == 0:
+            assert torch.equal(j >> 12 & 1, (k >> 2).expand(TG, 8))  # the inverse's
+        for r in range(2):
+            s = swz(j[r * TG // 2:(r + 1) * TG // 2])
+            word = ((s >> (bit + 1)) << bit) | (s & ((1 << bit) - 1))
+            assert torch.equal(word.reshape(-1).sort().values, torch.arange(half))
+            assert torch.equal(word % 32, s % 32)
 
 
 def extract(d, g_bits):

@@ -104,10 +104,10 @@ def on_jax_backend(jc, op):
 
 
 def test_kernel_wrappers_take_their_rings():
-    """The gate, RNS and 64-bit kernels take N = 4096; none takes
-    N = 8192."""
-    assert (rotate_kernel.RING_DIMS[-1] == rotate_rns_kernel.RING_DIMS[-1]
-            == rotate64_kernel.RING_DIMS[-1] == N)
+    """The gate, RNS and 64-bit kernels take N = 4096; the gate kernel also
+    takes N = 8192, and the other two refuse it."""
+    assert N in rotate_kernel.RING_DIMS and rotate_kernel.RING_DIMS[-1] == 2 * N
+    assert rotate_rns_kernel.RING_DIMS[-1] == rotate64_kernel.RING_DIMS[-1] == N
     rotate_rns_kernel.check_params(N, 4, Q1, Q2, 1 << 18)
     rotate64_kernel.check_params(N, 4, (1 << 54) - 33, 1 << 18)
     with pytest.raises(ValueError):

@@ -45,7 +45,52 @@
 // a thread (__launch_bounds__(N/8, 4096/N) at every N; ptxas: 125-128, no
 // spills). N = 4096 needs no other layout: one block of 512 threads and
 // 128 KB, the register NTT at 12 index bits (two block-wide exchanges per
-// transform, register_ntt.cuh). As in blind_rotate_rns.cu, twiddles and keys are read with
+// transform, register_ntt.cuh).
+//
+// N = 8192: one block would need 1024 threads at 128 registers (twice an
+// SM's 65,536) and 256 KB of shared memory, so a ciphertext runs on a
+// cluster of two blocks of 512 threads (csrc/cluster.cuh). Logical thread
+// t = rank * 512 + threadIdx.x keeps the registers and the ownership it has
+// in one block; the register NTT has five groups (C = 12, 9, 6, 3, 2), and
+// rank, thread bit 9, is bit 9 of j in group 0 and bit 12 in groups 1-4. So
+// only the exchange between groups 0 and 1 crosses the cluster, once per
+// digit in the forward and once in the inverse: the writer stores its
+// values in its own shared memory (the half of the words whose owner bit,
+// 9 or 12, is its rank), a cluster barrier, and each thread reads its eight
+// words with ld.shared::cluster, four from each block (register k from
+// block k / 4). The other exchanges stay in the block's half of the buffer.
+// In group 4 each block holds the half of the points with bit 12 = rank,
+// so it reads the contiguous half of every key row: no key word is read
+// twice. The monomial step reads the inverse's output rotated by any m,
+// about half of it from the peer. Shared memory per block: the crossing's
+// buffer [2 parities][2][N/2], the block's forward buffer [2][N/2], the
+// inverse's buffer [4][N/2] (with the waiting sums) and the output
+// [4][N/2]: 28 N = 224 KB. Cluster barriers per round: one per kept digit,
+// one in the inverse, one between writing the output and reading it
+// rotated. The hazards and what guards them:
+// - the crossing's buffer: digit c of the run (counted across rounds) is
+//   written before barrier c and read after it; the next write of the same
+//   parity, c + 2, comes after barrier c + 1, which the peer passes only
+//   when its reads of c are done. One buffer would let a block overwrite
+//   words its peer still reads. Between rounds the inverse's and the
+//   output's barriers come between two digits as well, so a parity of l
+//   alone would also be safe; the count is kept for symmetry with
+//   blind_rotate64.cu;
+// - the inverse's crossing writes the words the block's own 2 -> 1
+//   exchange read (a __syncwarp suffices), and the peer reads them after
+//   the barrier; the output goes to a buffer of its own, since writing it
+//   over the inverse's buffer would overwrite words the peer still reads
+//   in that crossing. The next round writes the output again only after a
+//   crossing barrier of its forward, and its sums and inverse go to the
+//   inverse's buffer, which the peer last read before the output barrier;
+// - a block must not leave while its peer may read its shared memory: the
+//   kernel ends with a cluster barrier.
+// The emulation in tests/test_torch_rotate_merged.py keeps the two blocks'
+// shared memory apart and lets one run ahead to each cluster barrier;
+// there one forward buffer, the output over the inverse's buffer, or no
+// final barrier each give a wrong result.
+//
+// As in blind_rotate_rns.cu, twiddles and keys are read with
 // coherent loads and each transform takes the thread index anew from shared
 // memory, so that ptxas does not hoist one transform's loads or addresses
 // into another's registers.
@@ -74,12 +119,72 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "register_ntt.cuh"
 
 namespace {
 
+using dsmem::cluster_sync;
+using dsmem::ld_peer;
 using rntt::csub;
 using rntt::mulmod_lazy;
+
+// A ciphertext on a cluster of two blocks (N = 8192), or on one block.
+template <int LOGN>
+constexpr bool kCluster = LOGN > 12;
+
+template <int LOGN>
+constexpr int kThreads = (1 << LOGN) / (kCluster<LOGN> ? 16 : 8);
+
+// The word of j (swizzled or not) in its owner's half when the owner is
+// bit 9 of j: bit 9 dropped.
+__device__ __forceinline__ int drop_bit9(int j) { return ((j >> 10) << 9) | (j & 511); }
+
+// The exchange between register groups 0 (C = 12: j = t | k << 10, bit 9
+// = rank) and 1 (C = 9: j = tpart<9>(t) | k << 7, bit 12 = rank) at 13 index
+// bits, across the cluster. Forward: each thread stores its group-0 values
+// in its block's buffer `mine` at drop_bit9(swz(j)); after the cluster
+// barrier it reads group 1's, register k from block k / 4 (bit 9 of j is bit
+// 2 of k), at cluster addresses `at[rank]` of the same buffer.
+template <int NP>
+__device__ __forceinline__ void cross_forward(uint32_t (&x)[NP][8], uint32_t* __restrict__ mine,
+                                              const uint32_t (&at)[2], int t) {
+  constexpr int H = 4096;  // words a polynomial in a block's half
+  const int wa = rntt::swz(t);
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) mine[p * H + drop_bit9(wa ^ rntt::swz(k << 10))] = x[p][k];
+  cluster_sync();
+  const int ra = rntt::swz(rntt::tpart<9>(t));
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      x[p][k] = ld_peer(at[k >> 2] + 4 * (p * H + drop_bit9(ra ^ rntt::swz(k << 7))));
+}
+
+// Inverse: group 1's values go to the block's buffer at swz(j) with bit 12
+// dropped, the words its own 2 -> 1 exchange read; after the cluster
+// barrier group 0's register k comes from block k / 4 (bit 12 of j).
+template <int NP>
+__device__ __forceinline__ void cross_inverse(uint32_t (&x)[NP][8], uint32_t* __restrict__ mine,
+                                              const uint32_t (&at)[2], int t) {
+  constexpr int H = 4096;
+  __syncwarp();  // the warp's reads of these words in the 2 -> 1 exchange are done
+  const int wa = rntt::swz(rntt::tpart<9>(t));
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) mine[p * H + ((wa ^ rntt::swz(k << 7)) & (H - 1))] = x[p][k];
+  cluster_sync();
+  const int ra = rntt::swz(t);
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      x[p][k] = ld_peer(at[k >> 2] + 4 * (p * H + ((ra ^ rntt::swz(k << 10)) & (H - 1))));
+}
 
 // Balanced base-2^g_bits digit of d; d becomes (d - digit) >> g_bits.
 __device__ __forceinline__ int32_t extract(int32_t& d, int g_bits) {
@@ -95,9 +200,10 @@ __device__ __forceinline__ int32_t extract(int32_t& d, int g_bits) {
 // points in the forward NTT's order; only vs = 1 is read. tw: [4][N] rows
 // fwd, fwd', inv, inv' (register_ntt.cuh; x' = Shoup companion); fwd[0] = 1,
 // so fwd'[0] = floor(2^32 / Q) reduces the lazy sums. g_bits <= 28: a larger
-// base gives the same digits (|x| < 2^27 is one digit).
+// base gives the same digits (|x| < 2^27 is one digit). With kCluster,
+// blocks 2b and 2b + 1 of the grid (one cluster) run ciphertext b.
 template <int LOGN>
-__global__ void __launch_bounds__((1 << LOGN) / 8, 4096 >> LOGN)
+__global__ void __launch_bounds__(kThreads<LOGN>, kCluster<LOGN> ? 1 : 4096 >> LOGN)
 blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
                     uint32_t* __restrict__ acc_out,
                     const int32_t* __restrict__ a_idx,
@@ -105,15 +211,34 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
                     const uint32_t* __restrict__ tw, int n, uint32_t Q,
                     int g_bits, int digits, int throw_digits) {
   constexpr int N = 1 << LOGN;
-  constexpr int TG = N / 8;                 // threads per block
+  constexpr int TG = N / 8;                 // threads per polynomial
   constexpr int G = rntt::groups<LOGN>();
+  constexpr bool CL = kCluster<LOGN>;
+  constexpr int S = CL ? N / 2 : N;         // words a polynomial in a block
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* fbuf = smem;         // [2 parities][2][N], swizzled
-  uint32_t* ibuf = fbuf + 4 * N; // [4][N], swizzled; the inverse's output
-                                 // [4][N] in natural order
+  // one block: fbuf [2 parities][2][N] and ibuf [4][N], swizzled, ibuf
+  // also the inverse's output [4][N] in natural order. A cluster's block:
+  // xbuf [2 parities][2][S] (the crossing), fbuf [2][S], ibuf [4][S] and
+  // obuf [4][S] (the output), each the block's half of the words
+  uint32_t* xbuf = smem;
+  uint32_t* fbuf = CL ? smem + 4 * S : smem;
+  uint32_t* ibuf = CL ? smem + 6 * S : smem + 4 * N;
+  uint32_t* obuf = CL ? smem + 10 * S : ibuf;
 
-  const int t = threadIdx.x;
-  const size_t b = blockIdx.x;
+  int t;
+  size_t b;
+  // the cluster address of this block's shared memory in either block
+  uint32_t at[2] = {0u, 0u};
+  if constexpr (CL) {
+    const int rank = dsmem::cluster_rank();
+    t = rank * (N / 16) + threadIdx.x;
+    b = blockIdx.x / 2;
+    at[0] = dsmem::peer_address(smem, 0);
+    at[1] = dsmem::peer_address(smem, 1);
+  } else {
+    t = threadIdx.x;
+    b = blockIdx.x;
+  }
   const int d2 = 2 * digits;
   const uint32_t* fw = tw;
   const uint32_t* fws = tw + N;
@@ -135,14 +260,14 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
   for (int o = 0; o < 2; ++o)
 #pragma unroll
     for (int k = 0; k < 8; ++k) acc[o][k] = acc_in[b * 2 * N + o * N + t + k * TG];
-  if (t == 0) zero = 0;
+  if (threadIdx.x == 0) zero = 0;
   __syncthreads();
 
   // the lazy sums of digits before the last wait in the inverse's buffer,
   // among the 256 words per polynomial that the warp's own first exchange of
   // the inverse writes: register k at word 32k + (t mod 32), so one base and
   // constant offsets address all of them
-  uint32_t* sums = ibuf + 8 * (t & ~31) + (t & 31);
+  uint32_t* sums = ibuf + 8 * (threadIdx.x & ~31) + (threadIdx.x & 31);
 
   for (int r = 0; r < n; ++r) {
     const uint32_t* key = bsk + ((size_t)r * 8 * d2 + 4 * d2) * N + 8 * t;
@@ -169,7 +294,15 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
           const int32_t rr = extract(d[o][k], g_bits);
           x[o][k] = rr < 0 ? uint32_t(rr + int32_t(Q)) : uint32_t(rr);
         }
-      rntt::forward<LOGN, 0, 2>(x, fbuf + (l & 1) * 2 * N, fresh(t), fw, fws, Q);
+      if constexpr (CL) {
+        const int par = (r * digits + l) & 1;
+        rntt::fwd_pass<LOGN, 0, 2>(x, fresh(t), fw, fws, Q);
+        const uint32_t x_at[2] = {at[0] + 8 * S * par, at[1] + 8 * S * par};
+        cross_forward(x, xbuf + 2 * S * par, x_at, fresh(t));
+        rntt::forward<LOGN, 1, 2, S>(x, fbuf, fresh(t), fw, fws, Q);
+      } else {
+        rntt::forward<LOGN, 0, 2>(x, fbuf + (l & 1) * 2 * N, fresh(t), fw, fws, Q);
+      }
     };
     // the lazy external product of digit l for output ko = key*2 + out:
     // p[k] = sum_j x_j K[key][out][2l + j] at point 8t + k, < 4Q
@@ -195,7 +328,7 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
         product(l, ko, x, p);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
-          uint32_t* sp = sums + ko * N + 32 * k;
+          uint32_t* sp = sums + ko * S + 32 * k;
           *sp = l == 0 ? p[k] : *sp + p[k];
         }
       }
@@ -210,7 +343,7 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
         uint32_t p[8];
         product(l, ko, x, p);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) u[ko][k] = l == 0 ? p[k] : sums[ko * N + 32 * k] + p[k];
+        for (int k = 0; k < 8; ++k) u[ko][k] = l == 0 ? p[k] : sums[ko * S + 32 * k] + p[k];
       }
     }
 
@@ -220,22 +353,42 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
     for (int ko = 0; ko < 4; ++ko)
 #pragma unroll
       for (int k = 0; k < 8; ++k) u[ko][k] -= __umulhi(u[ko][k], red_sh) * Q;
-    rntt::inverse<LOGN, G - 1, 4>(u, ibuf, fresh(t), iw, iws, Q);
+    if constexpr (CL) {
+      rntt::inverse<LOGN, G - 1, 4, S, 1>(u, ibuf, fresh(t), iw, iws, Q);
+      const uint32_t i_at[2] = {at[0] + 24 * S, at[1] + 24 * S};
+      cross_inverse(u, ibuf, i_at, fresh(t));
+      rntt::inv_pass<LOGN, 0, 4>(u, fresh(t), iw, iws, Q);
+    } else {
+      rntt::inverse<LOGN, G - 1, 4>(u, ibuf, fresh(t), iw, iws, Q);
+    }
 
     // acc[o] += (X^m_pos - 1) u[o] + (X^m_neg - 1) u[2 + o]: write the
-    // inverse's output once over its buffer, when every thread has read its
-    // last exchange, and read it rotated
-    __syncthreads();
+    // inverse's output once, in one block over its buffer when every thread
+    // has read its last exchange, and read it rotated. In a cluster each
+    // block writes the coefficients of its group-0 registers (bit 9 of j is
+    // its rank) to its own output buffer, and reads the rotated ones from
+    // the block that holds them.
+    if constexpr (!CL) __syncthreads();
 #pragma unroll
     for (int ko = 0; ko < 4; ++ko)
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         u[ko][k] = csub(u[ko][k], Q);
-        ibuf[ko * N + t + k * TG] = u[ko][k];
+        obuf[ko * S + (CL ? drop_bit9(t + k * TG) : t + k * TG)] = u[ko][k];
       }
-    __syncthreads();
+    if constexpr (CL)
+      cluster_sync();
+    else
+      __syncthreads();
     const int m_pos = a_idx[b * n + r];
     const int m_neg = (2 * N - m_pos) & (2 * N - 1);
+    // the output's coefficient c of polynomial ko
+    auto output = [&](int ko, int c) -> uint32_t {
+      if constexpr (CL)
+        return ld_peer(((c >> 9) & 1 ? at[1] : at[0]) + 4 * (10 * S + ko * S + drop_bit9(c)));
+      else
+        return obuf[ko * N + c];
+    };
 #pragma unroll
     for (int o = 0; o < 2; ++o)
 #pragma unroll
@@ -243,8 +396,8 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
         const int j = t + k * TG;
         const int r0 = (j - m_pos) & (2 * N - 1);
         const int r1 = (j - m_neg) & (2 * N - 1);
-        const uint32_t c0 = ibuf[o * N + (r0 & (N - 1))];
-        const uint32_t c1 = ibuf[(2 + o) * N + (r1 & (N - 1))];
+        const uint32_t c0 = output(o, r0 & (N - 1));
+        const uint32_t c1 = output(2 + o, r1 & (N - 1));
         const uint32_t v0 = r0 < N ? c0 : Q - c0;  // in [0, Q]
         const uint32_t v1 = r1 < N ? c1 : Q - c1;
         const uint32_t s = acc[o][k] + v0 + (Q - u[o][k]) + v1 + (Q - u[2 + o][k]);
@@ -252,8 +405,11 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
       }
     // the next round's sums and inverse overwrite the output only after its
     // first forward's block-wide exchange (N >= 512; at N = 256 the block is
-    // one warp and every exchange a __syncwarp)
+    // one warp and every exchange a __syncwarp); in a cluster the output is
+    // written again only after the next round's first crossing barrier
   }
+  // no block of a cluster leaves while its peer may still read it
+  if constexpr (CL) cluster_sync();
 
 #pragma unroll
   for (int o = 0; o < 2; ++o)
@@ -261,22 +417,38 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
     for (int k = 0; k < 8; ++k) acc_out[b * 2 * N + o * N + t + k * TG] = acc[o][k];
 }
 
+// Dynamic shared memory of a block: 32 N bytes, 28 N in a cluster.
+template <int LOGN>
+constexpr size_t smem_bytes() {
+  return (kCluster<LOGN> ? 7 : 8) * (size_t(1) << LOGN) * sizeof(uint32_t);
+}
+
 template <int LOGN>
 cudaError_t launch(const void* acc_in, void* acc_out, const void* a_idx,
                    const void* bsk, const void* tw, int B, int n, int Q,
                    int g_bits, int digits, int throw_digits,
                    cudaStream_t stream) {
-  const size_t N = size_t(1) << LOGN;
-  const size_t smem = 8 * N * sizeof(uint32_t);
+  const size_t smem = smem_bytes<LOGN>();
   cudaError_t err = cudaFuncSetAttribute(
       blind_rotate_kernel<LOGN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  blind_rotate_kernel<LOGN><<<B, N / 8, smem, stream>>>(
-      static_cast<const uint32_t*>(acc_in), static_cast<uint32_t*>(acc_out),
-      static_cast<const int32_t*>(a_idx), static_cast<const uint32_t*>(bsk),
-      static_cast<const uint32_t*>(tw), n, (uint32_t)Q, g_bits < 28 ? g_bits : 28,
-      digits, throw_digits);
+  const auto acc_i = static_cast<const uint32_t*>(acc_in);
+  const auto acc_o = static_cast<uint32_t*>(acc_out);
+  const auto idx = static_cast<const int32_t*>(a_idx);
+  const auto key = static_cast<const uint32_t*>(bsk);
+  const auto twd = static_cast<const uint32_t*>(tw);
+  const int gb = g_bits < 28 ? g_bits : 28;
+  constexpr int threads = kThreads<LOGN>;
+  if constexpr (kCluster<LOGN>) {
+    dsmem::PairLaunch cl(B, threads, smem, stream);
+    err = cudaLaunchKernelEx(&cl.cfg, blind_rotate_kernel<LOGN>, acc_i, acc_o, idx, key, twd,
+                             n, (uint32_t)Q, gb, digits, throw_digits);
+    if (err != cudaSuccess) return err;
+  } else {
+    blind_rotate_kernel<LOGN><<<B, threads, smem, stream>>>(
+        acc_i, acc_o, idx, key, twd, n, (uint32_t)Q, gb, digits, throw_digits);
+  }
   return cudaGetLastError();
 }
 
@@ -301,7 +473,20 @@ extern "C" int tfhe_blind_rotate(const void* acc_in, void* acc_out,
       return launch<11>(acc_in, acc_out, a_idx, bsk, tw, B, n, Q, g_bits, digits, throw_digits, s);
     case 4096:
       return launch<12>(acc_in, acc_out, a_idx, bsk, tw, B, n, Q, g_bits, digits, throw_digits, s);
+    case 8192:
+      return launch<13>(acc_in, acc_out, a_idx, bsk, tw, B, n, Q, g_bits, digits, throw_digits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The most clusters of the N = 8192 kernel the card holds at once
+// (cudaOccupancyMaxActiveClusters), in *clusters. Returns the cudaError_t.
+extern "C" int tfhe_blind_rotate_clusters(int* clusters) {
+  cudaError_t err = cudaFuncSetAttribute(
+      blind_rotate_kernel<13>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<13>());
+  if (err != cudaSuccess) return err;
+  dsmem::PairLaunch cl(1, kThreads<13>, smem_bytes<13>(), 0);
+  return cudaOccupancyMaxActiveClusters(clusters, blind_rotate_kernel<13>, &cl.cfg);
 }

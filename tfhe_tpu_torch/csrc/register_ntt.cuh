@@ -1,5 +1,5 @@
 // Register-resident negacyclic NTT over one prime q < 2^28, merged twiddles,
-// for one group of N / 8 threads per polynomial (N = 2^LOGN, 256..4096).
+// for one group of N / 8 threads per polynomial (N = 2^LOGN, 256..8192).
 //
 // Forward: Cooley-Tukey stages with half-length N/2 .. 1 and the twiddle
 // psi^brv(m) at index m + i (m = N / 2t blocks, i = the block), natural
@@ -24,13 +24,20 @@
 // with C > 7 crosses warps and needs the block's barrier; the others stay
 // inside a warp (__syncwarp): at N = 2048 the groups are C = 10, 7, 4, 2,
 // three exchanges per transform, one of them block-wide; at N = 4096 they
-// are C = 11, 8, 5, 2, and two of the three exchanges are block-wide.
+// are C = 11, 8, 5, 2, and two of the three exchanges are block-wide. At
+// N = 8192 they are C = 12, 9, 6, 3, 2: the 1024 threads of a polynomial
+// are two blocks of a cluster (csrc/blind_rotate.cu), thread bit 9 the
+// block's rank, which is bit 9 of j in group 0 and bit 12 in the others,
+// so only the exchange between groups 0 and 1 crosses blocks; the others
+// run in the block's half of the buffer (`S` = N/2 words a polynomial,
+// bit 12 dropped).
 //
 // Shared memory holds a polynomial at word swz(j), an XOR swizzle of the
 // bits 5..10 of j into the bank bits that makes every group's reads and
-// writes free of bank conflicts at all five ring sizes: at N = 4096 bit 11
-// is a register bit of group 0 and a thread bit of the others, constant
-// across a warp's access in every group, so it needs no term.
+// writes free of bank conflicts at all six ring sizes: bits 11 and 12 are
+// register bits of group 0 and thread bits of the others, constant across
+// a warp's access in every group, so they need no term, and dropping
+// either of the bits 9 and 12 from a word keeps its bank.
 //
 // Lazy ranges: the forward takes values < 4q and returns values < 4q
 // (Harvey's butterfly); the inverse takes values < 2q and returns values
@@ -172,19 +179,30 @@ __device__ __forceinline__ void inv_pass(uint32_t (&x)[NP][8], int t,
   inv_stages<LOGN, G, Group<LOGN, G>::lo, NP>(x, tpart<Group<LOGN, G>::C>(t), w, ws, q);
 }
 
-// Registers of group GF -> shared (NP polynomials of N words at buf) ->
+// The word of swizzled index s in a buffer of S words a polynomial: s
+// itself, or s with its bit log2(S) dropped (a block's half of the buffer
+// at N = 8192, where that bit is the block's rank in both groups).
+template <int LOGN, int S>
+__device__ __forceinline__ int word(int s) {
+  if constexpr (S == (1 << LOGN))
+    return s;
+  else
+    return s & (S - 1);
+}
+
+// Registers of group GF -> shared (NP polynomials of S words at buf) ->
 // registers of group GT. Block-wide when either group has C > 7.
-template <int LOGN, int GF, int GT, int NP>
+template <int LOGN, int GF, int GT, int NP, int S = (1 << LOGN)>
 __device__ __forceinline__ void exchange(uint32_t (&x)[NP][8],
                                          uint32_t* __restrict__ buf, int t) {
   constexpr int CF = Group<LOGN, GF>::C, CT = Group<LOGN, GT>::C;
-  constexpr int N = 1 << LOGN;
   __syncwarp();  // the warp's earlier reads of its words are done
   const int wa = swz(tpart<CF>(t));
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int k = 0; k < 8; ++k) buf[p * N + (wa ^ swz(k << (CF - 2)))] = x[p][k];
+    for (int k = 0; k < 8; ++k)
+      buf[p * S + word<LOGN, S>(wa ^ swz(k << (CF - 2)))] = x[p][k];
   if constexpr (CF > 7 || CT > 7)
     __syncthreads();
   else
@@ -193,13 +211,14 @@ __device__ __forceinline__ void exchange(uint32_t (&x)[NP][8],
 #pragma unroll
   for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int k = 0; k < 8; ++k) x[p][k] = buf[p * N + (ra ^ swz(k << (CT - 2)))];
+    for (int k = 0; k < 8; ++k) x[p][k] = buf[p * S + word<LOGN, S>(ra ^ swz(k << (CT - 2)))];
 }
 
 // Forward NTT from group G on: natural order in group 0's registers
 // (register k of thread t is coefficient t + k N/8), evaluation values out
-// in the last group's (point 8t + k).
-template <int LOGN, int G, int NP>
+// in the last group's (point 8t + k). The exchanges go through S words a
+// polynomial.
+template <int LOGN, int G, int NP, int S = (1 << LOGN)>
 __device__ __forceinline__ void forward(uint32_t (&x)[NP][8],
                                         uint32_t* __restrict__ buf, int t,
                                         const uint32_t* __restrict__ w,
@@ -207,8 +226,8 @@ __device__ __forceinline__ void forward(uint32_t (&x)[NP][8],
                                         uint32_t q) {
   fwd_pass<LOGN, G, NP>(x, t, w, ws, q);
   if constexpr (!Group<LOGN, G>::last) {
-    exchange<LOGN, G, G + 1, NP>(x, buf, t);
-    forward<LOGN, G + 1, NP>(x, buf, t, w, ws, q);
+    exchange<LOGN, G, G + 1, NP, S>(x, buf, t);
+    forward<LOGN, G + 1, NP, S>(x, buf, t, w, ws, q);
   }
 }
 
@@ -218,18 +237,19 @@ __host__ __device__ constexpr int groups() {
   return (LOGN + 2) / 3;
 }
 
-// Inverse NTT from group G down to group 0: evaluation values in the last
-// group's registers, coefficients out in group 0's.
-template <int LOGN, int G, int NP>
+// Inverse NTT from group G down to group END: evaluation values in the
+// last group's registers, coefficients out in group 0's when END = 0. The
+// exchanges go through S words a polynomial.
+template <int LOGN, int G, int NP, int S = (1 << LOGN), int END = 0>
 __device__ __forceinline__ void inverse(uint32_t (&x)[NP][8],
                                         uint32_t* __restrict__ buf, int t,
                                         const uint32_t* __restrict__ w,
                                         const uint32_t* __restrict__ ws,
                                         uint32_t q) {
   inv_pass<LOGN, G, NP>(x, t, w, ws, q);
-  if constexpr (G > 0) {
-    exchange<LOGN, G, G - 1, NP>(x, buf, t);
-    inverse<LOGN, G - 1, NP>(x, buf, t, w, ws, q);
+  if constexpr (G > END) {
+    exchange<LOGN, G, G - 1, NP, S>(x, buf, t);
+    inverse<LOGN, G - 1, NP, S, END>(x, buf, t, w, ws, q);
   }
 }
 

@@ -98,8 +98,9 @@ class SeededSwitchingKey:
         if self._A is None:
             a = np.empty((self.rows, self.n), dtype=np.uint64)
             for r0, r1 in seeded_blocks(self.rows, self.n, device):
+                # residues < qKS: the int64 words are their u64 values
                 a[r0:r1] = seeded_rows(self.seed, self.n, self.q_ks, r0, r1,
-                                       device).cpu().numpy().astype(np.uint64)
+                                       device).cpu().numpy().view(np.uint64)
             self._A = a.reshape(self.N, self.base_ks, self.digit_count,
                                 self.n)
         return self._A
@@ -216,15 +217,12 @@ def _inner_ternary(a: np.ndarray, s_signed: np.ndarray, mod: int) -> np.ndarray:
         acc = a.astype(np.float32) @ s_signed.astype(np.float32)
         return np.uint64(acc.astype(np.int64) % np.int64(mod))
     if mod & (mod - 1) == 0:
-        # power-of-two modulus (the accelerated sets' qKS = 2^35): u64
+        # power-of-two modulus (the accelerated sets' qKS = 2^35): 64-bit
         # wraparound IS reduction mod 2^k (2^64 is a multiple of the modulus),
-        # so sum the +1/-1 columns directly in the key's native dtype — no
-        # float upcast of the ~5 GB key-switch A block (the build host may
-        # have one CPU core)
-        plus = np.flatnonzero(s_signed == 1)
-        minus = np.flatnonzero(s_signed == -1)
-        acc = a[..., plus].sum(axis=-1, dtype=np.uint64)
-        acc -= a[..., minus].sum(axis=-1, dtype=np.uint64)
+        # so one int64 product in the key's words, with no float upcast of
+        # the ~5 GB key-switch A block
+        words = a.view(np.int64) if a.dtype == np.uint64 else a.astype(np.int64)
+        acc = (words @ np.asarray(s_signed, dtype=np.int64)).view(np.uint64)
         return acc & np.uint64(mod - 1)
     if n * (mod - 1) < (1 << 53):
         acc = a.astype(np.float64) @ s_signed.astype(np.float64)

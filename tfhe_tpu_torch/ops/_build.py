@@ -98,9 +98,10 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def max_active_clusters(name: str) -> int:
-    """The most two-block clusters of csrc/<name>.cu's N = 4096 kernel that
-    the current CUDA device runs at once: the library's
-    `tfhe_<name>_clusters` (cudaOccupancyMaxActiveClusters)."""
+    """The most two-block clusters of csrc/<name>.cu's cluster kernel (N =
+    8192 for blind_rotate, 4096 for the others) that the current CUDA device
+    runs at once: the library's `tfhe_<name>_clusters`
+    (cudaOccupancyMaxActiveClusters)."""
     fn = getattr(load(name), f"tfhe_{name}_clusters")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int

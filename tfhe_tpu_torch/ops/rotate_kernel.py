@@ -21,7 +21,9 @@ from . import _build, blindrotate, ntt
 from . import modmath as mm
 
 LAUNCHES = 0  # kernel launches made by `rotate`
-RING_DIMS = (256, 512, 1024, 2048, 4096)   # the ring dimensions the kernel takes
+# the ring dimensions the kernel takes: one block per ciphertext up to
+# 4096, a cluster of two blocks at 8192
+RING_DIMS = (256, 512, 1024, 2048, 4096, 8192)
 
 
 def _with_shoup(x: torch.Tensor, Q: int) -> torch.Tensor:
@@ -58,6 +60,12 @@ def _kernel():
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def max_active_clusters() -> int:
+    """The most two-block clusters of the N = 8192 kernel that the current
+    CUDA device runs at once (cudaOccupancyMaxActiveClusters)."""
+    return _build.max_active_clusters("blind_rotate")
 
 
 def rotate(acc: torch.Tensor, a_idx: torch.Tensor, bsk_pack: torch.Tensor,

@@ -143,11 +143,12 @@ def keygen_acc_cggi(rng: BinFHERng, params: RGSWParams, sk_n_ntt: np.ndarray,
     d2 = params.digits_g2
     N, Q = params.N, params.Q
     R = n * 2 * d2
-    a = rng.discrete_uniform(R * N, Q).reshape(R, N).astype(np.uint64)
-    e = rng.discrete_gaussian(R * N, params.std, Q).reshape(R, N).astype(np.uint64)
+    a = rng.discrete_uniform(R * N, Q).reshape(R, N).astype(np.uint64, copy=False)
+    e = rng.discrete_gaussian(R * N, params.std, Q).reshape(R, N).astype(np.uint64, copy=False)
     a_hat = ntt.forward(a, Q)
     b = ntt.inverse(modmath.mul(a_hat, sk_n_ntt[None, :], Q), Q)
-    b = (b + e) % np.uint64(Q)
+    b += e                                                  # b, e < Q: one subtraction
+    np.subtract(b, np.uint64(Q), out=b, where=b >= np.uint64(Q))
     bsk = np.stack([a.reshape(n, 2, d2, N), b.reshape(n, 2, d2, N)],
                    axis=3)                                  # [n, 2, d2, 2, N]
     # gadget powers on the diagonal rows of the encrypted-1 halves:
@@ -249,34 +250,46 @@ def keygen_dm(rng: BinFHERng, params: RGSWParams, sk_n_ntt: np.ndarray, m: int) 
     """RGSW encryption of X^m * G for the DM accumulator
     (rgsw-acc-dm.cpp:153-209). `m` may be any signed integer; it is reduced mod
     q, scaled by 2N/q, and X^{mm} with mm >= N flips sign (negacyclic)."""
+    return keygen_dm_batch(rng, params, sk_n_ntt, [m])[0]
+
+
+def keygen_dm_batch(rng: BinFHERng, params: RGSWParams, sk_n_ntt: np.ndarray,
+                    ms: list[int]) -> np.ndarray:
+    """`keygen_dm` of each m of `ms`, [len(ms), digitsG2, 2, N]: the same
+    randomness in the same order (a, then e, m by m), the transforms and
+    the gadget additions batched."""
     Q, N, q = params.Q, params.N, params.q
     digits_g = params.digits_g
     d2 = 2 * digits_g
     g_pow = params.g_power
+    C = len(ms)
 
-    mm = ((m % q) + q) % q * (2 * N // q)
-    is_reduced = False
-    if mm >= N:
-        mm -= N
-        is_reduced = True
-
-    a = rng.discrete_uniform(d2 * N, Q).reshape(d2, N).astype(np.uint64)
-    e = rng.discrete_gaussian(d2 * N, params.std, Q).reshape(d2, N).astype(np.uint64)
+    a = np.empty((C, d2, N), dtype=np.uint64)
+    e = np.empty((C, d2, N), dtype=np.uint64)
+    for c in range(C):
+        a[c] = rng.discrete_uniform(d2 * N, Q).reshape(d2, N)
+        e[c] = rng.discrete_gaussian(d2 * N, params.std, Q).reshape(d2, N)
     a_hat = ntt.forward(a, Q)
     b = ntt.inverse(modmath.mul(a_hat, sk_n_ntt, Q), Q)
     b = (b + e) % np.uint64(Q)
-    rows = np.stack([a, b], axis=1)
+    rows = np.stack([a, b], axis=2)                         # [C, d2, 2, N]
 
+    mm = np.array([((m % q) + q) % q * (2 * N // q) for m in ms], dtype=np.int64)
+    is_reduced = mm >= N
+    mm[is_reduced] -= N
+    c = np.arange(C)
+    mQ = np.uint64(Q)
     for i in range(digits_g):
         g = np.uint64(g_pow[i])
-        mQ = np.uint64(Q)
-        if not is_reduced:
-            rows[2 * i, 0, mm] = (rows[2 * i, 0, mm] + g) % mQ
-            rows[2 * i + 1, 1, mm] = (rows[2 * i + 1, 1, mm] + g) % mQ
-        else:
-            rows[2 * i, 0, mm] = (rows[2 * i, 0, mm] + mQ - g) % mQ
-            rows[2 * i + 1, 1, mm] = (rows[2 * i + 1, 1, mm] + mQ - g) % mQ
+        add = np.where(is_reduced, mQ - g, g)
+        rows[c, 2 * i, 0, mm] = (rows[c, 2 * i, 0, mm] + add) % mQ
+        rows[c, 2 * i + 1, 1, mm] = (rows[c, 2 * i + 1, 1, mm] + add) % mQ
     return rows
+
+
+# DM key entries encrypted per batch of `keygen_dm_batch` (~100 MB of u64 a
+# batch at N = 1024, d2 = 6)
+_DM_KEYGEN_BATCH = 2048
 
 
 def keygen_acc_dm(rng: BinFHERng, params: RGSWParams, sk_n_ntt: np.ndarray,
@@ -284,17 +297,20 @@ def keygen_acc_dm(rng: BinFHERng, params: RGSWParams, sk_n_ntt: np.ndarray,
     """DM bootstrapping key [n, baseR, digitsR, digitsG2, 2, N]; entry [i][j][k]
     encrypts X^{s_i * j * baseR^k} * G; j = 0 is unused (rgsw-acc-dm.cpp:43-78).
     Note: DM ignores num_digits_to_throw (the reference's approximate
-    decomposition is CGGI-only)."""
+    decomposition is CGGI-only). The entries are drawn in the order i, j,
+    k, in batches."""
     n = len(lwe_sk_signed)
     base_r = params.base_r
     digits_r = params.digits_r
     d2 = 2 * params.digits_g
     bsk = np.zeros((n, base_r, len(digits_r), d2, 2, params.N), dtype=np.uint64)
-    for i in range(n):
-        s = int(lwe_sk_signed[i])
-        for j in range(1, base_r):
-            for k in range(len(digits_r)):
-                bsk[i, j, k] = keygen_dm(rng, params, sk_n_ntt, s * j * int(digits_r[k]))
+    entries = [(i, j, k) for i in range(n) for j in range(1, base_r)
+               for k in range(len(digits_r))]
+    for c0 in range(0, len(entries), _DM_KEYGEN_BATCH):
+        batch = entries[c0:c0 + _DM_KEYGEN_BATCH]
+        ms = [int(lwe_sk_signed[i]) * j * int(digits_r[k]) for i, j, k in batch]
+        ii, jj, kk = (np.array(x) for x in zip(*batch))
+        bsk[ii, jj, kk] = keygen_dm_batch(rng, params, sk_n_ntt, ms)
     return bsk
 
 

@@ -31,6 +31,10 @@ from __future__ import annotations
 
 import numpy as np
 
+# Buckets of [0, 1) in the discrete Gaussian's index: a power of two, so
+# that u * _DGG_BUCKETS is exact and its floor the bucket of u.
+_DGG_BUCKETS = 1 << 16
+
 
 class BinFHERng:
     """All randomness used by keygen/encryption, seeded once."""
@@ -92,7 +96,10 @@ class BinFHERng:
 
     # -- distributions -----------------------------------------------------
 
-    def _dgg_table(self, sigma: float) -> tuple[np.ndarray, np.ndarray]:
+    def _dgg_table(self, sigma: float) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(values, their CDF, bucket index): bucket b of _DGG_BUCKETS equal
+        slices of [0, 1) holds the value index of every u in it when the
+        CDF has no step inside, else -1."""
         if sigma not in self._dgg_tables:
             tail = int(np.ceil(10 * sigma))
             xs = np.arange(-tail, tail + 1)
@@ -102,18 +109,39 @@ class BinFHERng:
             p = np.exp(logp - logp.max())
             cdf = np.cumsum(p)
             cdf /= cdf[-1]
-            self._dgg_tables[sigma] = (xs, cdf)
+            # the index searchsorted gives u is monotone in u: equal at a
+            # bucket's first and last float, it is that of every u between
+            edges = np.arange(_DGG_BUCKETS + 1, dtype=np.float64) / _DGG_BUCKETS
+            first = np.searchsorted(cdf, edges[:-1], side="right")
+            last = np.searchsorted(cdf, np.nextafter(edges[1:], 0.0), side="right")
+            bucket = np.minimum(first, len(xs) - 1).astype(np.int32)
+            bucket[first != last] = -1
+            self._dgg_tables[sigma] = (xs, cdf, bucket)
         return self._dgg_tables[sigma]
 
     def discrete_gaussian(self, size: int, sigma: float, modulus: int) -> np.ndarray:
         """Integer Gaussian errors as residues mod `modulus` (object dtype if large)."""
-        return _to_residues(self.discrete_gaussian_signed(size, sigma), modulus)
+        xs, idx = self._dgg_draw(size, sigma)
+        if modulus < (1 << 63):
+            return _to_residues(xs, modulus)[idx]
+        return _to_residues(xs[idx], modulus)
 
     def discrete_gaussian_signed(self, size: int, sigma: float) -> np.ndarray:
-        xs, cdf = self._dgg_table(sigma)
+        xs, idx = self._dgg_draw(size, sigma)
+        return xs[idx]
+
+    def _dgg_draw(self, size: int, sigma: float) -> tuple[np.ndarray, np.ndarray]:
+        """(values, indices): the draw is values[searchsorted(cdf, u,
+        "right")] for uniform u (the last value for u beyond the CDF's
+        rounding), read from the bucket index where a bucket holds one
+        value."""
+        xs, cdf, bucket = self._dgg_table(sigma)
         u = self._uniform01(size)
-        idx = np.searchsorted(cdf, u, side="right")
-        return xs[np.minimum(idx, len(xs) - 1)].astype(np.int64)
+        # exact: the bucket count is a power of two and u * count < 2^16
+        idx = bucket[(u * _DGG_BUCKETS).astype(np.uint16)]
+        step = np.nonzero(idx < 0)[0]
+        idx[step] = np.minimum(np.searchsorted(cdf, u[step], side="right"), len(xs) - 1)
+        return xs, idx
 
     def flooding_gaussian_signed(self, size: int, sigma: float) -> np.ndarray:
         """Rounded continuous Gaussian for LARGE flooding sigmas (threshold
@@ -138,9 +166,10 @@ class BinFHERng:
                     # rejection/Lemire loop — 2x faster at the 10^8-draw
                     # key-switch-key scale, where the accelerated sets'
                     # qKS = 2^35 A block is ~5 GB of u64)
-                    raw = self._rng.integers(
-                        0, int(np.iinfo(dtype).max) + 1, size=size,
-                        dtype=dtype)
+                    # a full-range u64 draw is the bit generator's raw word
+                    raw = (self._rng.bit_generator.random_raw(size) if dtype == np.uint64
+                           else self._rng.integers(0, int(np.iinfo(dtype).max) + 1,
+                                                   size=size, dtype=dtype))
                     if modulus - 1 != int(np.iinfo(dtype).max):
                         raw &= dtype(modulus - 1)
                     return raw
