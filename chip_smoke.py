@@ -56,6 +56,14 @@ Then it drives the port's paths through `tfhe_tpu_torch.BinFHEContext`
   against the oracle on their first output, or for EvalFloor and EvalFunc,
   whose rows decrypt wrong at a rate the parameters' noise sets (Q stays
   27 bits at this ring), on their first output that decrypts wrong;
+- ring dimension N = 8192 on the RNS kernel: blind_rotate_rns as a
+  cluster of four blocks a ciphertext (two a residue lane) against its
+  plain version (B = 5 at d2 2, 4, 6 and 8, B = 64 at d2 4 and 2, then
+  B = 1024, n = 1305 at d2 4 and 2 on a head of rows), then the STD128
+  accelerated sets at N = 8192 (Q = q1*q2 of 54 bits) on the logQ = 11
+  phase's secrets and seeded switching key: EvalSign and EvalFunc at
+  batch 1024, every row checked by decryption and the first against the
+  oracle, and EvalDecomp at batch 64, every row's digits decrypted;
 - CiphertextMulMatrix at 1024 x 1024 mod 2^35 against the host product,
   and the DM/AP accumulator: the 8 gates at TOY AP against the oracle and
   a batch-1024 STD128_AP NAND, checked by decryption and on its first 8
@@ -187,6 +195,7 @@ PRIME_BATCH = 256           # the single-prime paths' batch, cut for the run's t
 RING8192_N = 8192           # the ring of the N = 8192 phase
 RING8192_Q = 133857281      # from_gpu_style(STD128, ..., log_q=11, N=8192).lwe.Q
 RING8192_BATCH = 1024       # its batch: bench.py's 4096, cut for the run's time limit
+RING8192_DECOMP_BATCH = 64  # EvalDecomp's batch on the RNS path at N = 8192
 MESH_TOY_BATCH = 5          # TOY ciphertexts over the two-shard mesh: an uneven split
 LIMB_SHARDS = (2, 4)        # shards of the ring-sharded eval_mult_limb
 LIMB_ITERS = 3
@@ -876,19 +885,22 @@ def decomp_inputs(cc, sk, rng, B):
     return cc.encrypt(sk, m, "FRESH", P, Q_enc), m, p, P
 
 
-def decomp_ok(cc, sk, out, m, p, P) -> bool:
-    """Digit k holds (m // p^k) mod p; the last lives in the remaining
-    plaintext space P // p^(len-1)."""
+def decomp_rows(cc, sk, out, m, p, P):
+    """Per row, whether EvalDecomp's digits decrypt right: digit k holds
+    (m // p^k) mod p; the last lives in the remaining plaintext space
+    P // p^(len-1)."""
     import numpy as np
 
-    vals = m.copy()
+    vals, ok = m.copy(), np.ones(len(m), dtype=bool)
     for d in out[:-1]:
-        if not np.array_equal(np.asarray(cc.decrypt(sk, d, p), dtype=np.int64), vals % p):
-            return False
+        ok &= np.asarray(cc.decrypt(sk, d, p), dtype=np.int64) == vals % p
         vals //= p
     p_last = max(2, P // p ** (len(out) - 1))
-    return np.array_equal(np.asarray(cc.decrypt(sk, out[-1], p_last), dtype=np.int64),
-                          vals % p_last)
+    return ok & (np.asarray(cc.decrypt(sk, out[-1], p_last), dtype=np.int64) == vals % p_last)
+
+
+def decomp_ok(cc, sk, out, m, p, P) -> bool:
+    return bool(decomp_rows(cc, sk, out, m, p, P).all())
 
 
 def same(x, y) -> bool:
@@ -1215,7 +1227,7 @@ def ring4096_kernels(rng, q1: int, q2: int, Q: int, peak: float) -> dict:
     from tfhe_tpu_torch.ops import rotate64_kernel, rotate_rns_kernel
     from tfhe_tpu_torch.utils.numtheory import ntt_prime
 
-    clusters = rotate_rns_kernel.max_active_clusters()
+    clusters = rotate_rns_kernel.max_active_clusters(RING_N)
     log(f"blind_rotate_rns at N={RING_N}: one ciphertext on a cluster of two blocks of "
         f"{RING_N // 8} threads, 56 N = {56 * RING_N // 1024} KB of shared memory each; "
         f"the card holds {clusters} such clusters at once (cudaOccupancyMaxActiveClusters)")
@@ -1307,25 +1319,34 @@ def ring4096_contexts(rng) -> dict:
 
 
 def ring_path(state: dict, card: str) -> dict:
-    """The contexts of `ring4096_contexts` or `ring8192_contexts` on the
-    card (contexts on one bootstrapping key share one backend): device
-    setup, the seeded table's spot rows held to the host threefry, then
-    each operation at the state's batch, a first and a warm call timed:
-    every row decrypts right, except where the parameters' noise lets rows
-    decrypt wrong (at most a third of them), whose count is logged; the
-    contexts' device state is freed. Then the host oracle (its switching
-    key the seeded A block, drawn on the card and held to the host threefry
-    on the same spot rows) on the first RING_HEAD rows of each operation,
-    or on the first row that decrypts wrong: the card's outputs equal it
-    bit for bit, so that the oracle's output decrypts wrong there too."""
+    """The contexts of `ring4096_contexts`, `ring8192_contexts` or
+    `ring8192_rns_contexts` on the card (contexts on one bootstrapping key
+    share one backend): device setup, the seeded table's spot rows held to
+    the host threefry, then each operation at the batch of its inputs, a
+    first and a warm call timed: every row decrypts right, except where the
+    parameters' noise lets rows decrypt wrong (at most a third of them),
+    whose count is logged; the contexts' device state is freed (a switching
+    table stays with its key). Then the host oracle (its switching key the
+    seeded A block, drawn on the card once per key and held to the host
+    threefry on the same spot rows) on the first RING_HEAD rows of each
+    operation in the state's "oracle" (all by default), or on the first row
+    that decrypts wrong: the card's outputs equal it bit for bit, so that
+    the oracle's output decrypts wrong there too."""
     import numpy as np
     import torch
 
     from tfhe_tpu_torch import convert, lwe
+    from tfhe_tpu_torch.ops import rotate64_kernel, rotate_kernel, rotate_rns_kernel
+
+    def launches():
+        return rotate_kernel.LAUNCHES + rotate_rns_kernel.LAUNCHES + rotate64_kernel.LAUNCHES
 
     contexts = state["contexts"]
     ops, timing = state["ops"], {"card": card, **state["timing"]}
-    N, B, h, ksk = timing["N"], timing["batch"], RING_HEAD, state["key"].ksk
+    N, h, ksk = timing["N"], RING_HEAD, state["key"].ksk
+    oracle_ops = state.get("oracle", tuple(ops))
+    table = ("already on the card with its key" if "_device_tables" in ksk.__dict__
+             else "regenerated on the card")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     backends = {}
@@ -1340,32 +1361,36 @@ def ring_path(state: dict, card: str) -> dict:
     timing["device_GiB"] = torch.cuda.memory_allocated() / 2**30
     log(f"N={N}: device_setup of the {len(contexts)} contexts ({len(backends)} backend(s): "
         f"their kernels' keys, one {ksk.rows} x {ksk.n + 1} float64 switching table "
-        f"regenerated on the card) {timing['device_setup_s']:.1f} s, device memory "
+        f"{table}) {timing['device_setup_s']:.1f} s, device memory "
         f"{timing['device_GiB']:.2f} GiB")
     spans = seeded_table_rows(ksk, convert.switching_table(ksk, contexts[0].backend.device))
     log(f"seeded switching table: rows {', '.join(f'{a}..{b - 1}' for a, b in spans)} equal "
         f"to the host threefry")
     outs, held = {}, {}
     for name, (cc, run, cts, right, noisy) in ops.items():
+        B = cts[0].a.shape[0]
         t0 = time.time()
         out = run(cc, cts)
         first_s = time.time() - t0
         check(cc.backend.device.type == "cuda", f"N={N} {name} is not on the card")
-        check(out.a.shape == (B, cc.params.lwe.n), f"N={N} {name} output shape {out.a.shape}")
+        for o in out if isinstance(out, list) else [out]:
+            check(o.a.shape == (B, cc.params.lwe.n), f"N={N} {name} output shape {o.a.shape}")
         wrong = np.nonzero(~right(out, slice(None)))[0]
         check(len(wrong) <= (B // 3 if noisy else 0),
               f"N={N} {name} decryption at B={B}: {len(wrong)} rows wrong")
-        t0 = time.time()
+        before, t0 = launches(), time.time()
         run(cc, cts)
         s = time.time() - t0
         outs[name], held[name] = out, wrong[:1] if len(wrong) else np.arange(h)
+        timing[f"{name}_batch"] = B
+        timing[f"{name}_launches"] = launches() - before
         timing[f"{name}_first_s"] = first_s
         timing[f"{name}_ms_per_ct"] = s / B * 1e3
         timing[f"{name}_rows_wrong"] = int(len(wrong))
         log(f"N={N} STD128 {name} B={B}: {B - len(wrong)} of {B} rows decrypt right"
             f"{f' ({100 * len(wrong) / B:.1f}% wrong, the first row {wrong[0]})' if len(wrong) else ''}"
             f"; first call {first_s:.3f} s; warm {s:.4f} s = {s / B * 1e3:.4f} ms/ciphertext, "
-            f"{B / s:.1f} ops/s on {card}")
+            f"{B / s:.1f} ops/s, {timing[f'{name}_launches']} rotation launches, on {card}")
     timing["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"N={N} peak device memory {timing['peak_device_GiB']:.2f} GiB on {card}")
     del backends
@@ -1374,24 +1399,28 @@ def ring_path(state: dict, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # the oracle's switching key: the seeded A block drawn on the card (the
-    # host's CPU would take minutes), held to the host threefry
+    # host's CPU would take minutes) once per key, held to the host threefry
     t0 = time.time()
     host_a = ksk.materialize("cuda").reshape(ksk.rows, -1)
     timing["host_A_s"] = time.time() - t0
     check(all(np.array_equal(host_a[r0:r1], lwe.seeded_rows(
         ksk.seed, ksk.n, ksk.q_ks, r0, r1, "cpu").numpy()) for r0, r1 in spans),
         f"N={N}: the oracle's A block differs from the host threefry")
-    log(f"the seeded key's A block [{ksk.rows}, {ksk.n}] drawn on the card for the host "
-        f"oracle in {timing['host_A_s']:.1f} s, the same rows equal to the host threefry")
+    log(f"the seeded key's A block [{ksk.rows}, {ksk.n}] on the host for the oracle "
+        f"({timing['host_A_s']:.1f} s, drawn on the card when not cached with its key), "
+        f"the same rows equal to the host threefry")
     t0 = time.time()
     for name, (cc, run, cts, _, _) in ops.items():
+        if name not in oracle_ops:
+            continue
         rows = held[name]
         ref = run(cc, [take(c, rows) for c in cts])
         check(same(take(outs[name], rows), ref),
               f"N={N} {name}: rows {rows.tolist()} differ from the host oracle")
         timing[f"{name}_oracle_rows"] = rows.tolist()
     timing["oracle_s"] = time.time() - t0
-    log(f"N={N} host oracle on {', '.join(f'{n} row(s) {held[n].tolist()}' for n in ops)}: the "
+    log(f"N={N} host oracle on "
+        f"{', '.join(f'{n} row(s) {held[n].tolist()}' for n in oracle_ops)}: the "
         f"card's outputs equal it bit for bit, so where the card's decrypt wrong the oracle's "
         f"do too ({timing['oracle_s']:.1f} s)")
     return timing
@@ -1521,6 +1550,41 @@ def ring8192_kernels(rng, peak: float) -> dict:
     return out
 
 
+def ring8192_rns_kernels(rng, peak: float) -> dict:
+    """blind_rotate_rns at N = 8192 (a cluster of four blocks of 512 threads
+    a ciphertext, two a residue lane) against its plain version on the card
+    at the accelerated sets' primes there, with tolerance 0 (`rns_case`):
+    every d2 in {2, 4, 6, 8} with throw 0 and 1 at B = 5 over 8 rounds, rows
+    0, 1 and 2 of the exponents 0, N and 2N - 1; d2 = 4 and 2 at B = 64 over
+    16 rounds; then the path's shapes, B = RING8192_BATCH, n = LWE_N_ACC,
+    one digit thrown, d2 = 4 (base 2^18) and d2 = 2 (base 2^27: EvalFunc;
+    EvalSign uses both bases), the plain version on
+    RING_ROWS and the last row. Logs the card's resident clusters and
+    ptxas's registers and spills; returns the full shapes' timings."""
+    from tfhe_tpu_torch import ParamSet, from_gpu_style
+    from tfhe_tpu_torch.ops import rotate_rns_kernel
+
+    N = RING8192_N
+    q1, q2 = from_gpu_style(ParamSet.STD128, True, 12, N=N).rgsw.rns_primes
+    check(q1 == RING8192_Q, f"the N = {N} sets' first prime is {q1}, not {RING8192_Q}")
+    clusters = rotate_rns_kernel.max_active_clusters(N)
+    resources = kernel_resources("blind_rotate_rns", 13)
+    log(f"blind_rotate_rns at N={N} (q1={q1}, q2={q2}): one ciphertext on a cluster of four "
+        f"blocks of {N // 16} threads, two a residue lane, 22 N = {22 * N // 1024} KB of "
+        f"shared memory each; ptxas: {resources}; the card holds {clusters} such clusters at "
+        f"once (cudaOccupancyMaxActiveClusters)")
+    for d2 in (2, 4, 6, 8):
+        for throw in (0, 1):
+            rns_case(rng, q1, q2, peak, 5, 8, d2, N, throw=throw)
+    for d2 in (4, 2):
+        rns_case(rng, q1, q2, peak, 64, 16, d2, N)
+    out = {"max_active_clusters": clusters, "ptxas": resources}
+    for d2 in (4, 2):
+        out[f"d2={d2}"] = rns_case(rng, q1, q2, peak, RING8192_BATCH, LWE_N_ACC, d2, N,
+                                   rows=RING_ROWS)
+    return out
+
+
 def ring8192_contexts(rng) -> dict:
     """Ring dimension N = 8192 at full width on the mixed logQ = 11 path:
     `from_gpu_style(STD128, False, 11, N=8192)` (n = 1305, Q = RING8192_Q,
@@ -1574,6 +1638,61 @@ def ring8192_contexts(rng) -> dict:
     }
     return {"contexts": (floor_cc, func_cc), "key": key, "sk": sk, "ops": ops,
             "timing": timing}
+
+
+def ring8192_rns_contexts(rng, shared: dict) -> dict:
+    """Ring dimension N = 8192 on the RNS path: the STD128 accelerated sets
+    `from_gpu_style(STD128, ..., N=8192)` (n = 1305, Q = q1*q2 = 133857281 *
+    133644289 of 54 bits, qKS = 2^35, baseKS = 32, one digit thrown,
+    bench.py's seeded switching key) on the LWE secret, ring secret and
+    switching key of the logQ = 11 contexts at this ring (`shared`; the key's
+    device table and the A block for the host oracle are made once for both
+    phases), so that only the bootstrapping keys of bases 2^18 and 2^27 are
+    made. EvalSign (logQ 17, q = 16384) and EvalFunc (logQ 12, arbFunc, q =
+    8192, the cube LUT) at batch RING8192_BATCH, every row right and the
+    first held to the host oracle; EvalDecomp on a logQ = 23 context on the
+    sign context's bootstrapping keys at batch RING8192_DECOMP_BATCH, every
+    row's digits right. Returns the phase's state for `ring_path`."""
+    import numpy as np
+
+    from tfhe_tpu_torch import BinFHEContext, ParamSet
+
+    N = RING8192_N
+    sign_cc, func_cc, sk, keygen_s = accelerated_contexts(ParamSet.STD128, seeded=True, N=N,
+                                                          shared=shared)
+    decomp_cc = BinFHEContext(seed=SEED + 3, seeded_ksk=True)
+    decomp_cc.generate_binfhe_context(ParamSet.STD128, arb_func=False, log_q=23, N=N,
+                                      num_digits_to_throw=1, time_optimization=True)
+    p, pd = sign_cc.params, decomp_cc.params
+    check((p.rgsw.N, p.rgsw.Q, p.rgsw.base_g, p.lwe.n, p.lwe.q)
+          == (pd.rgsw.N, pd.rgsw.Q, pd.rgsw.base_g, pd.lwe.n, pd.lwe.q)
+          and func_cc.bt_key.ksk is sign_cc.bt_key.ksk is shared["ksk"],
+          f"the N = {N} RNS contexts are not on one ring and the shared keys")
+    for base in sorted(sign_cc.bt_key_map, key=lambda b: b == pd.rgsw.base_g):
+        decomp_cc.bt_key_load(sign_cc.bt_key_map[base])
+    log(f"N={N} accelerated STD128: n={p.lwe.n} Q={p.lwe.Q} = {p.rgsw.rns_primes[0]} * "
+        f"{p.rgsw.rns_primes[1]}, q={p.lwe.q} (arbFunc {func_cc.params.lwe.q}), qKS=2^35, "
+        f"baseKS={p.lwe.base_ks}; keygen (bootstrapping keys for bases 2^18 and 2^27, the "
+        f"func and decomp contexts on them, on the logQ=11 contexts' secrets and seeded "
+        f"switching key) {keygen_s:.1f} s")
+    timing = {"N": N, "batch": RING8192_BATCH, "keygen_s": keygen_s}
+
+    B = RING8192_BATCH
+    ct_s, delta = sign_inputs(sign_cc, sk, rng, B)
+    ct_f, lut, want_f, p_f = func_inputs(func_cc, sk, rng, B)
+    ct_d, m_d, p_d, P_d = decomp_inputs(decomp_cc, sk, rng, RING8192_DECOMP_BATCH)
+    ops = {
+        "EvalSign": (sign_cc, lambda c, x: c.eval_sign(x[0]), (ct_s,),
+                     lambda out, r: sign_cc.decrypt(sk, out, 2) == (delta[r] >= 0), False),
+        "EvalFunc": (func_cc, lambda c, x: c.eval_func(x[0], lut), (ct_f,),
+                     lambda out, r: np.asarray(func_cc.decrypt(sk, out, p_f),
+                                               dtype=np.int64) == want_f[r], False),
+        "EvalDecomp": (decomp_cc, lambda c, x: c.eval_decomp(x[0]), (ct_d,),
+                       lambda out, r: decomp_rows(decomp_cc, sk, out, m_d[r], p_d, P_d),
+                       False),
+    }
+    return {"contexts": (sign_cc, func_cc, decomp_cc), "key": sign_cc.bt_key, "sk": sk,
+            "ops": ops, "timing": timing, "oracle": ("EvalSign", "EvalFunc")}
 
 
 def gemm(rng, card: str) -> None:
@@ -2972,13 +3091,37 @@ def main() -> int:
     ring8k_kernels = ring8192_kernels(rng, peak)
     log(f"N={RING8192_N} blind_rotate against its plain version: {time.time() - t0:.1f} s")
     reset_counts()
-    ring8k_timing = ring_path(ring8192_contexts(rng), card)
+    state = ring8192_contexts(rng)
+    ring8k_timing = ring_path(state, card)
     ring8k_launches = rotate_kernel.LAUNCHES
     check(ring8k_launches > 0, "the N = 8192 path did not launch blind_rotate")
+    # its secrets and switching key (with the key's device table and A
+    # block) go on to the RNS phase at this ring
+    shared = {"sk": state["sk"], "sk_n": state["key"].sk_n, "ksk": state["key"].ksk}
+    del state
     torch.cuda.empty_cache()
     ring8k_timing["phase_s"] = time.time() - t0
     log(f"N={RING8192_N} phase: blind_rotate launches {ring8k_launches} "
         f"({ring8k_timing['phase_s']:.1f} s)")
+
+    # ring dimension N = 8192 on the RNS kernel: blind_rotate_rns (a cluster
+    # of four blocks a ciphertext) against its plain version, then the
+    # accelerated sets' EvalSign, EvalFunc and EvalDecomp through the
+    # contexts on the logQ = 11 phase's secrets and switching key, counts
+    # read just after the contexts' run
+    t0 = time.time()
+    rns8k_kernels = ring8192_rns_kernels(rng, peak)
+    log(f"N={RING8192_N} blind_rotate_rns against its plain version: "
+        f"{time.time() - t0:.1f} s")
+    reset_counts()
+    rns8k_timing = ring_path(ring8192_rns_contexts(rng, shared), card)
+    rns8k_launches = rotate_rns_kernel.LAUNCHES
+    check(rns8k_launches > 0, "the N = 8192 RNS path did not launch blind_rotate_rns")
+    del shared
+    torch.cuda.empty_cache()
+    rns8k_timing["phase_s"] = time.time() - t0
+    log(f"N={RING8192_N} RNS phase: blind_rotate_rns launches {rns8k_launches} "
+        f"({rns8k_timing['phase_s']:.1f} s)")
 
     # CiphertextMulMatrix and the DM accumulator: torch ops, no hand kernel
     t0 = time.time()
@@ -3024,7 +3167,8 @@ def main() -> int:
                       "bgv": bgv_timing, "bfv": bfv_timing, "serial": serial_timing,
                       "mesh": mesh_timing, "ring4096": ring_timing,
                       "ring4096_single_prime": prime4k_timing, "ring8192": ring8k_timing,
-                      "total_s": time.time() - t_start}), flush=True)
+                      "ring8192_rns": rns8k_timing, "total_s": time.time() - t_start}),
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate.cu",
@@ -3037,8 +3181,8 @@ def main() -> int:
          "source": "tfhe_tpu_torch/csrc/blind_rotate_rns.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate_rns.py:278",
          "launches": (rns_launches + seeded_launches + serial_rns_launches + mesh_launches[1]
-                      + ring_launches[1]),
-         **rns_timing, "ring4096": ring_kernels["blind_rotate_rns"],
+                      + ring_launches[1] + rns8k_launches),
+         **rns_timing, "ring4096": ring_kernels["blind_rotate_rns"], "ring8192": rns8k_kernels,
          "library_ms": None},
         {"name": "blind_rotate64", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate64.cu",

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The N = 4096 kernels alone, on one GPU (about a minute of command), or
-the gate kernel at N = 8192 (`--ring 8192`, about a minute and a half).
+the RNS and gate kernels at N = 8192 (`--ring 8192`, about two and a half
+minutes; `--ring 8192 --rns-only`, the RNS kernel alone).
 
-    python3 scripts/torch_check_ring4096.py [--ring 8192]
+    python3 scripts/torch_check_ring4096.py [--ring 8192 [--rns-only]]
 
 Builds the three kernels (`_build.build`, one nvcc per source), prints what
 ptxas says of every instantiation's registers and spills (nothing when the
@@ -22,13 +23,19 @@ prime, B = 1024, n = 1305, d2 = 4 and 2 (the plain versions on one row and
 the last). Prints the card's name and power limit, and one JSON line of
 the timings. Imports no jax.
 
-With `--ring 8192`: `chip_smoke.ring8192_kernels` (`blind_rotate` as a
-two-block cluster at every N = 8192 case of `chip_smoke.gate_cases`, B = 5,
-then at B = 1024, n = 1305, d2 = 10 and 12 on a head of rows, with ptxas's
-registers and spills and the resident clusters), and beside it the gate
+With `--ring 8192`: `chip_smoke.ring8192_rns_kernels` (`blind_rotate_rns`
+as a four-block cluster at d2 2, 4, 6 and 8 with throw 0 and 1, B = 5, at
+d2 4 and 2, B = 64, then at B = 1024, n = 1305, d2 = 4 and 2 on a head of
+rows, with ptxas's registers and spills and the resident clusters) and
+beside it the RNS kernel's main shapes below N = 8192 (B = 4096, n = 1305,
+N = 2048, d2 = 4; B = 1024, N = 4096, d2 = 4 and 2); then
+`chip_smoke.ring8192_kernels` (`blind_rotate` as a two-block cluster at
+every N = 8192 case of `chip_smoke.gate_cases`, B = 5, then at B = 1024,
+n = 1305, d2 = 10 and 12 on a head of rows) and beside it the gate
 kernel's main shapes below N = 8192: STD128 (B = 4096, n = 512, d2 = 8),
 mixed logQ = 11 (B = 4096, n = 1305, N = 1024, d2 = 10) and N = 4096
-(B = 1024, n = 1305, d2 = 10), the plain version on one row and the last.
+(B = 1024, n = 1305, d2 = 10), the plain versions on one row and the last.
+With `--rns-only`, only the RNS kernel's part (about a minute).
 """
 
 from __future__ import annotations
@@ -70,7 +77,18 @@ def main() -> int:
     peak = cs.int32_peak_per_s()
     rng = np.random.default_rng(cs.SEED)
     if ring == cs.RING8192_N:
-        out = {"ring8192": cs.ring8192_kernels(rng, peak)}
+        q1, q2 = from_gpu_style(ParamSet.STD128, True, 12, N=cs.RING_N).rgsw.rns_primes
+        out = {"rns_ring8192": cs.ring8192_rns_kernels(rng, peak),
+               "rns_N2048": cs.rns_case(rng, *from_gpu_style(ParamSet.STD128, True, 12)
+                                        .rgsw.rns_primes, peak, cs.FUNC_BATCH,
+                                        cs.LWE_N_ACC, 4, rows=[0])}
+        for d2 in (4, 2):
+            out[f"rns_N4096_d2={d2}"] = cs.rns_case(rng, q1, q2, peak, cs.RING_BATCH,
+                                                   cs.LWE_N_ACC, d2, cs.RING_N, rows=[0])
+        if "--rns-only" in sys.argv:
+            print(json.dumps(out), flush=True)
+            return 0
+        out["ring8192"] = cs.ring8192_kernels(rng, peak)
         std = from_param_set(ParamSet.STD128).lwe.Q
         mixed = from_gpu_style(ParamSet.STD128, False, 11).lwe.Q
         mixed4k = from_gpu_style(ParamSet.STD128, False, 11, N=cs.RING_N).lwe.Q

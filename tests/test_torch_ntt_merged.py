@@ -19,6 +19,7 @@ from tfhe_tpu_torch.ops import _build, blindrotate_rns, ntt, rotate_rns_kernel
 from torch_threads import one_torch_thread  # noqa: F401
 
 Q1, Q2 = 134176769, 134111233          # the accelerated sets' primes (N = 2048, 4096)
+Q1_8K, Q2_8K = 133857281, 133644289    # and at N = 8192
 M32 = (1 << 32) - 1
 
 
@@ -63,10 +64,10 @@ def swz(j):
     return j ^ pmask((j >> 5) & 7) ^ pmask((j >> 8) & 7)
 
 
-def tables(N, lane):
+def tables(N, lane, q1=Q1, q2=Q2):
     """The lane's rows of the uploaded table as u32 in int64: fwd, fwd',
     inv, inv'."""
-    tw = rotate_rns_kernel._twiddles(N, Q1, Q2, "cpu")
+    tw = rotate_rns_kernel._twiddles(N, q1, q2, "cpu")
     return [row.to(torch.int64) & M32 for row in tw[lane]]
 
 
@@ -162,10 +163,11 @@ def scatter(regs, C):
 
 
 @pytest.mark.parametrize("lane", [0, 1])
-@pytest.mark.parametrize("N", [256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("N", [256, 512, 1024, 2048, 4096, 8192])
 def test_merged_forward_and_inverse_equal_ntt(N, lane):
-    q = (Q1, Q2)[lane]
-    fw, fws, iw, iws = tables(N, lane)
+    primes = (Q1_8K, Q2_8K) if N == 8192 else (Q1, Q2)
+    q = primes[lane]
+    fw, fws, iw, iws = tables(N, lane, *primes)
     rng = np.random.default_rng(N + lane)
     x = torch.from_numpy(rng.integers(0, q, (3, N)))
     x[0, :4] = torch.tensor([0, q - 1, 1, q // 2])
@@ -318,8 +320,172 @@ def emulate_rotation(acc1, acc2, a_idx, key, q1, q2, base_g, throw):
     return acc[0].to(torch.int32), acc[1].to(torch.int32)
 
 
-def emulate_cluster_rotation(acc1, acc2, a_idx, key, q1, q2, base_g, throw):
-    """The N = 4096 layout of the kernel: a cluster of two blocks, rank =
+def drop_bit9(j):
+    """The word of j in its owner's half when the owner is bit 9 of j."""
+    return ((j >> 10) << 9) | (j & 511)
+
+
+# The N = 8192 kernel's buffers in a block's shared memory, in units of
+# S = N / 2 words: the output lies over the crossing's and the forward's
+# buffers; 11 S in all.
+LAYOUT_8192 = {"acc": 0, "digits": 2, "inverse": 3, "crossing": 7, "forward": 9,
+               "output": 7}
+BARRIERS_8192 = ("digits", "round")   # the cluster barriers a hazard may drop
+
+
+def emulate_four_blocks(acc1, acc2, a_idx, key, q1, q2, base_g, throw, layout=None,
+                        block_barriers=()):
+    """The kernel's N = 8192 layout: one ciphertext on a cluster of four
+    blocks of 512 threads, rank = 2 lane + half, logical thread t = half *
+    512 + threadIdx.x of the lane's N/8. Each block's shared memory
+    [B, 11 S] words (S = N / 2) is its own tensor, its buffers at `layout`
+    (LAYOUT_8192 unless given); a word of another block is read from that
+    block's tensor. A block holds the words of the lane's polynomials whose
+    owner bit (bit 9 of j in register group 0, bit 12 after) is its half,
+    at drop_bit9 of the word.
+
+    Each block runs as a generator that stops at every cluster barrier:
+    after the load; per kept digit, after the digits are written (A_l) and
+    in the forward's crossing (B_l); in the inverse's crossing (C); after
+    the output is written (E); at the round's end (F). At each, block 0
+    runs on to its next barrier, then blocks 1, 2 and 3, so a block reads
+    another's buffers after that block has written whatever it writes before
+    the next barrier: the latest such a read can come. Barriers inside a
+    block are not modelled. A barrier named in `block_barriers` ("digits":
+    every A_l, "round": every F) is a block barrier, which no other block
+    waits for; a block that leaves zeroes its shared memory."""
+    B, _, N = acc1.shape
+    n, rows, _ = key.shape
+    d2, S, TB = rows // 8, N // 2, N // 16
+    digits, g_bits = d2 // 2, base_g.bit_length() - 1
+    grp = groups(N.bit_length() - 1)
+    assert len(grp) == 5 and N == 8192
+    at = {name: S * v for name, v in (layout or LAYOUT_8192).items()}
+    key = (key.to(torch.int64) & M32).reshape(n, 2, 4, d2, N)
+    smem = [torch.full((B, 11 * S), -1, dtype=torch.int64) for _ in range(4)]
+    result = [None] * 4
+    tid = torch.arange(TB)
+    sums_w = (8 * (tid & ~31) + (tid & 31))[:, None] + 32 * torch.arange(8)   # [TB, 8]
+
+    def write(rank, base, words, regs):
+        """regs [B, P, TB, 8] to block rank's words base + p S + words."""
+        for p in range(regs.shape[1]):
+            smem[rank][:, base + p * S + words.reshape(-1)] = regs[:, p].reshape(B, -1)
+
+    def read(ranks, owner, base, words, P):
+        """[B, P, TB, 8] from the words base + p S + words, each element from
+        block ranks[owner] (owner [TB, 8] of 0 and 1)."""
+        out = []
+        for p in range(P):
+            w = (base + p * S + words).reshape(-1)
+            got = torch.where(owner.reshape(-1) == 0, smem[ranks[0]][:, w], smem[ranks[1]][:, w])
+            out.append(got.reshape(B, TB, 8))
+        return torch.stack(out, 1)
+
+    def block(rank):
+        lane, half = rank >> 1, rank & 1
+        q = (q1, q2)[lane]
+        fw, fws, iw, iws = tables(N, lane, q1, q2)
+        red_sh = int(fws[0])
+        halves = (rank & 2, (rank & 2) | 1)                   # this lane's two blocks
+        t = half * TB + tid
+        js = [owned(C, 2 * TB)[t] for C, _, _ in grp]         # [TB, 8] per group
+        w0 = drop_bit9(js[0])                                  # register k's word
+        mine = torch.zeros((TB, 8), dtype=torch.int64)
+
+        def local(C_from, C_to, regs, base):
+            """A block-local exchange in the block's half (bit 12 dropped)."""
+            write(rank, base, swz(owned(C_from, 2 * TB)[t]) & (S - 1), regs)
+            return read((rank, rank), mine, base, swz(owned(C_to, 2 * TB)[t]) & (S - 1),
+                        regs.shape[1])
+
+        lane_acc = (acc1, acc2)[lane].to(torch.int64)
+        for o in range(2):
+            smem[rank][:, at["acc"] + o * S + w0.reshape(-1)] = lane_acc[:, o, js[0].reshape(-1)]
+        yield                                                  # after the load
+        for r in range(n):
+            own = smem[rank][:, at["acc"] + lane * S + w0]
+            other = smem[rank ^ 2][:, at["acc"] + lane * S + w0]
+            r1, r2 = (own, other) if lane == 0 else (other, own)
+            digs = centred_digits(r1, r2, q1, q2, g_bits, throw, digits)
+            u = None
+            for l in range(digits):
+                smem[rank][:, at["digits"] + w0] = digs[l]
+                if "digits" not in block_barriers:
+                    yield                                      # A_l
+                own = smem[rank][:, at["digits"] + w0]
+                other = smem[rank ^ 2][:, at["digits"] + w0]
+                x = torch.stack((own, other) if lane == 0 else (other, own), 1)
+                x = fwd_group(torch.where(x < 0, x + q, x), js[0], *grp[0][1:], q, fw, fws)
+                write(rank, at["crossing"], drop_bit9(swz(js[0])), x)
+                yield                                          # B_l
+                x = read(halves, js[1] >> 9 & 1, at["crossing"], drop_bit9(swz(js[1])), 2)
+                x = fwd_group(x, js[1], *grp[1][1:], q, fw, fws)
+                for g in range(2, 5):
+                    x = local(grp[g - 1][0], grp[g][0], x, at["forward"])
+                    x = fwd_group(x, js[g], *grp[g][1:], q, fw, fws)
+                s0 = key[r, lane, :, 2 * l][:, js[4]]          # [4, TB, 8]
+                s1 = key[r, lane, :, 2 * l + 1][:, js[4]]
+                v0, v1 = umulhi(s0 + 1, q), umulhi(s1 + 1, q)
+                p = (mulmod_lazy(x[:, None, 0], v0, s0, q)
+                     + mulmod_lazy(x[:, None, 1], v1, s1, q))  # [B, 4, TB, 8]
+                if l:
+                    p = p + read((rank, rank), mine, at["inverse"], sums_w, 4)
+                assert (p < 1 << 32).all()
+                if l + 1 < digits:
+                    write(rank, at["inverse"], sums_w, p)
+                else:
+                    u = p
+            u = u - umulhi(u, red_sh) * q
+            u = inv_group(u, js[4], *grp[4][1:], q, iw, iws)
+            for g in range(3, 0, -1):
+                u = local(grp[g + 1][0], grp[g][0], u, at["inverse"])
+                u = inv_group(u, js[g], *grp[g][1:], q, iw, iws)
+            write(rank, at["inverse"], swz(js[1]) & (S - 1), u)
+            yield                                              # C
+            u = read(halves, js[0] >> 12 & 1, at["inverse"], swz(js[0]) & (S - 1), 4)
+            u = csub(inv_group(u, js[0], *grp[0][1:], q, iw, iws), q)
+            write(rank, at["output"], w0, u)
+            yield                                              # E
+            m_pos = a_idx[:, r].to(torch.int64)[:, None, None]
+            m_neg = (2 * N - m_pos) & (2 * N - 1)
+            for o in range(2):
+                v = []
+                for ko, m in ((o, m_pos), (2 + o, m_neg)):
+                    rot = (js[0] - m) & (2 * N - 1)             # [B, TB, 8]
+                    c = rot & (N - 1)
+                    w = (at["output"] + ko * S + drop_bit9(c)).reshape(B, -1)
+                    got = torch.where((c >> 9 & 1).reshape(B, -1) == 0,
+                                      torch.gather(smem[halves[0]], 1, w),
+                                      torch.gather(smem[halves[1]], 1, w)).reshape(B, TB, 8)
+                    v.append(torch.where(rot < N, got, q - got))
+                a = smem[rank][:, at["acc"] + o * S + w0]
+                s_ = a + v[0] + (q - u[:, o]) + v[1] + (q - u[:, 2 + o])
+                assert (s_ < 5 * q).all()
+                smem[rank][:, at["acc"] + o * S + w0] = csub(csub(csub(s_, 4 * q), 2 * q), q)
+            if "round" not in block_barriers:
+                yield                                          # F
+        result[rank] = torch.stack([smem[rank][:, at["acc"] + o * S + w0] for o in range(2)], 1)
+        smem[rank].zero_()                                     # the block leaves
+
+    running = [block(rank) for rank in range(4)]
+    while running:
+        for g in list(running):
+            try:
+                next(g)
+            except StopIteration:
+                running.remove(g)
+    out = [torch.empty((B, 2, N), dtype=torch.int64) for _ in range(2)]
+    for rank in range(4):
+        t = (rank & 1) * TB + tid
+        j = owned(grp[0][0], 2 * TB)[t].reshape(-1)
+        out[rank >> 1][..., j] = result[rank].reshape(B, 2, -1)
+    return out[0].to(torch.int32), out[1].to(torch.int32)
+
+
+def emulate_cluster_rotation(acc1, acc2, a_idx, key, q1, q2, base_g, throw, **hazard):
+    """The kernel's cluster layouts. N = 8192: `emulate_four_blocks`. N =
+    4096: a cluster of two blocks, rank =
     residue lane, each with its own shared memory, laid out as the kernel
     lays it out (words: accumulator [2][N] at 0, the forward's buffer at
     2N, the digits [2 parities][N] at 4N, the inverse's output at 6N and
@@ -330,6 +496,8 @@ def emulate_cluster_rotation(acc1, acc2, a_idx, key, q1, q2, base_g, throw):
     barrier, reads its own and the peer's. Both ranks finish a step before
     either starts the next, as the cluster barriers order them."""
     B, _, N = acc1.shape
+    if N == 8192:
+        return emulate_four_blocks(acc1, acc2, a_idx, key, q1, q2, base_g, throw, **hazard)
     n, rows, _ = key.shape
     d2, TG, g_bits = rows // 8, N // 8, base_g.bit_length() - 1
     C0 = groups(N.bit_length() - 1)[0][0]
@@ -382,23 +550,66 @@ def test_emulated_kernel_round_equals_plain(N, d2, throw, base_log):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("d2,throw,base_log", [(4, 1, 18), (2, 1, 27)],
-                         ids=["base18", "base27"])
-def test_emulated_cluster_round_equals_plain(d2, throw, base_log):
-    """N = 4096: the two blocks of a cluster, each reading the peer's
-    residues and digits, give the plain rotation; the block's buffers fit
-    the 227 KB a block may use."""
-    N, B, n = 4096, 2, 2
-    assert 14 * N * 4 + 4 <= 232448
-    rng = np.random.default_rng(base_log)
-    acc = [torch.from_numpy(rng.integers(0, qi, (B, 2, N)).astype(np.int32)) for qi in (Q1, Q2)]
+def cluster_inputs(N, d2, seed, B=2, n=2):
+    """acc1, acc2, a_idx and a pack_bsk_rns key at the ring's primes; row 0
+    of the exponents holds 0 and 2N - 1."""
+    q1, q2 = (Q1_8K, Q2_8K) if N == 8192 else (Q1, Q2)
+    rng = np.random.default_rng(seed)
+    acc = [torch.from_numpy(rng.integers(0, qi, (B, 2, N)).astype(np.int32)) for qi in (q1, q2)]
     a_idx = torch.from_numpy(rng.integers(0, 2 * N, (B, n)).astype(np.int32))
-    a_idx[0] = torch.tensor([0, 2 * N - 1])
-    bsk = rng.integers(0, Q1 * Q2, (n, 2, d2, 2, N)).astype(np.uint64)
-    key = rotate_rns_kernel.pack_bsk_rns(bsk, Q1, Q2)
-    want = blindrotate_rns.blind_rotate_rns(*acc, a_idx, key, Q1, Q2, 1 << base_log, throw)
-    got = emulate_cluster_rotation(*acc, a_idx, key, Q1, Q2, 1 << base_log, throw)
+    a_idx[0, :2] = torch.tensor([0, 2 * N - 1])
+    bsk = rng.integers(0, q1 * q2, (n, 2, d2, 2, N)).astype(np.uint64)
+    return acc, a_idx, rotate_rns_kernel.pack_bsk_rns(bsk, q1, q2), q1, q2
+
+
+@pytest.mark.parametrize("N,d2,throw,base_log", [
+    (4096, 4, 1, 18), (4096, 2, 1, 27), (8192, 4, 1, 18), (8192, 2, 1, 27),
+    (8192, 8, 0, 7)], ids=["base18", "base27", "N8192-base18", "N8192-base27",
+                           "N8192-base7-throw0"])
+def test_emulated_cluster_round_equals_plain(N, d2, throw, base_log):
+    """N = 4096: the two blocks of a cluster, each reading the peer's
+    residues and digits; N = 8192: the four blocks, two a lane, also
+    crossing inside each transform and in the rotated reads. Both give the
+    plain rotation, and a block's buffers fit the 227 KB it may use."""
+    words = 14 * N if N == 4096 else 11 * N // 2
+    assert words * 4 + 4 <= 232448
+    acc, a_idx, key, q1, q2 = cluster_inputs(N, d2, base_log if N == 4096 else N + d2)
+    want = blindrotate_rns.blind_rotate_rns(*acc, a_idx, key, q1, q2, 1 << base_log, throw)
+    got = emulate_cluster_rotation(*acc, a_idx, key, q1, q2, 1 << base_log, throw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("hazard", ["output over the inverse's buffer",
+                                    "digits over the crossing's buffer",
+                                    "crossing over the forward's buffer",
+                                    "digits' barrier in the block",
+                                    "round's barrier in the block"])
+def test_four_block_hazards_show_in_the_emulation(hazard):
+    """N = 8192: the emulated cluster equals the plain version only with the
+    kernel's layout and barriers. The output written over the inverse's
+    buffer overwrites words the lane's other block still reads in the
+    inverse's crossing; the digits in the crossing's buffer are overwritten
+    by the crossing while the other lane's block still reads them; one
+    buffer for the crossing and the forward lets a block's forward overwrite
+    crossing words the lane's other block still reads; a block barrier in
+    place of A_l lets a block read the other lane's digits before they are
+    written, and one in place of F its accumulator before the round has
+    updated it (and lets a block leave while another reads it)."""
+    N, d2, throw, base_g = 8192, 4, 1, 1 << 18
+    acc, a_idx, key, q1, q2 = cluster_inputs(N, d2, seed=17)
+    want = blindrotate_rns.blind_rotate_rns(*acc, a_idx, key, q1, q2, base_g, throw)
+    layout = dict(LAYOUT_8192)
+    kw = {}
+    if hazard == "output over the inverse's buffer":
+        layout["output"] = layout["inverse"]
+    elif hazard == "digits over the crossing's buffer":
+        layout["digits"] = layout["crossing"]
+    elif hazard == "crossing over the forward's buffer":
+        layout["crossing"] = layout["forward"]
+    else:
+        kw["block_barriers"] = ("digits",) if hazard.startswith("digits") else ("round",)
+    got = emulate_cluster_rotation(*acc, a_idx, key, q1, q2, base_g, throw, layout=layout, **kw)
+    assert not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
 
 
 @pytest.mark.parametrize("q", [Q1, Q2, 134215681, 268369921])

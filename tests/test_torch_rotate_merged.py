@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 from chip_smoke import gate_cases
-from test_torch_ntt_merged import (M32, csub, extract, forward_regs, fwd_group, groups,
+from test_torch_ntt_merged import (M32, csub, drop_bit9, extract, forward_regs, fwd_group, groups,
                                    inv_group, inverse_regs, mulmod_lazy, owned, scatter,
                                    swz, umulhi)
 
@@ -99,11 +99,6 @@ def emulate_rotation(acc, a_idx, bsk_pack, Q, base_g, throw):
             assert (s < 5 * Q).all()
             a[:, o] = csub(csub(csub(s, 4 * Q), 2 * Q), Q)
     return scatter(a, grp[0][0]).to(torch.int32)
-
-
-def drop_bit9(j):
-    """The word of j in its owner's half when the owner is bit 9 of j."""
-    return ((j >> 10) << 9) | (j & 511)
 
 
 def emulate_cluster_rotation(acc, a_idx, bsk_pack, Q, base_g, throw, parity=None,

@@ -4,8 +4,9 @@
 (`tfhe_tpu/ops/backend.py:675-740`) for the port's paths: the single-limb
 key of the gate and mixed slices (host NTT mod Q, `pack_bsk`), the RNS key
 of the accelerated sets (`pack_bsk_rns`, one NTT per prime straight from
-`bsk_coeff`), the 64-bit key of the two-limb sets (host NTT mod Q,
-`pack_bsk64`) and the DM table of the AP sets (`pack_dm_table`). The
+`bsk_coeff`, on the key's device), the 64-bit key of the two-limb sets
+(host NTT mod Q, `pack_bsk64`) and the DM table of the AP sets
+(`pack_dm_table`). The
 switching-key table is memoised on the switching-key object, as
 `JaxBackend._packed_ksk` does (551-573): every gadget base of a
 time-optimization map and every context that shares the LWE block share
@@ -67,7 +68,7 @@ def device_key(params: BinFHEParams, key: BTKey, device: torch.device,
         bsk = {"dm_table": pack_dm_table(key.bsk_coeff, p.Q, device)}
     elif path == "rns":
         q1, q2 = params.rgsw.rns_primes
-        bsk = {"bsk_rns": pack_bsk_rns(key.bsk_coeff, q1, q2).to(device)}
+        bsk = {"bsk_rns": pack_bsk_rns(key.bsk_coeff, q1, q2, device)}
     else:
         bsk_hat = ref_ntt.forward(np.asarray(key.bsk_coeff, dtype=np.uint64), p.Q)
         pack, name = (pack_bsk64, "bsk64") if path == "two_limb" else (pack_bsk, "bsk_pack")

@@ -125,6 +125,9 @@
 namespace {
 
 using dsmem::cluster_sync;
+using dsmem::cross_forward;
+using dsmem::cross_inverse;
+using dsmem::drop_bit9;
 using dsmem::ld_peer;
 using rntt::csub;
 using rntt::mulmod_lazy;
@@ -135,56 +138,6 @@ constexpr bool kCluster = LOGN > 12;
 
 template <int LOGN>
 constexpr int kThreads = (1 << LOGN) / (kCluster<LOGN> ? 16 : 8);
-
-// The word of j (swizzled or not) in its owner's half when the owner is
-// bit 9 of j: bit 9 dropped.
-__device__ __forceinline__ int drop_bit9(int j) { return ((j >> 10) << 9) | (j & 511); }
-
-// The exchange between register groups 0 (C = 12: j = t | k << 10, bit 9
-// = rank) and 1 (C = 9: j = tpart<9>(t) | k << 7, bit 12 = rank) at 13 index
-// bits, across the cluster. Forward: each thread stores its group-0 values
-// in its block's buffer `mine` at drop_bit9(swz(j)); after the cluster
-// barrier it reads group 1's, register k from block k / 4 (bit 9 of j is bit
-// 2 of k), at cluster addresses `at[rank]` of the same buffer.
-template <int NP>
-__device__ __forceinline__ void cross_forward(uint32_t (&x)[NP][8], uint32_t* __restrict__ mine,
-                                              const uint32_t (&at)[2], int t) {
-  constexpr int H = 4096;  // words a polynomial in a block's half
-  const int wa = rntt::swz(t);
-#pragma unroll
-  for (int p = 0; p < NP; ++p)
-#pragma unroll
-    for (int k = 0; k < 8; ++k) mine[p * H + drop_bit9(wa ^ rntt::swz(k << 10))] = x[p][k];
-  cluster_sync();
-  const int ra = rntt::swz(rntt::tpart<9>(t));
-#pragma unroll
-  for (int p = 0; p < NP; ++p)
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      x[p][k] = ld_peer(at[k >> 2] + 4 * (p * H + drop_bit9(ra ^ rntt::swz(k << 7))));
-}
-
-// Inverse: group 1's values go to the block's buffer at swz(j) with bit 12
-// dropped, the words its own 2 -> 1 exchange read; after the cluster
-// barrier group 0's register k comes from block k / 4 (bit 12 of j).
-template <int NP>
-__device__ __forceinline__ void cross_inverse(uint32_t (&x)[NP][8], uint32_t* __restrict__ mine,
-                                              const uint32_t (&at)[2], int t) {
-  constexpr int H = 4096;
-  __syncwarp();  // the warp's reads of these words in the 2 -> 1 exchange are done
-  const int wa = rntt::swz(rntt::tpart<9>(t));
-#pragma unroll
-  for (int p = 0; p < NP; ++p)
-#pragma unroll
-    for (int k = 0; k < 8; ++k) mine[p * H + ((wa ^ rntt::swz(k << 7)) & (H - 1))] = x[p][k];
-  cluster_sync();
-  const int ra = rntt::swz(t);
-#pragma unroll
-  for (int p = 0; p < NP; ++p)
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      x[p][k] = ld_peer(at[k >> 2] + 4 * (p * H + ((ra ^ rntt::swz(k << 10)) & (H - 1))));
-}
 
 // Balanced base-2^g_bits digit of d; d becomes (d - digit) >> g_bits.
 __device__ __forceinline__ int32_t extract(int32_t& d, int g_bits) {
@@ -441,7 +394,7 @@ cudaError_t launch(const void* acc_in, void* acc_out, const void* a_idx,
   const int gb = g_bits < 28 ? g_bits : 28;
   constexpr int threads = kThreads<LOGN>;
   if constexpr (kCluster<LOGN>) {
-    dsmem::PairLaunch cl(B, threads, smem, stream);
+    dsmem::ClusterLaunch cl(2, B, threads, smem, stream);
     err = cudaLaunchKernelEx(&cl.cfg, blind_rotate_kernel<LOGN>, acc_i, acc_o, idx, key, twd,
                              n, (uint32_t)Q, gb, digits, throw_digits);
     if (err != cudaSuccess) return err;
@@ -480,13 +433,15 @@ extern "C" int tfhe_blind_rotate(const void* acc_in, void* acc_out,
   }
 }
 
-// The most clusters of the N = 8192 kernel the card holds at once
-// (cudaOccupancyMaxActiveClusters), in *clusters. Returns the cudaError_t.
-extern "C" int tfhe_blind_rotate_clusters(int* clusters) {
+// The most clusters of the ring-N cluster kernel (N = 8192) the card holds
+// at once (cudaOccupancyMaxActiveClusters), in *clusters. Returns the
+// cudaError_t; cudaErrorInvalidValue for a ring without a cluster layout.
+extern "C" int tfhe_blind_rotate_clusters(int N, int* clusters) {
+  if (N != 8192) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       blind_rotate_kernel<13>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes<13>());
   if (err != cudaSuccess) return err;
-  dsmem::PairLaunch cl(1, kThreads<13>, smem_bytes<13>(), 0);
+  dsmem::ClusterLaunch cl(2, 1, kThreads<13>, smem_bytes<13>(), 0);
   return cudaOccupancyMaxActiveClusters(clusters, blind_rotate_kernel<13>, &cl.cfg);
 }

@@ -352,7 +352,7 @@ cudaError_t launch(const void* acc_in, void* acc_out, const void* a_idx,
       (int)smem);
   if (err != cudaSuccess) return err;
   if constexpr (kCluster<LOGN>) {
-    dsmem::PairLaunch cl(B, (1 << LOGN) / 8, smem, stream);
+    dsmem::ClusterLaunch cl(2, B, (1 << LOGN) / 8, smem, stream);
     err = cudaLaunchKernelEx(
         &cl.cfg, blind_rotate64_kernel<LOGN>, static_cast<const u64*>(acc_in),
         static_cast<u64*>(acc_out), static_cast<const int32_t*>(a_idx),
@@ -401,13 +401,15 @@ extern "C" int tfhe_blind_rotate64(const void* acc_in, void* acc_out,
   }
 }
 
-// The most clusters of the N = 4096 kernel the card holds at once
-// (cudaOccupancyMaxActiveClusters), in *clusters. Returns the cudaError_t.
-extern "C" int tfhe_blind_rotate64_clusters(int* clusters) {
+// The most clusters of the ring-N cluster kernel (N = 4096) the card holds
+// at once (cudaOccupancyMaxActiveClusters), in *clusters. Returns the
+// cudaError_t; cudaErrorInvalidValue for a ring without a cluster layout.
+extern "C" int tfhe_blind_rotate64_clusters(int N, int* clusters) {
+  if (N != 4096) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       blind_rotate64_kernel<12>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes<12>());
   if (err != cudaSuccess) return err;
-  dsmem::PairLaunch cl(1, (1 << 12) / 8, smem_bytes<12>(), 0);
+  dsmem::ClusterLaunch cl(2, 1, (1 << 12) / 8, smem_bytes<12>(), 0);
   return cudaOccupancyMaxActiveClusters(clusters, blind_rotate64_kernel<12>, &cl.cfg);
 }

@@ -113,6 +113,60 @@
 // C = 11, 8, 5, 2; two block-wide exchanges per transform, register_ntt.cuh).
 // N <= 2048 keeps the one-block layout above, instantiated unchanged.
 //
+// N = 8192: a cluster of four blocks of 512 threads, two a residue lane.
+// One lane at N = 8192 would need 1024 threads at 128 registers and 56 N =
+// 448 KB, twice what an SM holds, so each lane spans two blocks as one
+// polynomial does in blind_rotate.cu at this ring: block rank = 2 lane +
+// half, logical thread t = half * 512 + threadIdx.x of the lane's 1024,
+// with the registers and ownership above (coefficient t + k N/8 of
+// polynomial `lane` in the CRT and the digits, group 0 of the register NTT
+// at 13 index bits, C = 12, 9, 6, 3, 2). `half` is bit 9 of j in group 0
+// and bit 12 in groups 1-4, so each block holds the half of every buffer
+// whose owner bit is its half, S = N/2 words a polynomial (word
+// drop_bit9(j) in natural order): its thread's register k is word
+// threadIdx.x + 512 k. Shared memory per block, in words: the accumulator
+// [2][S] at 0, the digits [S] at 2S, the inverse's buffer [4][S] (with the
+// waiting sums) at 3S, the crossing's buffer [2][S] at 7S, the forward's
+// [2][S] at 9S, and the inverse's output [4][S] at 7S over the crossing's
+// and the forward's buffers: 11 S words = 22 N bytes = 176 KB (of 227).
+// What crosses, and through which barrier (all cluster barriers):
+// - the CRT reads the other lane's residues from the other lane's block of
+//   the same half (rank ^ 2), after the round's last barrier (F) or the
+//   one after the load;
+// - digit l: each block writes its polynomial's digits, a barrier (A_l),
+//   then reads the other polynomial's from rank ^ 2;
+// - the forward's exchange of groups 0 -> 1 crosses the lane's two blocks
+//   (cluster.cuh's cross_forward: local stores, a barrier B_l, four
+//   ld.shared::cluster words from each block), the inverse's 1 -> 0 alike
+//   (cross_inverse, barrier C); the other exchanges stay in the block;
+// - the output is written, a barrier (E), and read rotated from the lane's
+//   block that holds each coefficient (bit 9 of its index);
+// - the round ends with a barrier (F): the next CRT reads rank ^ 2's
+//   accumulator, and no block leaves while another may read it.
+// 2 digits + 3 cluster barriers a round, 7 at d2 = 4. The hazards and what
+// guards them:
+// - one digits buffer: digit l + 1 is written after B_l, which the other
+//   lane's block passes only when its reads of digit l are done;
+// - one crossing buffer: digit l + 1's crossing is written after A_{l+1},
+//   which the lane's other block passes only after its reads of digit l's;
+// - the output over the crossing's and forward's buffers: written after C,
+//   which every block passes only after its last crossing reads and its
+//   last forward; the next round writes either buffer only after F, which
+//   comes after every block's rotated reads;
+// - the output not over the inverse's buffer: after C the lane's other
+//   block still reads this block's inverse's buffer in the crossing; the
+//   next round's sums and inverse write it only after F;
+// - the accumulator: written after E, and read by the other lane's block
+//   only after F; no block reads another after the last F.
+// The emulation in tests/test_torch_ntt_merged.py keeps the four blocks'
+// shared memory apart and lets one run ahead to each cluster barrier: the
+// output over the inverse's buffer, the digits over the crossing's buffer,
+// or a block barrier in place of A_l or F each give a wrong result there.
+// Bound: at B = 1024, n = 1305, N = 8192 the operations bind, 272.3 ms at
+// d2 = 4 and 189.8 ms at d2 = 2 (chip_smoke.bound: 3 multiplies a Shoup
+// product, 4 a CRT coefficient); the key, 1.37 GB at d2 = 4, streams each
+// round's 512 KB a lane from L2 once per ciphertext, each block its half.
+//
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -123,6 +177,7 @@ namespace {
 
 using dsmem::cluster_rank;
 using dsmem::cluster_sync;
+using dsmem::drop_bit9;
 using dsmem::ld_peer;
 using dsmem::peer_address;
 using rntt::csub;
@@ -137,20 +192,24 @@ __device__ __forceinline__ int64_t extract(int64_t& d, int g_bits) {
   return r;
 }
 
-// The kernel runs as clusters of two one-lane blocks at N = 4096, as one
-// two-lane block per ciphertext below.
+// Blocks a ciphertext: one two-lane block up to N = 2048, a cluster of two
+// one-lane blocks at 4096, of four blocks (two a lane, each half of its
+// lane's words) at 8192.
 template <int LOGN>
-constexpr bool kCluster = LOGN > 11;
+constexpr int kBlocks = LOGN > 12 ? 4 : LOGN > 11 ? 2 : 1;
+
+template <int LOGN>
+constexpr int kThreads = (1 << LOGN) / (4 * kBlocks<LOGN>);
 
 // acc1/acc2: [B][2][N] residues mod q1 / q2. bsk: [n][8*d2][N] u32, rows
 // lane*4*d2 + (key*2 + out)*d2 + 2l + j, Shoup companions only, points in
 // the forward NTT's order. tw: [2 lanes][4][N] rows fwd, fwd', inv, inv'
 // (register_ntt.cuh; x' = Shoup companion); fwd[0] = 1, so fwd'[0] =
-// floor(2^32 / q) reduces the lazy sums. With kCluster, block 2b + lane of
-// the grid runs lane `lane` of ciphertext b.
+// floor(2^32 / q) reduces the lazy sums. In a cluster, block
+// kBlocks * b + rank of the grid runs ciphertext b: rank = lane at N = 4096,
+// rank = 2 lane + half at N = 8192.
 template <int LOGN>
-__global__ void __launch_bounds__((1 << LOGN) / (LOGN > 11 ? 8 : 4),
-                                  LOGN > 11 ? 1 : 2048 >> LOGN)
+__global__ void __launch_bounds__(kThreads<LOGN>, kBlocks<LOGN> > 1 ? 1 : 2048 >> LOGN)
 blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
                         const uint32_t* __restrict__ acc2_in,
                         uint32_t* __restrict__ acc1_out,
@@ -163,25 +222,50 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
   constexpr int N = 1 << LOGN;
   constexpr int TG = N / 8;                 // threads per lane
   constexpr int G = rntt::groups<LOGN>();
-  constexpr bool CL = kCluster<LOGN>;
+  constexpr bool CL = kBlocks<LOGN> > 1;
+  constexpr bool HALF = kBlocks<LOGN> == 4; // a block holds half of its lane's words
   constexpr int L = CL ? 1 : 2;             // lanes in this block
+  constexpr int S = HALF ? N / 2 : N;       // words a polynomial in a block
+  constexpr int WK = S / 8;                 // word step of a thread's registers k
+  // word offsets of the buffers (the layouts in the note above); the
+  // crossing's buffer exists only at N = 8192
+  constexpr int F_AT = HALF ? 9 * S : 2 * L * N;              // forward's, swizzled
+  constexpr int D_AT = HALF ? 2 * S : 4 * L * N;              // digits
+  constexpr int O_AT = HALF ? 7 * S : CL ? 6 * N : 2 * L * N; // inverse's output
+  constexpr int I_AT = HALF ? 3 * S : CL ? 10 * N : 12 * N;   // inverse's, swizzled
+  constexpr int X_AT = 7 * S;                                 // the crossing's
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* acc = smem;              // [L lanes][2][N], natural order
-  uint32_t* fbuf = acc + 2 * L * N;  // [L lanes][2][N], swizzled
-  int32_t* digs = reinterpret_cast<int32_t*>(fbuf + 2 * L * N);  // [2 parities][L][N]
-  uint32_t* out = CL ? fbuf + 4 * N  // the inverse's output [L lanes][4][N],
-                     : fbuf;         // natural order; in one block over fbuf and digs
-  uint32_t* ibuf = out + 4 * L * N;  // [L lanes][4][N], swizzled
+  uint32_t* acc = smem;              // [L lanes][2][S], natural order
+  uint32_t* fbuf = smem + F_AT;      // [L lanes][2][S]
+  int32_t* digs = reinterpret_cast<int32_t*>(smem + D_AT);  // [parities][L][S]
+  uint32_t* out = smem + O_AT;       // [L lanes][4][S], natural order
+  uint32_t* ibuf = smem + I_AT;      // [L lanes][4][S]
 
-  int lane, t;
+  int lane, t, wt, half = 0;         // wt + k WK: the word of register k
   size_t b;
-  if constexpr (CL) {
+  // the cluster addresses of this block's shared memory in the other
+  // lane's block of the same half (peer), and in this lane's two blocks
+  // (at, N = 8192)
+  uint32_t peer = 0u;
+  uint32_t at[2] = {0u, 0u};
+  if constexpr (HALF) {
+    const int rank = cluster_rank();
+    lane = rank >> 1;
+    half = rank & 1;
+    t = half * (TG / 2) + threadIdx.x;
+    wt = threadIdx.x;
+    b = blockIdx.x / 4;
+    peer = peer_address(smem, rank ^ 2);
+    at[0] = peer_address(smem, rank & 2);
+    at[1] = peer_address(smem, (rank & 2) | 1);
+  } else if constexpr (CL) {
     lane = cluster_rank();
-    t = threadIdx.x;
+    t = wt = threadIdx.x;
     b = blockIdx.x / 2;
+    peer = peer_address(smem, lane ^ 1);
   } else {
     lane = threadIdx.x / TG;                // TG >= 32: a warp is in one lane
-    t = threadIdx.x % TG;
+    t = wt = threadIdx.x % TG;
     b = blockIdx.x;
   }
   const int slot = CL ? 0 : lane;           // the lane's place in this block's buffers
@@ -194,10 +278,16 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
   const uint32_t red_sh = __ldg(fws);       // floor(2^32 / q)
   const uint64_t Q = uint64_t(q1) * q2;
   const uint64_t half_Q = Q >> 1;
-  uint32_t* my_acc = acc + slot * 2 * N;
-  uint32_t* my_out = out + slot * 4 * N;
-  // the peer block's shared memory (cluster address of its first word)
-  const uint32_t peer = CL ? peer_address(smem, lane ^ 1) : 0u;
+  uint32_t* my_acc = acc + slot * 2 * S;
+  uint32_t* my_out = out + slot * 4 * S;
+  // coefficient (polynomial, index) of word i of a block's [2][S]
+  // accumulator: at N = 8192 the block's words are those with bit 9 = half
+  auto coef = [&](int i) {
+    if constexpr (HALF)
+      return (i >> 12) * N + ((((i >> 9) & 7) << 10) | (half << 9) | (i & 511));
+    else
+      return i;
+  };
 
   // fresh(t) is t read anew from shared memory: the addresses each NTT makes
   // from it are made where it runs, not kept in registers from another
@@ -207,8 +297,8 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
 
   if (threadIdx.x == 0) zero = 0;
   if constexpr (CL) {
-    const uint32_t* in = lane ? acc2_in : acc1_in;
-    for (int i = threadIdx.x; i < 2 * N; i += TG) acc[i] = in[b * 2 * N + i];
+    const uint32_t* in = (lane ? acc2_in : acc1_in) + b * 2 * N;
+    for (int i = threadIdx.x; i < 2 * S; i += kThreads<LOGN>) acc[i] = in[coef(i)];
     cluster_sync();
   } else {
     for (int i = threadIdx.x; i < 2 * N; i += 2 * TG) {
@@ -220,9 +310,9 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
 
   // the lazy sums of digits before the last wait in the inverse's buffer,
   // among the 256 words per polynomial that the warp's own first exchange of
-  // the inverse writes: register k at word 32k + (t mod 32), so one base and
+  // the inverse writes: register k at word 32k + (wt mod 32), so one base and
   // constant offsets address all of them
-  uint32_t* sums = ibuf + slot * 4 * N + 8 * (t & ~31) + (t & 31);
+  uint32_t* sums = ibuf + slot * 4 * S + 8 * (wt & ~31) + (wt & 31);
 
   for (int r = 0; r < n; ++r) {
     const uint32_t* key = bsk + ((size_t)r * 8 * d2 + lane * 4 * d2) * N + 8 * t;
@@ -233,7 +323,7 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
     int64_t d[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const int j = lane * N + t + k * TG;
+      const int j = lane * S + wt + k * WK;
       uint32_t r1, r2;
       if constexpr (CL) {  // this lane's residue here, the other's in the peer
         const uint32_t own = acc[j], other = ld_peer(peer + 4 * j);
@@ -254,17 +344,18 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
     // digit l of both polynomials, through shared memory into this lane,
     // then the lane's forward NTT of the two: x[o][k] at point 8t + k
     auto digit_forward = [&](int l, uint32_t (&x)[2][8]) {
-      int32_t* dg = digs + (l & 1) * L * N;
+      const int par = HALF ? 0 : (l & 1) * L * S;   // one buffer at N = 8192
+      int32_t* dg = digs + par;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) dg[slot * N + t + k * TG] = int32_t(extract(d[k], g_bits));
+      for (int k = 0; k < 8; ++k) dg[slot * S + wt + k * WK] = int32_t(extract(d[k], g_bits));
       if constexpr (CL) {
         cluster_sync();
         // this lane's polynomial here, the other one in the peer
-        const uint32_t pdg = peer + 4 * (4 * N + (l & 1) * N);
+        const uint32_t pdg = peer + 4 * (D_AT + par);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
-          const int32_t own = dg[t + k * TG];
-          const int32_t other = int32_t(ld_peer(pdg + 4 * (t + k * TG)));
+          const int32_t own = dg[wt + k * WK];
+          const int32_t other = int32_t(ld_peer(pdg + 4 * (wt + k * WK)));
           const int32_t r0 = lane ? other : own, r1 = lane ? own : other;
           x[0][k] = r0 < 0 ? uint32_t(r0 + int32_t(q)) : uint32_t(r0);
           x[1][k] = r1 < 0 ? uint32_t(r1 + int32_t(q)) : uint32_t(r1);
@@ -279,7 +370,15 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
             x[o][k] = rr < 0 ? uint32_t(rr + int32_t(q)) : uint32_t(rr);
           }
       }
-      rntt::forward<LOGN, 0, 2>(x, fbuf + slot * 2 * N, fresh(t), fw, fws, q);
+      if constexpr (HALF) {
+        // group 0 here, its exchange to group 1 across the lane's two blocks
+        rntt::fwd_pass<LOGN, 0, 2>(x, fresh(t), fw, fws, q);
+        const uint32_t x_at[2] = {at[0] + 4 * X_AT, at[1] + 4 * X_AT};
+        dsmem::cross_forward(x, smem + X_AT, x_at, fresh(t));
+        rntt::forward<LOGN, 1, 2, S>(x, fbuf, fresh(t), fw, fws, q);
+      } else {
+        rntt::forward<LOGN, 0, 2>(x, fbuf + slot * 2 * N, fresh(t), fw, fws, q);
+      }
     };
     // the lazy external product of digit l for output ko = key*2 + out:
     // p[k] = sum_j x_j K[key][out][2l + j] at point 8t + k, < 4q
@@ -305,7 +404,7 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
         product(l, ko, x, p);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
-          uint32_t* sp = sums + ko * N + 32 * k;
+          uint32_t* sp = sums + ko * S + 32 * k;
           *sp = l == 0 ? p[k] : *sp + p[k];
         }
       }
@@ -320,7 +419,7 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
         uint32_t p[8];
         product(l, ko, x, p);
 #pragma unroll
-        for (int k = 0; k < 8; ++k) u[ko][k] = l == 0 ? p[k] : sums[ko * N + 32 * k] + p[k];
+        for (int k = 0; k < 8; ++k) u[ko][k] = l == 0 ? p[k] : sums[ko * S + 32 * k] + p[k];
       }
     }
 
@@ -330,24 +429,46 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
     for (int ko = 0; ko < 4; ++ko)
 #pragma unroll
       for (int k = 0; k < 8; ++k) u[ko][k] -= __umulhi(u[ko][k], red_sh) * q;
-    rntt::inverse<LOGN, G - 1, 4>(u, ibuf + slot * 4 * N, fresh(t), iw, iws, q);
+    if constexpr (HALF) {
+      // groups 4 .. 1 in the block's half, the exchange to group 0 across
+      // the lane's two blocks
+      rntt::inverse<LOGN, G - 1, 4, S, 1>(u, ibuf, fresh(t), iw, iws, q);
+      const uint32_t i_at[2] = {at[0] + 4 * I_AT, at[1] + 4 * I_AT};
+      dsmem::cross_inverse(u, ibuf, i_at, fresh(t));
+      rntt::inv_pass<LOGN, 0, 4>(u, fresh(t), iw, iws, q);
+    } else {
+      rntt::inverse<LOGN, G - 1, 4>(u, ibuf + slot * 4 * N, fresh(t), iw, iws, q);
+    }
 
     // a[o] += (X^m_pos - 1) u[o] + (X^m_neg - 1) u[2 + o]: write the inverse's
     // output once, read it rotated. In one block it overwrites the other
     // lane's forward buffer and digits: below N = 512 no exchange of the
     // inverse was block-wide, so wait here for the other lane to be done
-    // with them. (A cluster's block has its own output buffer.)
+    // with them. (A cluster's block has its own output buffer at N = 4096;
+    // at N = 8192 it lies over the crossing's and the forward's buffers,
+    // which the inverse's crossing barrier has freed.)
     if constexpr (LOGN < 9) __syncthreads();
 #pragma unroll
     for (int ko = 0; ko < 4; ++ko)
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         u[ko][k] = csub(u[ko][k], q);
-        my_out[ko * N + t + k * TG] = u[ko][k];
+        my_out[ko * S + wt + k * WK] = u[ko][k];
       }
-    __syncthreads();
+    if constexpr (HALF)
+      cluster_sync();  // the rotated reads cross the lane's two blocks
+    else
+      __syncthreads();
     const int m_pos = a_idx[b * n + r];
     const int m_neg = (2 * N - m_pos) & (2 * N - 1);
+    // the output's coefficient c of polynomial ko: at N = 8192 in the
+    // lane's block whose half is bit 9 of c
+    auto output = [&](int ko, int c) -> uint32_t {
+      if constexpr (HALF)
+        return ld_peer(((c >> 9) & 1 ? at[1] : at[0]) + 4 * (O_AT + ko * S + drop_bit9(c)));
+      else
+        return my_out[ko * N + c];
+    };
 #pragma unroll
     for (int o = 0; o < 2; ++o)
 #pragma unroll
@@ -355,13 +476,14 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
         const int j = t + k * TG;
         const int r0 = (j - m_pos) & (2 * N - 1);
         const int r1 = (j - m_neg) & (2 * N - 1);
-        const uint32_t c0 = my_out[o * N + (r0 & (N - 1))];
-        const uint32_t c1 = my_out[(2 + o) * N + (r1 & (N - 1))];
+        const uint32_t c0 = output(o, r0 & (N - 1));
+        const uint32_t c1 = output(2 + o, r1 & (N - 1));
         const uint32_t v0 = r0 < N ? c0 : q - c0;  // in [0, q]
         const uint32_t v1 = r1 < N ? c1 : q - c1;
-        uint32_t s = my_acc[o * N + j] + v0 + (q - u[o][k]) + v1 + (q - u[2 + o][k]);
+        uint32_t* a = my_acc + o * S + wt + k * WK;
+        uint32_t s = *a + v0 + (q - u[o][k]) + v1 + (q - u[2 + o][k]);
         s = csub(csub(csub(s, 4 * q), 2 * q), q);  // s < 5q
-        my_acc[o * N + j] = s;
+        *a = s;
       }
     if constexpr (CL)
       cluster_sync();  // the next CRT reads the peer's accumulator
@@ -370,8 +492,8 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
   }
 
   if constexpr (CL) {
-    uint32_t* dst = lane ? acc2_out : acc1_out;
-    for (int i = threadIdx.x; i < 2 * N; i += TG) dst[b * 2 * N + i] = acc[i];
+    uint32_t* dst = (lane ? acc2_out : acc1_out) + b * 2 * N;
+    for (int i = threadIdx.x; i < 2 * S; i += kThreads<LOGN>) dst[coef(i)] = acc[i];
   } else {
     for (int i = threadIdx.x; i < 2 * N; i += 2 * TG) {
       acc1_out[b * 2 * N + i] = acc[i];
@@ -380,10 +502,13 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
   }
 }
 
-// Dynamic shared memory of a block: 80 N bytes, 56 N in a cluster.
+// Dynamic shared memory of a block: 80 N bytes, 56 N in a two-block
+// cluster, 22 N (11 S words) in a four-block one.
 template <int LOGN>
 constexpr size_t smem_bytes() {
-  return (kCluster<LOGN> ? 14 : 20) * (size_t(1) << LOGN) * sizeof(uint32_t);
+  constexpr size_t N = size_t(1) << LOGN;
+  return (kBlocks<LOGN> == 4 ? 11 * N / 2 : kBlocks<LOGN> == 2 ? 14 * N : 20 * N) *
+         sizeof(uint32_t);
 }
 
 template <int LOGN>
@@ -392,31 +517,40 @@ cudaError_t launch(const void* acc1_in, const void* acc2_in, void* acc1_out,
                    const void* tw, int B, int n, unsigned q1, unsigned q2,
                    unsigned c12, unsigned c12_sh, int g_bits, int digits,
                    int throw_digits, cudaStream_t stream) {
-  const size_t N = size_t(1) << LOGN;
   const size_t smem = smem_bytes<LOGN>();
   cudaError_t err = cudaFuncSetAttribute(
       blind_rotate_rns_kernel<LOGN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  if constexpr (kCluster<LOGN>) {
-    dsmem::PairLaunch cl(B, (1 << LOGN) / 8, smem, stream);
-    err = cudaLaunchKernelEx(
-        &cl.cfg, blind_rotate_rns_kernel<LOGN>,
-        static_cast<const uint32_t*>(acc1_in), static_cast<const uint32_t*>(acc2_in),
-        static_cast<uint32_t*>(acc1_out), static_cast<uint32_t*>(acc2_out),
-        static_cast<const int32_t*>(a_idx), static_cast<const uint32_t*>(bsk),
-        static_cast<const uint32_t*>(tw), n, (uint32_t)q1, (uint32_t)q2,
-        (uint32_t)c12, (uint32_t)c12_sh, g_bits, digits, throw_digits);
+  const auto a1i = static_cast<const uint32_t*>(acc1_in);
+  const auto a2i = static_cast<const uint32_t*>(acc2_in);
+  const auto a1o = static_cast<uint32_t*>(acc1_out);
+  const auto a2o = static_cast<uint32_t*>(acc2_out);
+  const auto idx = static_cast<const int32_t*>(a_idx);
+  const auto key = static_cast<const uint32_t*>(bsk);
+  const auto twd = static_cast<const uint32_t*>(tw);
+  if constexpr (kBlocks<LOGN> > 1) {
+    dsmem::ClusterLaunch cl(kBlocks<LOGN>, B, kThreads<LOGN>, smem, stream);
+    err = cudaLaunchKernelEx(&cl.cfg, blind_rotate_rns_kernel<LOGN>, a1i, a2i, a1o, a2o, idx,
+                             key, twd, n, (uint32_t)q1, (uint32_t)q2, (uint32_t)c12,
+                             (uint32_t)c12_sh, g_bits, digits, throw_digits);
     if (err != cudaSuccess) return err;
   } else {
-    blind_rotate_rns_kernel<LOGN><<<B, N / 4, smem, stream>>>(
-        static_cast<const uint32_t*>(acc1_in),
-        static_cast<const uint32_t*>(acc2_in), static_cast<uint32_t*>(acc1_out),
-        static_cast<uint32_t*>(acc2_out), static_cast<const int32_t*>(a_idx),
-        static_cast<const uint32_t*>(bsk), static_cast<const uint32_t*>(tw), n,
-        q1, q2, c12, c12_sh, g_bits, digits, throw_digits);
+    blind_rotate_rns_kernel<LOGN><<<B, kThreads<LOGN>, smem, stream>>>(
+        a1i, a2i, a1o, a2o, idx, key, twd, n, q1, q2, c12, c12_sh, g_bits, digits,
+        throw_digits);
   }
   return cudaGetLastError();
+}
+
+template <int LOGN>
+cudaError_t clusters_of(int* clusters) {
+  cudaError_t err = cudaFuncSetAttribute(
+      blind_rotate_rns_kernel<LOGN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<LOGN>());
+  if (err != cudaSuccess) return err;
+  dsmem::ClusterLaunch cl(kBlocks<LOGN>, 1, kThreads<LOGN>, smem_bytes<LOGN>(), 0);
+  return cudaOccupancyMaxActiveClusters(clusters, blind_rotate_rns_kernel<LOGN>, &cl.cfg);
 }
 
 }  // namespace
@@ -442,18 +576,23 @@ extern "C" int tfhe_blind_rotate_rns(const void* acc1_in, const void* acc2_in,
       return launch<11>(acc1_in, acc2_in, acc1_out, acc2_out, a_idx, bsk, tw, B, n, q1, q2, c12, c12_sh, g_bits, digits, throw_digits, s);
     case 4096:
       return launch<12>(acc1_in, acc2_in, acc1_out, acc2_out, a_idx, bsk, tw, B, n, q1, q2, c12, c12_sh, g_bits, digits, throw_digits, s);
+    case 8192:
+      return launch<13>(acc1_in, acc2_in, acc1_out, acc2_out, a_idx, bsk, tw, B, n, q1, q2, c12, c12_sh, g_bits, digits, throw_digits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// The most clusters of the N = 4096 kernel the card holds at once
-// (cudaOccupancyMaxActiveClusters), in *clusters. Returns the cudaError_t.
-extern "C" int tfhe_blind_rotate_rns_clusters(int* clusters) {
-  cudaError_t err = cudaFuncSetAttribute(
-      blind_rotate_rns_kernel<12>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes<12>());
-  if (err != cudaSuccess) return err;
-  dsmem::PairLaunch cl(1, (1 << 12) / 8, smem_bytes<12>(), 0);
-  return cudaOccupancyMaxActiveClusters(clusters, blind_rotate_rns_kernel<12>, &cl.cfg);
+// The most clusters of the ring-N cluster kernel (N = 4096 or 8192) the
+// card holds at once (cudaOccupancyMaxActiveClusters), in *clusters. Returns
+// the cudaError_t; cudaErrorInvalidValue for a ring without a cluster layout.
+extern "C" int tfhe_blind_rotate_rns_clusters(int N, int* clusters) {
+  switch (N) {
+    case 4096:
+      return clusters_of<12>(clusters);
+    case 8192:
+      return clusters_of<13>(clusters);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

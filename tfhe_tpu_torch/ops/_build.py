@@ -97,16 +97,17 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def max_active_clusters(name: str) -> int:
-    """The most two-block clusters of csrc/<name>.cu's cluster kernel (N =
-    8192 for blind_rotate, 4096 for the others) that the current CUDA device
-    runs at once: the library's `tfhe_<name>_clusters`
-    (cudaOccupancyMaxActiveClusters)."""
+def max_active_clusters(name: str, N: int) -> int:
+    """The most clusters of csrc/<name>.cu's ring-N cluster kernel (N = 8192
+    for blind_rotate, 4096 for blind_rotate64, 4096 and 8192 for
+    blind_rotate_rns) that the current CUDA device runs at once: the
+    library's `tfhe_<name>_clusters` (cudaOccupancyMaxActiveClusters)."""
     fn = getattr(load(name), f"tfhe_{name}_clusters")
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = ctypes.c_int(0)
-    err = fn(ctypes.byref(out))
+    err = fn(N, ctypes.byref(out))
     if err:
-        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed on {name}: cudaError {err}")
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed on {name} at N = {N}: "
+                           f"cudaError {err}")
     return out.value

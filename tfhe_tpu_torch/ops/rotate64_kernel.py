@@ -62,7 +62,7 @@ def _kernel():
 def max_active_clusters() -> int:
     """The most two-block clusters of the N = 4096 kernel that the current
     CUDA device runs at once (cudaOccupancyMaxActiveClusters)."""
-    return _build.max_active_clusters("blind_rotate64")
+    return _build.max_active_clusters("blind_rotate64", 4096)
 
 
 def check_params(N: int, d2: int, Q: int, base_g: int) -> None:

@@ -65,7 +65,7 @@ def _kernel():
 def max_active_clusters() -> int:
     """The most two-block clusters of the N = 8192 kernel that the current
     CUDA device runs at once (cudaOccupancyMaxActiveClusters)."""
-    return _build.max_active_clusters("blind_rotate")
+    return _build.max_active_clusters("blind_rotate", 8192)
 
 
 def rotate(acc: torch.Tensor, a_idx: torch.Tensor, bsk_pack: torch.Tensor,

@@ -19,32 +19,38 @@ import torch
 
 from . import _build
 from .blindrotate_rns import blind_rotate_rns
-from .ntt import merged_tables
-from .ntt_sched import schedule
+from .ntt import forward, merged_tables
 from .rotate_kernel import _with_shoup
-from ..ref import ntt as ref_ntt
 
 LAUNCHES = 0  # kernel launches made by `rotate_rns`
 # the ring dimensions the kernel takes: one two-lane block per ciphertext up
-# to 2048, a cluster of two one-lane blocks at 4096
-RING_DIMS = (256, 512, 1024, 2048, 4096)
+# to 2048, a cluster of two one-lane blocks at 4096, of four blocks (two a
+# lane) at 8192
+RING_DIMS = (256, 512, 1024, 2048, 4096, 8192)
 
 
-def pack_bsk_rns(bsk_coeff: np.ndarray, q1: int, q2: int) -> torch.Tensor:
+def pack_bsk_rns(bsk_coeff: np.ndarray, q1: int, q2: int,
+                 device: str | torch.device = "cpu") -> torch.Tensor:
     """Coefficient-domain key [n, 2(key), d2, 2(out), N] mod Q = q1*q2 ->
-    int32 [n, 8*d2, N] of per-lane Shoup companions only: lane q1's rows,
-    then lane q2's, row (key*2 + out)*d2 + 2*digit + j within a lane, points
-    in the NTT's bit-reversed order. The layout of
+    int32 [n, 8*d2, N] on `device` of per-lane Shoup companions only: lane
+    q1's rows, then lane q2's, row (key*2 + out)*d2 + 2*digit + j within a
+    lane, points in the NTT's bit-reversed order. The layout of
     `pallas_rotate_rns.pack_bsk_rns`; each lane takes its own NTT of the
-    key, so no NTT mod the full Q is needed."""
+    key, so no NTT mod the full Q is needed. The arithmetic runs on
+    `device` in int64 (values < Q < 2^54, residues < 2^28), a few rounds at
+    a time: on a card, the host does no more than copy the key there."""
     n, _, d2, _, N = bsk_coeff.shape
-    b = np.asarray(bsk_coeff, dtype=np.uint64)
-    out = np.empty((n, 8 * d2, N), dtype=np.uint32)
-    for lane, qi in enumerate((q1, q2)):
-        bh = ref_ntt.forward(b % np.uint64(qi), qi)[..., schedule(N, qi)["bitrev"]]
-        bh = np.swapaxes(bh, 2, 3).reshape(n, 4 * d2, N)     # [n, key*out*d2, N]
-        out[:, lane * 4 * d2:(lane + 1) * 4 * d2] = (bh << np.uint64(32)) // np.uint64(qi)
-    return torch.from_numpy(out.view(np.int32))
+    out = torch.empty((n, 8 * d2, N), dtype=torch.int32, device=device)
+    step = max(1, (1 << 24) // (4 * d2 * N))             # rounds a chunk
+    for r in range(0, n, step):
+        chunk = np.ascontiguousarray(bsk_coeff[r:r + step], dtype=np.uint64)
+        b = torch.from_numpy(chunk.view(np.int64)).to(device)
+        for lane, qi in enumerate((q1, q2)):
+            bh = forward(b % qi, qi).transpose(2, 3).reshape(-1, 4 * d2, N)
+            sh = (bh << 32) // qi                          # the u32 companion
+            out[r:r + step, lane * 4 * d2:(lane + 1) * 4 * d2] = torch.where(
+                sh >= 1 << 31, sh - (1 << 32), sh).to(torch.int32)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,10 +72,11 @@ def _kernel():
     return fn
 
 
-def max_active_clusters() -> int:
-    """The most two-block clusters of the N = 4096 kernel that the current
-    CUDA device runs at once (cudaOccupancyMaxActiveClusters)."""
-    return _build.max_active_clusters("blind_rotate_rns")
+def max_active_clusters(N: int) -> int:
+    """The most clusters of the ring-N kernel (two blocks at N = 4096, four
+    at 8192) that the current CUDA device runs at once
+    (cudaOccupancyMaxActiveClusters)."""
+    return _build.max_active_clusters("blind_rotate_rns", N)
 
 
 def check_params(N: int, d2: int, q1: int, q2: int, base_g: int) -> None:
