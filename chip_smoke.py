@@ -353,11 +353,12 @@ def rotate64_cases() -> dict:
     STD128Q and STD256 sharing their rows' shapes; the reference's 54-bit
     prime at the accelerated sets' bases (2^18, d2 = 4, and 2^27, d2 = 2,
     throw 1); the same two at N = 4096 and its prime ntt_prime(54, 8192)
-    (the cluster layout; base 2^27 keeps one digit a round); and the
-    smaller rings at 54-bit primes: N = 256 as the accelerated sets' 2^18,
-    N = 512 at base 2^27 with no throw, N = 1024 at base 2^9 with four kept
-    digits and two thrown, and N = 512 at base 2 (a 40-bit prime, 36 digits
-    thrown)."""
+    (the cluster layout; base 2^27 keeps one digit a round) and at N = 8192
+    and ntt_prime(54, 16384) (the four-block layout), with base 2^9 and
+    three kept digits, none thrown, beside them; and the smaller rings at
+    54-bit primes: N = 256 as the accelerated sets' 2^18, N = 512 at base
+    2^27 with no throw, N = 1024 at base 2^9 with four kept digits and two
+    thrown, and N = 512 at base 2 (a 40-bit prime, 36 digits thrown)."""
     from tfhe_tpu_torch import ParamSet, from_param_set
     from tfhe_tpu_torch.utils.numtheory import ntt_prime
 
@@ -372,6 +373,10 @@ def rotate64_cases() -> dict:
     q54_4k = ntt_prime(54, 2 * RING_N)
     cases["N=4096, Q54, base 2^18"] = (RING_N, q54_4k, 1 << 18, 4, 1)
     cases["N=4096, Q54, base 2^27"] = (RING_N, q54_4k, 1 << 27, 2, 1)
+    q54_8k = ntt_prime(54, 2 * RING8192_N)
+    cases["N=8192, Q54, base 2^18"] = (RING8192_N, q54_8k, 1 << 18, 4, 1)
+    cases["N=8192, Q54, base 2^27"] = (RING8192_N, q54_8k, 1 << 27, 2, 1)
+    cases["N=8192, Q54, base 2^9"] = (RING8192_N, q54_8k, 1 << 9, 6, 0)
     cases["N=256, Q54, base 2^18"] = (256, ntt_prime(54, 2 * 256), 1 << 18, 4, 1)
     cases["N=512, Q54, base 2^27"] = (512, ntt_prime(54, 2 * 512), 1 << 27, 2, 0)
     cases["N=1024, Q54, base 2^9"] = (1024, ntt_prime(54, 2 * 1024), 1 << 9, 8, 2)
@@ -597,13 +602,22 @@ def rns_kernel_vs_plain(rng, q1: int, q2: int, peak: float) -> dict:
 
 
 def rotate64_key(rng, Q: int, d2: int, n: int, N: int):
-    """A random key in pack_bsk64's layout on the card: valid companions of
-    random values < Q."""
+    """A random key in pack_bsk64's layout [n, 4 d2, N] int64, drawn on the
+    card from a seed taken of `rng`: valid companions of random values < Q
+    (`modmath.shoup64_tensor`; the host's long division would take
+    seconds over the full shapes at N = 4096 and 8192)."""
     import torch
 
-    from tfhe_tpu_torch.ops.modmath import shoup64
+    from tfhe_tpu_torch.ops.modmath import shoup64_tensor
 
-    return torch.from_numpy(shoup64(rng.integers(0, Q, (n, 4 * d2, N)), Q)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 62)))
+    out = torch.empty((n, 4 * d2, N), dtype=torch.int64, device="cuda")
+    step = max(1, (1 << 26) // (4 * d2 * N))
+    for r in range(0, n, step):
+        vals = torch.randint(0, Q, (min(step, n - r), 4 * d2, N), generator=gen,
+                             device="cuda", dtype=torch.int64)
+        out[r:r + step] = shoup64_tensor(vals, Q)
+    return out
 
 
 def fewer_digits(key, d2: int):
@@ -668,15 +682,15 @@ def rotate64_case(rng, peak: float, label: str, N: int, Q: int, base_g: int, d2:
 
 def rotate64_kernel_vs_plain(rng, peak: float) -> tuple[dict, dict]:
     """blind_rotate64 against its plain version on the card with tolerance
-    0 (`rotate64_case`): every case of `rotate64_cases` at B = 64 over 16
-    rounds; then the main paths' own shapes, all rounds: STD128Q at
-    B = GATE_BATCH, n = 1024 (the NAND), set beside EARLIER_R64_MS and
-    returned for the kernels line, and the 54-bit prime at B = SIGN64_BATCH,
-    n = 1305, d2 = 4 and d2 = 2 (EvalSign); there the plain version runs on
-    ROWS and the last row of the same inputs (its time over the whole batch
-    would be minutes). Last, the kernel alone at the 54-bit prime,
-    B = GATE_BATCH, n = 1305, d2 = 4. Returns (the kernels line's numbers,
-    the main shapes' timings)."""
+    0 (`rotate64_case`): every case of `rotate64_cases` below N = 8192
+    (those run in `ring8192_r64_kernels`) at B = 64 over 16 rounds; then the
+    main paths' own shapes, all rounds: STD128Q at B = GATE_BATCH, n = 1024
+    (the NAND), set beside EARLIER_R64_MS and returned for the kernels line,
+    and the 54-bit prime at B = SIGN64_BATCH, n = 1305, d2 = 4 and d2 = 2
+    (EvalSign); there the plain version runs on ROWS and the last row of the
+    same inputs (its time over the whole batch would be minutes). Last, the
+    kernel alone at the 54-bit prime, B = GATE_BATCH, n = 1305, d2 = 4.
+    Returns (the kernels line's numbers, the main shapes' timings)."""
     import numpy as np
     import torch
 
@@ -691,8 +705,9 @@ def rotate64_kernel_vs_plain(rng, peak: float) -> tuple[dict, dict]:
         worst = max(worst, out["max_abs_err"])
         return out
 
-    for name in cases:
-        case(name, 64, 16)
+    for name, (N, *_) in cases.items():
+        if N < RING8192_N:
+            case(name, 64, 16)
     shapes = {}
     N, Q, base_g, d2, throw = cases["Q54, base 2^18"]
     key = rotate64_key(rng, Q, d2, LWE_N_ACC, N)
@@ -1244,7 +1259,7 @@ def ring4096_kernels(rng, q1: int, q2: int, Q: int, peak: float) -> dict:
     gate = {"d2=10": gate_rows_case(rng, Q, peak, RING_BATCH, LWE_N_ACC, RING_N, 10,
                                     1 << 5, 1, RING_ROWS)}
 
-    clusters = rotate64_kernel.max_active_clusters()
+    clusters = rotate64_kernel.max_active_clusters(RING_N)
     log(f"blind_rotate64 at N={RING_N}: one ciphertext on a cluster of two blocks of "
         f"{RING_N // 8} threads, 32 N = {32 * RING_N // 1024} KB of shared memory each; "
         f"the card holds {clusters} such clusters at once (cudaOccupancyMaxActiveClusters)")
@@ -1426,39 +1441,40 @@ def ring_path(state: dict, card: str) -> dict:
     return timing
 
 
-def ring4096_single_prime(rng, card: str, shared: dict) -> dict:
-    """The single-prime path at N = 4096 on the card: the STD128
-    accelerated sets `from_gpu_style(STD128, ..., N=4096,
-    rns_modulus=False)` (n = 1305, Q = ntt_prime(54, 8192), qKS = 2^35,
-    baseKS = 32, one digit thrown) on the LWE secret, ring secret and
-    seeded switching key of the N = 4096 RNS contexts (`shared`; the key's A
-    block is already drawn for the host oracle), so that only the
-    bootstrapping keys of bases 2^18 and 2^27 are made. EvalSign (a first and a warm call) and
-    EvalDecomp on the sign context (logQ 17, bases 2^18 and 2^27), EvalFunc
-    (the cube LUT) on the func context (logQ 12, arbFunc), at batch
-    PRIME_BATCH: every output decrypts right, the first RING_HEAD of
-    EvalSign and EvalFunc equal the host oracle bit for bit. Each call's
-    wall time and blind_rotate64's launches and device seconds in it are
-    logged; returns them with the keygen, oracle and set-up seconds and the
-    peak device memory."""
+def ring_single_prime(rng, card: str, shared: dict, N: int) -> dict:
+    """The single-prime path at ring N (4096 or 8192) on the card: the STD128
+    accelerated sets `from_gpu_style(STD128, ..., N=N, rns_modulus=False)`
+    (n = 1305, Q = ntt_prime(54, 2N), qKS = 2^35, baseKS = 32, one digit
+    thrown) on the LWE secret, ring secret and seeded switching key of the
+    RNS contexts at that ring (`shared`; the key's A block is already drawn
+    for the host oracle), so that only the bootstrapping keys of bases 2^18
+    and 2^27 are made. EvalSign (a first and a warm call) and EvalDecomp on
+    the sign context (logQ 17, bases 2^18 and 2^27), EvalFunc (the cube LUT)
+    on the func context (logQ 12, arbFunc), at batch PRIME_BATCH: every
+    output decrypts right, the first RING_HEAD of EvalSign and EvalFunc
+    equal the host oracle bit for bit. Each call's wall time and
+    blind_rotate64's launches and device seconds in it are logged; returns
+    them with the keygen, oracle and set-up seconds and the peak device
+    memory."""
     import numpy as np
     import torch
 
     from tfhe_tpu_torch import ParamSet, TorchBackend
     from tfhe_tpu_torch.ops import backend as backend_mod
+    from tfhe_tpu_torch.utils.numtheory import ntt_prime
 
     sign_cc, func_cc, sk, keygen_s = accelerated_contexts(
-        ParamSet.STD128, rns_modulus=False, seeded=True, N=RING_N, shared=shared)
+        ParamSet.STD128, rns_modulus=False, seeded=True, N=N, shared=shared)
     p = sign_cc.params
-    check(p.lwe.N == RING_N and p.rgsw.rns_primes is None
+    check(p.lwe.N == N and p.lwe.Q == ntt_prime(54, 2 * N) and p.rgsw.rns_primes is None
           and all(TorchBackend._path(cc.params) == "two_limb" for cc in (sign_cc, func_cc))
           and func_cc.bt_key.ksk is sign_cc.bt_key.ksk is shared["ksk"],
-          f"the N = {RING_N} single-prime contexts are not two-limb sets on the shared keys")
-    log(f"N={RING_N} accelerated STD128, one prime: n={p.lwe.n} Q={p.lwe.Q} qKS=2^35 "
+          f"the N = {N} single-prime contexts are not two-limb sets on the shared keys")
+    log(f"N={N} accelerated STD128, one prime: n={p.lwe.n} Q={p.lwe.Q} qKS=2^35 "
         f"baseKS={p.lwe.base_ks}; keygen (bootstrapping keys for bases 2^18 and 2^27, the "
         f"func context on the 2^27 one, on the RNS contexts' secrets and seeded switching "
         f"key) {keygen_s:.1f} s")
-    timing = {"card": card, "N": RING_N, "batch": PRIME_BATCH, "Q": p.lwe.Q,
+    timing = {"card": card, "N": N, "batch": PRIME_BATCH, "Q": p.lwe.Q,
               "keygen_s": keygen_s}
 
     B, h = PRIME_BATCH, RING_HEAD
@@ -1471,7 +1487,7 @@ def ring4096_single_prime(rng, card: str, shared: dict) -> dict:
     ref = {"EvalSign": sign_cc.eval_sign(head(ct_s, h)),
            "EvalFunc": func_cc.eval_func(head(ct_f, h), lut)}
     timing["oracle_s"] = time.time() - t0
-    log(f"host oracle EvalSign and EvalFunc on the first {h} of each "
+    log(f"N={N} single-prime host oracle EvalSign and EvalFunc on the first {h} of each "
         f"{timing['oracle_s']:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
@@ -1480,7 +1496,8 @@ def ring4096_single_prime(rng, card: str, shared: dict) -> dict:
         cc.device_setup("cuda")
     torch.cuda.synchronize()
     timing["device_setup_s"] = time.time() - t0
-    log(f"device_setup of both contexts (pack_bsk64, the shared switching table) "
+    log(f"N={N} single-prime device_setup of both contexts (pack_bsk64 on the card, the "
+        f"shared switching table) "
         f"{timing['device_setup_s']:.1f} s, device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     sign_ok = lambda out: np.array_equal(sign_cc.decrypt(sk, out, 2),  # noqa: E731
@@ -1503,22 +1520,22 @@ def ring4096_single_prime(rng, card: str, shared: dict) -> dict:
             wall = time.time() - t0
             kernel_s = clock.ms() / 1e3
         check(sign_cc.backend.device.type == "cuda" and func_cc.backend.device.type == "cuda",
-              f"N={RING_N} single-prime {name} is not on the card")
-        check(ok(out), f"N={RING_N} single-prime {name} decryption at B={B}")
+              f"N={N} single-prime {name} is not on the card")
+        check(ok(out), f"N={N} single-prime {name} decryption at B={B}")
         if name in ref:
-            check(same(head(out, h), ref[name]), f"N={RING_N} single-prime {name}: the first "
+            check(same(head(out, h), ref[name]), f"N={N} single-prime {name}: the first "
                   f"{h} outputs differ from the host oracle")
         key = f"{name}_{call}"
         timing[f"{key}_ms_per_ct"] = wall / B * 1e3
         timing[f"{key}_kernel_s"] = kernel_s
         timing[f"{key}_launches"] = len(clock.events)
-        log(f"N={RING_N} single-prime {name} B={B} {call} call: all decrypt right"
+        log(f"N={N} single-prime {name} B={B} {call} call: all decrypt right"
             f"{f', the first {h} equal the host oracle bit for bit' if name in ref else ''}; "
             f"wall {wall:.4f} s = {wall / B * 1e3:.4f} ms/ciphertext; blind_rotate64 "
             f"{kernel_s:.4f} s in {len(clock.events)} launches; outside it (wall - kernel) "
             f"{wall - kernel_s:.4f} s ({100 * (wall - kernel_s) / wall:.1f}%) on {card}")
     timing["peak_device_GiB"] = torch.cuda.max_memory_allocated() / 2**30
-    log(f"N={RING_N} single-prime peak device memory {timing['peak_device_GiB']:.2f} GiB")
+    log(f"N={N} single-prime peak device memory {timing['peak_device_GiB']:.2f} GiB")
     return timing
 
 
@@ -1582,6 +1599,40 @@ def ring8192_rns_kernels(rng, peak: float) -> dict:
     for d2 in (4, 2):
         out[f"d2={d2}"] = rns_case(rng, q1, q2, peak, RING8192_BATCH, LWE_N_ACC, d2, N,
                                    rows=RING_ROWS)
+    return out
+
+
+def ring8192_r64_kernels(rng, peak: float) -> dict:
+    """blind_rotate64 at N = 8192 (a cluster of four blocks of 512 threads
+    a ciphertext, two a polynomial) against its plain version on the card
+    at the single prime there, ntt_prime(54, 16384), with tolerance 0
+    (`rotate64_case`): every N = 8192 case of `rotate64_cases` (bases 2^18
+    and 2^27 with one digit thrown, 2^9 with three kept digits and none) at
+    B = 5 over 8 rounds, rows 0, 1 and 2 of the exponents 0, N and 2N - 1;
+    then the path's shapes, B = RING8192_BATCH, n = LWE_N_ACC, one digit
+    thrown, d2 = 4 (base 2^18) and d2 = 2 (base 2^27), on one card-drawn
+    key, the plain version on RING_ROWS and the last row. Logs the card's
+    resident clusters and ptxas's registers and spills; returns the full
+    shapes' timings."""
+    from tfhe_tpu_torch.ops import rotate64_kernel
+
+    N = RING8192_N
+    cases = {k: v for k, v in rotate64_cases().items() if v[0] == N}
+    clusters = rotate64_kernel.max_active_clusters(N)
+    resources = kernel_resources("blind_rotate64", 13)
+    log(f"blind_rotate64 at N={N}: one ciphertext on a cluster of four blocks of {N // 16} "
+        f"threads, two a polynomial, 24 N = {24 * N // 1024} KB of shared memory each; "
+        f"ptxas: {resources}; the card holds {clusters} such clusters at once "
+        f"(cudaOccupancyMaxActiveClusters)")
+    for name, case in cases.items():
+        rotate64_case(rng, peak, name, *case, 5, 8)
+    out = {"max_active_clusters": clusters, "ptxas": resources}
+    _, Q, _, _, throw = cases["N=8192, Q54, base 2^18"]
+    key = rotate64_key(rng, Q, 4, LWE_N_ACC, N)
+    for d2, base_log in ((4, 18), (2, 27)):
+        out[f"d2={d2}"] = rotate64_case(rng, peak, f"N={N}, Q54, base 2^{base_log}", N, Q,
+                                        1 << base_log, d2, throw, RING8192_BATCH, LWE_N_ACC,
+                                        RING_ROWS, fewer_digits(key, d2))
     return out
 
 
@@ -3074,7 +3125,7 @@ def main() -> int:
     # key (blind_rotate64 as two-block clusters), counts read just after
     reset_counts()
     t0 = time.time()
-    prime4k_timing = ring4096_single_prime(rng, card, shared)
+    prime4k_timing = ring_single_prime(rng, card, shared, RING_N)
     prime4k_launches = rotate64_kernel.LAUNCHES
     check(prime4k_launches > 0, "the N = 4096 single-prime path did not launch blind_rotate64")
     del shared
@@ -3117,11 +3168,27 @@ def main() -> int:
     rns8k_timing = ring_path(ring8192_rns_contexts(rng, shared), card)
     rns8k_launches = rotate_rns_kernel.LAUNCHES
     check(rns8k_launches > 0, "the N = 8192 RNS path did not launch blind_rotate_rns")
-    del shared
     torch.cuda.empty_cache()
     rns8k_timing["phase_s"] = time.time() - t0
     log(f"N={RING8192_N} RNS phase: blind_rotate_rns launches {rns8k_launches} "
         f"({rns8k_timing['phase_s']:.1f} s)")
+
+    # the single 54-bit prime at N = 8192 on the same secrets and switching
+    # key: blind_rotate64 (a cluster of four blocks a ciphertext) against its
+    # plain version, then EvalSign, EvalDecomp and EvalFunc through the
+    # contexts, counts read just after the contexts' run
+    t0 = time.time()
+    r64_8k_kernels = ring8192_r64_kernels(rng, peak)
+    log(f"N={RING8192_N} blind_rotate64 against its plain version: {time.time() - t0:.1f} s")
+    reset_counts()
+    prime8k_timing = ring_single_prime(rng, card, shared, RING8192_N)
+    prime8k_launches = rotate64_kernel.LAUNCHES
+    check(prime8k_launches > 0, "the N = 8192 single-prime path did not launch blind_rotate64")
+    del shared
+    torch.cuda.empty_cache()
+    prime8k_timing["phase_s"] = time.time() - t0
+    log(f"N={RING8192_N} single-prime phase: blind_rotate64 launches {prime8k_launches} "
+        f"({prime8k_timing['phase_s']:.1f} s)")
 
     # CiphertextMulMatrix and the DM accumulator: torch ops, no hand kernel
     t0 = time.time()
@@ -3167,7 +3234,8 @@ def main() -> int:
                       "bgv": bgv_timing, "bfv": bfv_timing, "serial": serial_timing,
                       "mesh": mesh_timing, "ring4096": ring_timing,
                       "ring4096_single_prime": prime4k_timing, "ring8192": ring8k_timing,
-                      "ring8192_rns": rns8k_timing, "total_s": time.time() - t_start}),
+                      "ring8192_rns": rns8k_timing, "ring8192_single_prime": prime8k_timing,
+                      "total_s": time.time() - t_start}),
           flush=True)
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
@@ -3187,8 +3255,10 @@ def main() -> int:
         {"name": "blind_rotate64", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate64.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate64.py:324",
-         "launches": nand_launches + prime_launches + mesh_launches[2] + prime4k_launches,
-         **r64_timing, "ring4096": ring_kernels["blind_rotate64"], "library_ms": None},
+         "launches": (nand_launches + prime_launches + mesh_launches[2] + prime4k_launches
+                      + prime8k_launches),
+         **r64_timing, "ring4096": ring_kernels["blind_rotate64"], "ring8192": r64_8k_kernels,
+         "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

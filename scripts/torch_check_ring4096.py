@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """The N = 4096 kernels alone, on one GPU (about a minute of command), or
-the RNS and gate kernels at N = 8192 (`--ring 8192`, about two and a half
-minutes; `--ring 8192 --rns-only`, the RNS kernel alone).
+the three kernels at N = 8192 (`--ring 8192`, about three and a half
+minutes; `--ring 8192 --rns-only`, the RNS kernel alone; `--ring 8192
+--r64-only`, the 64-bit kernel alone, about a minute).
 
-    python3 scripts/torch_check_ring4096.py [--ring 8192 [--rns-only]]
+    python3 scripts/torch_check_ring4096.py [--ring 8192 [--rns-only | --r64-only]]
 
 Builds the three kernels (`_build.build`, one nvcc per source), prints what
 ptxas says of every instantiation's registers and spills (nothing when the
@@ -29,13 +30,20 @@ d2 4 and 2, B = 64, then at B = 1024, n = 1305, d2 = 4 and 2 on a head of
 rows, with ptxas's registers and spills and the resident clusters) and
 beside it the RNS kernel's main shapes below N = 8192 (B = 4096, n = 1305,
 N = 2048, d2 = 4; B = 1024, N = 4096, d2 = 4 and 2); then
+`chip_smoke.ring8192_r64_kernels` (`blind_rotate64` as a four-block cluster
+at every N = 8192 case of `chip_smoke.rotate64_cases`, B = 5, then at
+B = 1024, n = 1305, d2 = 4 and 2 on a head of rows, with ptxas's registers
+and spills and the resident clusters) and beside it the 64-bit kernel's
+main shapes below N = 8192 (STD128Q at B = 4096, n = 1024; the 54-bit
+prime at B = 1024, n = 1305, d2 = 4 and 2, at N = 2048 and 4096); then
 `chip_smoke.ring8192_kernels` (`blind_rotate` as a two-block cluster at
 every N = 8192 case of `chip_smoke.gate_cases`, B = 5, then at B = 1024,
 n = 1305, d2 = 10 and 12 on a head of rows) and beside it the gate
 kernel's main shapes below N = 8192: STD128 (B = 4096, n = 512, d2 = 8),
 mixed logQ = 11 (B = 4096, n = 1305, N = 1024, d2 = 10) and N = 4096
 (B = 1024, n = 1305, d2 = 10), the plain versions on one row and the last.
-With `--rns-only`, only the RNS kernel's part (about a minute).
+With `--rns-only`, only the RNS kernel's part (about a minute); with
+`--r64-only`, only the 64-bit kernel's.
 """
 
 from __future__ import annotations
@@ -77,15 +85,28 @@ def main() -> int:
     peak = cs.int32_peak_per_s()
     rng = np.random.default_rng(cs.SEED)
     if ring == cs.RING8192_N:
-        q1, q2 = from_gpu_style(ParamSet.STD128, True, 12, N=cs.RING_N).rgsw.rns_primes
-        out = {"rns_ring8192": cs.ring8192_rns_kernels(rng, peak),
-               "rns_N2048": cs.rns_case(rng, *from_gpu_style(ParamSet.STD128, True, 12)
-                                        .rgsw.rns_primes, peak, cs.FUNC_BATCH,
-                                        cs.LWE_N_ACC, 4, rows=[0])}
-        for d2 in (4, 2):
-            out[f"rns_N4096_d2={d2}"] = cs.rns_case(rng, q1, q2, peak, cs.RING_BATCH,
-                                                   cs.LWE_N_ACC, d2, cs.RING_N, rows=[0])
-        if "--rns-only" in sys.argv:
+        out = {}
+        if "--r64-only" not in sys.argv:
+            q1, q2 = from_gpu_style(ParamSet.STD128, True, 12, N=cs.RING_N).rgsw.rns_primes
+            out["rns_ring8192"] = cs.ring8192_rns_kernels(rng, peak)
+            out["rns_N2048"] = cs.rns_case(rng, *from_gpu_style(ParamSet.STD128, True, 12)
+                                           .rgsw.rns_primes, peak, cs.FUNC_BATCH,
+                                           cs.LWE_N_ACC, 4, rows=[0])
+            for d2 in (4, 2):
+                out[f"rns_N4096_d2={d2}"] = cs.rns_case(rng, q1, q2, peak, cs.RING_BATCH,
+                                                       cs.LWE_N_ACC, d2, cs.RING_N, rows=[0])
+            if "--rns-only" in sys.argv:
+                print(json.dumps(out), flush=True)
+                return 0
+        out["r64_ring8192"] = cs.ring8192_r64_kernels(rng, peak)
+        cases = cs.rotate64_cases()
+        for name, B in (("STD128Q", cs.GATE_BATCH), ("Q54, base 2^18", cs.SIGN64_BATCH),
+                        ("Q54, base 2^27", cs.SIGN64_BATCH),
+                        ("N=4096, Q54, base 2^18", cs.RING_BATCH),
+                        ("N=4096, Q54, base 2^27", cs.RING_BATCH)):
+            n = 1024 if name == "STD128Q" else cs.LWE_N_ACC
+            out[f"r64 {name}"] = cs.rotate64_case(rng, peak, name, *cases[name], B, n, [0])
+        if "--r64-only" in sys.argv:
             print(json.dumps(out), flush=True)
             return 0
         out["ring8192"] = cs.ring8192_kernels(rng, peak)

@@ -34,7 +34,9 @@ from `csrc/register_ntt64.cuh`; the difference over 8), and writes the
 kernel's SASS and its opcode counts to `chiprun_out/blind_rotate64.sass`;
 then runs `chip_smoke.rotate64_kernel_vs_plain`: the kernel held to its
 plain version (`torch.equal`) in every case of `chip_smoke.rotate64_cases`
-(B = 64, n = 16; N = 4096 among them), and at the main paths' shapes
+below N = 8192 (B = 64, n = 16; N = 4096 among them; the N = 8192 cases
+run in `scripts/torch_check_ring4096.py --ring 8192 --r64-only`), and at
+the main paths' shapes
 (STD128Q B = 4096, n = 1024; the 54-bit prime B = 1024, n = 1305, d2 = 4
 and 2; on 33 rows), each timed with CUDA events against
 `chip_smoke.bound`, on random keys, without keygen. Prints one JSON line.

@@ -163,13 +163,27 @@ def test_ring8192_rns_params_are_supported(param_set, log_q, arb):
     assert TorchBackend.supports(params) and TorchBackend._path(params) == "rns"
 
 
+@pytest.mark.parametrize("param_set", [params_mod.ParamSet.TOY, params_mod.ParamSet.STD128],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("log_q,arb", [(12, True), (17, False), (23, False)],
+                         ids=["logQ12-N8192", "logQ17-N8192", "logQ23-N8192"])
+def test_ring8192_two_limb_params_are_supported(param_set, log_q, arb):
+    """N = 8192 at the reference's single 54-bit prime: the accelerated
+    sets on the two-limb path (blind_rotate64 as a cluster of four
+    blocks)."""
+    params = params_mod.from_gpu_style(param_set, arb, log_q, N=8192, rns_modulus=False)
+    assert params.rgsw.N == 8192 and params.rgsw.rns_primes is None
+    assert params.lwe.Q == 18014398508400641          # ntt_prime(54, 16384)
+    assert TorchBackend.supports(params) and TorchBackend._path(params) == "two_limb"
+
+
 @pytest.mark.parametrize("params", [
     params_mod.from_param_set(params_mod.ParamSet.STD192, params_mod.Method.AP),
-    params_mod.from_gpu_style(params_mod.ParamSet.TOY, False, 17, N=8192,
-                              rns_modulus=False),                         # two-limb, N = 8192
+    params_mod.from_gpu_style(params_mod.ParamSet.TOY, False, 17, N=16384,
+                              rns_modulus=False),                         # two-limb, N = 16384
     params_mod.from_gpu_style(params_mod.ParamSet.TOY, True, 12, N=16384),  # RNS, N = 16384
     params_mod.from_param_set(params_mod.ParamSet.STD128Q, params_mod.Method.AP),
-], ids=["std192-AP", "two-limb-N8192", "logQ12-N16384", "std128q-AP"])
+], ids=["std192-AP", "two-limb-N16384", "logQ12-N16384", "std128q-AP"])
 def test_unsupported_params_raise(params):
     be = TorchBackend("cpu")
     assert not be.supports(params)

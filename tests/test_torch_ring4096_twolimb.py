@@ -128,10 +128,11 @@ def test_plain_rotate64_matches_pallas_and_xla(throw):
     a_idx[0] = [0, 2 * N - 1]
     a_idx[1] = [N, 1]
     d2 = 2 * (DIGITS - throw)
-    bsk_hat = ref_ntt.forward(rng.integers(0, Q54, (n, 2, d2, 2, N)).astype(np.uint64), Q54)
+    bsk_coeff = rng.integers(0, Q54, (n, 2, d2, 2, N)).astype(np.uint64)
+    bsk_hat = ref_ntt.forward(bsk_coeff, Q54)
     got = rotate64_kernel.rotate64(
         torch.from_numpy(acc.astype(np.int64)), torch.from_numpy(a_idx),
-        rotate64_kernel.pack_bsk64(bsk_hat, Q54), Q54, BASE_G, throw)
+        rotate64_kernel.pack_bsk64(bsk_coeff, Q54), Q54, BASE_G, throw)
     alo, ahi = mm64.pack_host(acc)
     if throw:
         pfn = pr64.build_pallas_rotate64(N, Q54, BASE_G, DIGITS - throw, throw, n, BT=2, bt=2)

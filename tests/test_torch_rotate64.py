@@ -24,6 +24,7 @@ from tfhe_tpu.ref import ntt as ref_ntt
 from tfhe_tpu.utils.numtheory import ntt_prime
 from tfhe_tpu_torch.ops import keyswitch, ntt, rotate64_kernel
 from tfhe_tpu_torch.ops import modmath as mm
+from tfhe_tpu_torch.ops.ntt_sched import schedule
 from torch_threads import one_torch_thread  # noqa: F401
 
 Q54 = ntt_prime(54, 4096)                       # the reference's 54-bit prime
@@ -115,7 +116,7 @@ def test_ntt64_matches_reference_and_roundtrips(N, Q):
     x = rng.integers(0, Q, (5, N)).astype(np.uint64)
     x[0, :2] = [0, Q - 1]
     got = ntt.forward(torch.from_numpy(x.astype(np.int64)), Q)
-    bitrev = rotate64_kernel.schedule(N, Q)["bitrev"]
+    bitrev = schedule(N, Q)["bitrev"]
     assert np.array_equal(got.numpy()[..., bitrev], ref_ntt.forward(x, Q).astype(np.int64))
     assert np.array_equal(ntt.inverse(got, Q).numpy(), x.astype(np.int64))
 
@@ -127,18 +128,20 @@ BASE_G, DIGITS = 1 << 20, 3
 
 
 def rotation_case(throw):
+    """acc, a_idx, the key in the coefficient domain (as the port packs it)
+    and its host NTT mod QR (as the JAX package's packers take it)."""
     rng = np.random.default_rng(5)
     acc = rng.integers(0, QR, (B, 2, N)).astype(np.uint64)
     a_idx = rng.integers(0, 2 * N, (B, n)).astype(np.int32)
     d2 = 2 * (DIGITS - throw)
-    bsk_hat = ref_ntt.forward(rng.integers(0, QR, (n, 2, d2, 2, N)).astype(np.uint64), QR)
-    return acc, a_idx, bsk_hat
+    bsk_coeff = rng.integers(0, QR, (n, 2, d2, 2, N)).astype(np.uint64)
+    return acc, a_idx, bsk_coeff, ref_ntt.forward(bsk_coeff, QR)
 
 
-def port_rotate64(acc, a_idx, bsk_hat, throw):
+def port_rotate64(acc, a_idx, bsk_coeff, throw):
     out = rotate64_kernel.rotate64(
         torch.from_numpy(acc.astype(np.int64)), torch.from_numpy(a_idx),
-        rotate64_kernel.pack_bsk64(bsk_hat, QR), QR, BASE_G, throw)
+        rotate64_kernel.pack_bsk64(bsk_coeff, QR), QR, BASE_G, throw)
     return out.numpy().astype(np.uint64)
 
 
@@ -147,9 +150,9 @@ def test_rotate64_matches_pallas_and_xla(throw):
     """throw 0 against the XLA rotation, throw 1 against the Pallas kernel
     in interpret mode: tests/test_pallas.py holds the two equal to each
     other on these same inputs at both throws, so each case covers both."""
-    acc, a_idx, bsk_hat = rotation_case(throw)
+    acc, a_idx, bsk_coeff, bsk_hat = rotation_case(throw)
     alo, ahi = mm64.pack_host(acc)
-    got = port_rotate64(acc, a_idx, bsk_hat, throw)
+    got = port_rotate64(acc, a_idx, bsk_coeff, throw)
     if throw:
         pfn = pr64.build_pallas_rotate64(N, QR, BASE_G, DIGITS - throw, throw, n, BT=8, bt=4)
         want = pfn(alo, ahi, a_idx, pr64.pack_bsk64(bsk_hat, QR))
@@ -162,18 +165,37 @@ def test_rotate64_matches_pallas_and_xla(throw):
 @pytest.mark.parametrize("throw", [0, 1])
 def test_pack_bsk64_is_the_pallas_layout(throw):
     """One int64 row per companion where Pallas keeps a lo row, then a hi
-    row 4*d2 rows later."""
-    bsk_hat = rotation_case(throw)[2]
-    got = rotate64_kernel.pack_bsk64(bsk_hat, QR)
+    row 4*d2 rows later: the port's packer, which runs the NTT mod Q and
+    the companions in torch, on the coefficient-domain key equals the JAX
+    package's on its host NTT."""
+    _, _, bsk_coeff, bsk_hat = rotation_case(throw)
+    got = rotate64_kernel.pack_bsk64(bsk_coeff, QR)
     assert got.dtype == torch.int64 and got.is_contiguous()
     want = pr64.pack_bsk64(bsk_hat, QR)
     lo, hi = np.split(want, 2, axis=1)
     assert np.array_equal(got.numpy().view(np.uint64), mm64.unpack_host(lo, hi))
 
 
+def test_pack_bsk64_on_the_cpu_at_n8192_is_the_pallas_layout():
+    """A key packed on the CPU device at N = 8192 and TOY's single prime
+    there (ntt_prime(54, 16384), d2 = 4: base 2^18, one of three digits
+    thrown), two rounds, equals the JAX package's packer; so do the
+    companions alone (`modmath.shoup64_tensor`, 9-bit long division) at the edges."""
+    Q8, N8 = ntt_prime(54, 16384), 8192
+    bsk_coeff = np.random.default_rng(8192).integers(0, Q8, (2, 2, 4, 2, N8)).astype(np.uint64)
+    got = rotate64_kernel.pack_bsk64(bsk_coeff, Q8, device="cpu")
+    assert got.device.type == "cpu" and got.shape == (2, 16, N8)
+    lo, hi = np.split(pr64.pack_bsk64(ref_ntt.forward(bsk_coeff, Q8), Q8), 2, axis=1)
+    assert np.array_equal(got.numpy().view(np.uint64), mm64.unpack_host(lo, hi))
+    b = residues(Q8)
+    want = mm64.unpack_host(*mm64.shoup64(b.view(np.uint64), Q8))
+    assert np.array_equal(mm.shoup64_tensor(torch.from_numpy(b), Q8).numpy(),
+                          want.view(np.int64))
+
+
 def test_rotate64_refuses_other_devices_and_parameters():
-    acc, a_idx, bsk_hat = rotation_case(1)
-    key = rotate64_kernel.pack_bsk64(bsk_hat, QR)
+    acc, a_idx, bsk_coeff, _ = rotation_case(1)
+    key = rotate64_kernel.pack_bsk64(bsk_coeff, QR)
     meta = torch.empty((B, 2, N), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
         rotate64_kernel.rotate64(meta, torch.from_numpy(a_idx), key, QR, BASE_G)
@@ -187,9 +209,9 @@ def test_rotate64_refuses_other_devices_and_parameters():
 
 
 def test_cpu_rotate64_does_not_count_launches():
-    acc, a_idx, bsk_hat = rotation_case(1)
+    acc, a_idx, bsk_coeff, _ = rotation_case(1)
     before = rotate64_kernel.LAUNCHES
-    port_rotate64(acc, a_idx, bsk_hat, 1)
+    port_rotate64(acc, a_idx, bsk_coeff, 1)
     assert rotate64_kernel.LAUNCHES == before
 
 

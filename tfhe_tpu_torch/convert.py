@@ -5,8 +5,8 @@
 key of the gate and mixed slices (host NTT mod Q, `pack_bsk`), the RNS key
 of the accelerated sets (`pack_bsk_rns`, one NTT per prime straight from
 `bsk_coeff`, on the key's device), the 64-bit key of the two-limb sets
-(host NTT mod Q, `pack_bsk64`) and the DM table of the AP sets
-(`pack_dm_table`). The
+(`pack_bsk64`, the NTT mod Q and the companions on the key's device) and
+the DM table of the AP sets (`pack_dm_table`). The
 switching-key table is memoised on the switching-key object, as
 `JaxBackend._packed_ksk` does (551-573): every gadget base of a
 time-optimization map and every context that shares the LWE block share
@@ -61,18 +61,20 @@ def device_key(params: BinFHEParams, key: BTKey, device: torch.device,
     int64 [n, 4*d2, N], or "dm_table": int32 [n*digitsR, baseR, d2, 2, N];
     "ksk": [N*baseKS*dc, n + 1]} on `device`. The CGGI key `bsk_coeff`
     [n, 2, d2, 2, N] goes to the layout of the kernel that `path` names:
-    "rns", one NTT per prime of Q = q1*q2; "gate", "mixed" or "two_limb",
-    the host NTT mod Q. "dm": the DM key [n, baseR, digitsR, d2, 2, N]."""
+    "rns", one NTT per prime of Q = q1*q2, and "two_limb", the NTT mod Q,
+    on `device`; "gate" or "mixed", the host NTT mod Q. "dm": the DM key
+    [n, baseR, digitsR, d2, 2, N]."""
     p = params.lwe
     if path == "dm":
         bsk = {"dm_table": pack_dm_table(key.bsk_coeff, p.Q, device)}
     elif path == "rns":
         q1, q2 = params.rgsw.rns_primes
         bsk = {"bsk_rns": pack_bsk_rns(key.bsk_coeff, q1, q2, device)}
+    elif path == "two_limb":
+        bsk = {"bsk64": pack_bsk64(key.bsk_coeff, p.Q, device)}
     else:
         bsk_hat = ref_ntt.forward(np.asarray(key.bsk_coeff, dtype=np.uint64), p.Q)
-        pack, name = (pack_bsk64, "bsk64") if path == "two_limb" else (pack_bsk, "bsk_pack")
-        bsk = {name: pack(bsk_hat, p.Q).to(device)}
+        bsk = {"bsk_pack": pack_bsk(bsk_hat, p.Q).to(device)}
     return {**bsk, "ksk": switching_table(key.ksk, device)}
 
 

@@ -99,6 +99,68 @@
 // alone would be 0 every round). The kernel ends with a cluster barrier,
 // so that no block leaves while its peer may still read it. N <= 2048 keeps
 // the one-block layout, instantiated unchanged.
+//
+// N = 8192: a cluster of four blocks of 512 threads, two a polynomial. One
+// polynomial at N = 8192 would need N/8 = 1024 threads at 128 registers and
+// 32 N = 256 KB of shared memory, twice what an SM holds, so each polynomial
+// spans two blocks as a residue lane does in blind_rotate_rns.cu at this
+// ring: block rank = 2 poly + half, logical thread t = half * 512 +
+// threadIdx.x of the polynomial's 1024, with the registers and ownership
+// above (coefficient t + k N/8 of polynomial `poly`, group 0 of the register
+// NTT at 13 index bits, C = 12, 9, 6, 3, 2). `half` is bit 9 of j in group 0
+// and bit 12 in groups 1-4, so a block holds the half of each buffer whose
+// owner bit is its half, S = N/2 words a plane (register_ntt64.cuh). Shared
+// memory per block, in words: the inverse's buffer [2][2 planes][S] (with
+// the waiting sums) at 0, the crossing's buffer [2 planes][S] at 4S, the
+// forward's [2 planes][S] at 6S, the inverse's output [2][S] u64 (natural
+// order, word drop_bit9(j)) at 6S, over the forward's buffer and the 2S
+// words after it, and at 10S the remainders of the centred accumulator
+// that the digits are taken from ([8][512] int64, the thread's own: a
+// variant that kept them in registers, as below N = 8192, spilled 8-24
+// bytes at 128 registers): 12 S words = 24 N bytes = 192 KB (of 227). The
+// accumulator stays in registers, so no CRT and no round-end crossing.
+// What crosses, and through which barrier (all cluster barriers):
+// - the forward's exchange of groups 0 -> 1 crosses the polynomial's two
+//   blocks (cluster.cuh's cross_forward on the u64 values as two u32
+//   polynomials, low plane and high plane S words apart: local stores in
+//   the crossing's buffer, a barrier B_l, four ld.shared::cluster words a
+//   plane from each block), the inverse's 1 -> 0 alike (cross_inverse on
+//   the two outputs' four planes in the inverse's buffer, barrier C); the
+//   other exchanges stay in the block;
+// - digit l: the forward's values are stored at the last group's words of
+//   the forward's buffer, a barrier (A_l), then the other polynomial's block
+//   of the same half (rank ^ 2), which owns the same points 8t + k, reads
+//   them; each block reads only its half of the points' key rows;
+// - the output is written, a barrier (E), and read rotated from the
+//   polynomial's block that holds each coefficient (bit 9 of its index),
+//   two ld.shared::cluster a u64.
+// 2 digits + 2 cluster barriers a round, 6 at d2 = 4, 4 at d2 = 2, and one
+// at the kernel's end. The hazards and what guards them:
+// - one forward buffer, no parity: digit l + 1 writes it after B_{l+1},
+//   which rank ^ 2 passes only after its reads of digit l;
+// - one crossing buffer: digit l + 1's crossing is written after A_l,
+//   which the polynomial's other block passes only after its reads of
+//   digit l's; the crossing's buffer is not the forward's, which rank ^ 2
+//   may still read while the crossing is written;
+// - the output over the forward's buffer: written after C, which every
+//   block passes only after its last reads of the forward's values; the
+//   next round writes the forward's buffer only after B_0, which comes
+//   after every block's rotated reads;
+// - the output not over the inverse's buffer, which the polynomial's other
+//   block still reads in the inverse's crossing after C, and not over the
+//   crossing's, which the next round writes before B_0 while the other
+//   block may still read the output rotated;
+// - the sums and the inverse's buffer: the next round writes them after
+//   A_0, and the other block read them before E;
+// - no block leaves while another may read it: the final cluster barrier.
+// The emulation in tests/test_torch_rotate64_merged.py keeps the four
+// blocks' shared memory apart and lets one block run ahead to each cluster
+// barrier: the crossing over the forward's buffer, the output over the
+// inverse's or the crossing's, or a block barrier in place of A_l, B_l, C,
+// E or the final barrier each give a wrong result there.
+// Bound: at B = 1024, n = 1305, N = 8192 the operations bind, 667.546 ms at
+// d2 = 4 and 461.392 ms at d2 = 2 (chip_smoke.bound, 15 multiplies a 64-bit
+// Shoup product).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -110,6 +172,7 @@ namespace {
 
 using dsmem::cluster_rank;
 using dsmem::cluster_sync;
+using dsmem::drop_bit9;
 using dsmem::ld_peer;
 using dsmem::peer_address;
 using rntt64::csub;
@@ -126,61 +189,91 @@ __device__ __forceinline__ int64_t extract(int64_t& d, int g_bits) {
   return r;
 }
 
+// Blocks a ciphertext: one two-half block up to N = 2048, a cluster of two
+// one-polynomial blocks at 4096, of four blocks (two a polynomial, each half
+// of its polynomial's words) at 8192.
+template <int LOGN>
+constexpr int kBlocks = LOGN > 12 ? 4 : LOGN > 11 ? 2 : 1;
+
+template <int LOGN>
+constexpr int kThreads = (1 << LOGN) / (4 * kBlocks<LOGN>);
+
+// The peer block's forward values of the last group, read as `rntt64::load`
+// reads its own: the two u32 planes (S words apart) of the words at cluster
+// address buf.
+template <int LOGN, int S>
+__device__ __forceinline__ void load_peer(u64 (&x)[1][8], uint32_t buf, int t) {
+  constexpr int C = rntt64::Group<LOGN, rntt64::groups<LOGN>() - 1>::C;
+  const int ra = rntt64::swz(rntt64::tpart<C>(t));
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t a = buf + 4 * rntt::word<LOGN, S>(ra ^ rntt64::swz(k << (C - 2)));
+    x[0][k] = u64(ld_peer(a)) | (u64(ld_peer(a + 4 * S)) << 32);
+  }
+}
+
 // acc_in/acc_out: [B][2][N] residues mod Q. bsk: [n][4*d2][N], row
 // (key*2 + out)*d2 + 2l + j, Shoup companions only, points in the forward
 // NTT's order. tw: [2][N][2] u64, the forward and the inverse table of
 // register_ntt64.cuh, each entry beside its companion; forward entry 0 is 1,
-// so its companion floor(2^64 / Q) reduces the lazy sums.
+// so its companion floor(2^64 / Q) reduces the lazy sums. In a cluster,
+// block kBlocks * b + rank of the grid runs ciphertext b: rank = polynomial
+// at N = 4096, rank = 2 poly + half at N = 8192.
 template <int LOGN>
-constexpr bool kCluster = LOGN > 11;
-
-// The peer block's forward values of the last group, read as `rntt64::load`
-// reads its own: the two u32 planes of the words at cluster address buf.
-template <int LOGN>
-__device__ __forceinline__ void load_peer(u64 (&x)[1][8], uint32_t buf, int t) {
-  constexpr int C = rntt64::Group<LOGN, rntt64::groups<LOGN>() - 1>::C;
-  constexpr int N = 1 << LOGN;
-  const int ra = rntt64::swz(rntt64::tpart<C>(t));
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const uint32_t a = buf + 4 * (ra ^ rntt64::swz(k << (C - 2)));
-    x[0][k] = u64(ld_peer(a)) | (u64(ld_peer(a + 4 * N)) << 32);
-  }
-}
-
-// With kCluster, blocks 2b and 2b + 1 of the grid (one cluster) run halves
-// 0 and 1 of ciphertext b.
-template <int LOGN>
-__global__ void __launch_bounds__((1 << LOGN) / (LOGN > 11 ? 8 : 4), 1)
+__global__ void __launch_bounds__(kThreads<LOGN>, 1)
 blind_rotate64_kernel(const u64* __restrict__ acc_in, u64* __restrict__ acc_out,
                       const int32_t* __restrict__ a_idx,
                       const u64* __restrict__ bsk, const u64* __restrict__ tw,
                       int n, u64 Q, int g_bits, int digits, int throw_digits) {
   constexpr int N = 1 << LOGN;
-  constexpr int TG = N / 8;                 // threads per half
+  constexpr int TG = N / 8;                 // threads per polynomial
   constexpr int G = rntt64::groups<LOGN>();
-  constexpr bool CL = kCluster<LOGN>;
+  constexpr bool CL = kBlocks<LOGN> > 1;
+  constexpr bool HALF = kBlocks<LOGN> == 4; // a block holds half of its polynomial's words
+  constexpr int S = HALF ? N / 2 : N;       // words a plane in a block
   extern __shared__ __align__(16) uint32_t smem[];
   // half h owns polynomial h of the accumulator, its digits' forward NTTs
-  // and the outputs ko = h and 2 + h of the external product
+  // and the outputs ko = h and 2 + h of the external product (at N = 8192
+  // the two blocks of polynomial h each hold half of it)
   int h, t;
   size_t b;
-  if constexpr (CL) {
+  int rank = 0;                             // in the cluster (N = 8192)
+  uint32_t peer = 0u;                       // the peer block's shared memory (N = 4096)
+  if constexpr (HALF) {
+    rank = cluster_rank();
+    h = rank >> 1;
+    t = (rank & 1) * (TG / 2) + threadIdx.x;
+    b = blockIdx.x / 4;
+  } else if constexpr (CL) {
     h = cluster_rank();
     t = threadIdx.x;
     b = blockIdx.x / 2;
+    peer = peer_address(smem, h ^ 1);
   } else {
     h = threadIdx.x / TG;
     t = threadIdx.x % TG;
     b = blockIdx.x;
   }
-  const int slot = CL ? 0 : h;                        // the half's place in this block
-  uint32_t* fbuf = smem + 4 * N * slot;               // [2 parities][2 planes][N]
-  const uint32_t* fbuf_other = smem + 4 * N * (1 - h);  // one block only
-  uint32_t* ibuf = smem + (CL ? 4 : 8) * N + 4 * N * slot;  // [2][2 planes][N]
-  u64* out = reinterpret_cast<u64*>(ibuf);            // the inverse's output [2][N]
-  // the peer block's forward buffer (cluster address of its first word)
-  const uint32_t peer = CL ? peer_address(smem, h ^ 1) : 0u;
+  // word offsets of the buffers (the layouts in the note above)
+  constexpr int I_AT = HALF ? 0 : CL ? 4 * N : 8 * N;   // the inverse's
+  constexpr int X_AT = 4 * S;                            // the crossing's (N = 8192)
+  constexpr int F_AT = HALF ? 6 * S : 0;                 // the forward's
+  constexpr int D_AT = 10 * S;                           // the digits' remainders (N = 8192)
+  const int slot = CL ? 0 : h;                           // the half's place in this block
+  uint32_t* fbuf = smem + F_AT + 4 * N * slot;           // [2 parities][2 planes][N];
+                                                         // at N = 8192 [2 planes][S]
+  const uint32_t* fbuf_other = smem + 4 * N * (1 - h);   // one block only
+  uint32_t* ibuf = smem + I_AT + 4 * N * slot;           // [2][2 planes][S]
+  // the inverse's output [2][S] u64: over the inverse's buffer, or at
+  // N = 8192 over the forward's buffer and the words after it
+  u64* out = reinterpret_cast<u64*>(HALF ? smem + F_AT : ibuf);
+
+  // at N = 8192, the cluster address of word w in the other polynomial's
+  // block of this half (rank ^ 2), or in this polynomial's block of half
+  // `half` ((rank & 2) | half), made where it is read (mapa), so that no
+  // register holds one across a round
+  auto other_poly = [&](int w) { return peer_address(smem + w, rank ^ 2); };
+  auto this_poly = [&](int w, int half) { return peer_address(smem + w, (rank & 2) | half); };
 
   const int d2 = 2 * digits;
   const u64* fw = tw;
@@ -204,42 +297,76 @@ blind_rotate64_kernel(const u64* __restrict__ acc_in, u64* __restrict__ acc_out,
 
   // the lazy sums of the digits wait in the half's inverse buffer, among
   // the 256 words per plane that the warp's own first exchange of the
-  // inverse writes: register k of output i at words 32k + (t mod 32) of its
-  // two planes, so one base and constant offsets address all of them
-  uint32_t* sums = ibuf + 8 * (t & ~31) + (t & 31);
+  // inverse writes: register k of output i at words 32k + (wt mod 32) of its
+  // two planes, wt the thread's index among the block's words (t, or at
+  // N = 8192 threadIdx.x), so one base and constant offsets address all of
+  // them
+  const int wt = HALF ? int(threadIdx.x) : t;
+  uint32_t* sums = ibuf + 8 * (wt & ~31) + (wt & 31);
 
   for (int r = 0; r < n; ++r) {
     const u64* key = bsk + ((size_t)r * 4 * d2 + h * d2) * N + 8 * t;
 
     // the accumulator centred, the thrown digits dropped
+    // (at N = 8192 they wait in shared memory between the digits, which
+    // frees 16 registers during the transforms and the product)
     int64_t d[8];
+    auto d_at = [&](int k) -> int64_t& {
+      return reinterpret_cast<int64_t*>(smem + D_AT)[k * (TG / 2) + (fresh(t) & (TG / 2 - 1))];
+    };
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const u64 a = acc[k];
       int64_t v = a < half_q ? int64_t(a) : int64_t(a) - int64_t(Q);
       for (int i = 0; i < throw_digits; ++i) extract(v, g_bits);
-      d[k] = v;
+      if constexpr (HALF)
+        d_at(k) = v;
+      else
+        d[k] = v;
     }
 
     // digit l of polynomial h through the forward NTT into x, and that of
     // polynomial 1 - h from the other half into y: point 8t + k. The values
     // cross through the forward's buffer, at the words of the thread's own
     // last group, which the other half reads after a block-wide barrier (in
-    // a cluster: the peer's buffer, after the cluster's barrier; the parity
-    // counts digits across rounds)
+    // a cluster: the peer's buffer, after the cluster's barrier; at
+    // N = 4096 the parity counts digits across rounds, at 8192 one buffer)
     auto digit_forward = [&](int l, u64 (&x)[1][8], u64 (&y)[1][8]) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        const int64_t rr = extract(d[k], g_bits);
+        int64_t rr;
+        if constexpr (HALF) {
+          int64_t& dk = d_at(k);
+          int64_t v = dk;
+          rr = extract(v, g_bits);
+          dk = v;
+        } else {
+          rr = extract(d[k], g_bits);
+        }
         x[0][k] = rr < 0 ? u64(rr + int64_t(Q)) : u64(rr);
       }
-      const int par = 2 * N * ((CL ? r * digits + l : l) & 1);
-      rntt64::forward<LOGN, 0, 1>(x, fbuf + par, fresh(t), fw, Q);
+      const int par = HALF ? 0 : 2 * N * ((CL ? r * digits + l : l) & 1);
+      if constexpr (HALF) {
+        // group 0 here, its exchange to group 1 across the polynomial's two
+        // blocks, the other groups in this block's half
+        rntt64::fwd_pass<LOGN, 0, 1>(x, fresh(t), fw, Q);
+        uint32_t xs[2][8];
+        rntt64::split(x, xs);
+        const uint32_t x_at[2] = {this_poly(X_AT, 0), this_poly(X_AT, 1)};
+        dsmem::cross_forward(xs, smem + X_AT, x_at, fresh(t));
+        rntt64::join(xs, x);
+        rntt64::forward<LOGN, 1, 1, S>(x, fbuf, fresh(t), fw, Q);
+      } else {
+        rntt64::forward<LOGN, 0, 1>(x, fbuf + par, fresh(t), fw, Q);
+      }
       __syncwarp();
-      rntt64::store<LOGN, G - 1, 1>(x, fbuf + par, t);
-      if constexpr (CL) {
+      rntt64::store<LOGN, G - 1, 1, S>(x, fbuf + par, t);
+      if constexpr (HALF) {
         cluster_sync();
-        load_peer<LOGN>(y, peer + 4 * par, t);
+        load_peer<LOGN, S>(y, other_poly(F_AT), t);
+      } else if constexpr (CL) {
+        cluster_sync();
+        load_peer<LOGN, S>(y, peer + 4 * par, t);
       } else {
         __syncthreads();
         rntt64::load<LOGN, G - 1, 1>(y, fbuf_other + par, t);
@@ -274,10 +401,10 @@ blind_rotate64_kernel(const u64* __restrict__ acc_in, u64* __restrict__ acc_out,
         product(l, i, x[0], y[0], p);
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
-          uint32_t* sp = sums + 2 * i * N + 32 * k;
-          const u64 s = l == 0 ? p[k] : (u64(sp[0]) | (u64(sp[N]) << 32)) + p[k];
+          uint32_t* sp = sums + 2 * i * S + 32 * k;
+          const u64 s = l == 0 ? p[k] : (u64(sp[0]) | (u64(sp[S]) << 32)) + p[k];
           sp[0] = uint32_t(s);
-          sp[N] = uint32_t(s >> 32);
+          sp[S] = uint32_t(s >> 32);
         }
       }
     }
@@ -286,8 +413,8 @@ blind_rotate64_kernel(const u64* __restrict__ acc_in, u64* __restrict__ acc_out,
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        const uint32_t* sp = sums + 2 * i * N + 32 * k;
-        u[i][k] = u64(sp[0]) | (u64(sp[N]) << 32);
+        const uint32_t* sp = sums + 2 * i * S + 32 * k;
+        u[i][k] = u64(sp[0]) | (u64(sp[S]) << 32);
       }
 
     // one Shoup reduction of the lazy sums (< 2^62) to [0, 2Q), then the
@@ -296,29 +423,56 @@ blind_rotate64_kernel(const u64* __restrict__ acc_in, u64* __restrict__ acc_out,
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int k = 0; k < 8; ++k) u[i][k] -= __umul64hi(u[i][k], red_sh) * Q;
-    rntt64::inverse<LOGN, G - 1, 2>(u, ibuf, fresh(t), iw, Q);
+    if constexpr (HALF) {
+      // groups 4 .. 1 in this block's half, the exchange to group 0 across
+      // the polynomial's two blocks (the outputs' four planes)
+      rntt64::inverse<LOGN, G - 1, 2, S, 1>(u, ibuf, fresh(t), iw, Q);
+      uint32_t us[4][8];
+      rntt64::split(u, us);
+      const uint32_t i_at[2] = {this_poly(I_AT, 0), this_poly(I_AT, 1)};
+      dsmem::cross_inverse(us, ibuf, i_at, fresh(t));
+      rntt64::join(us, u);
+      rntt64::inv_pass<LOGN, 0, 2>(u, fresh(t), iw, Q);
+    } else {
+      rntt64::inverse<LOGN, G - 1, 2>(u, ibuf, fresh(t), iw, Q);
+      // the output lies over the inverse's buffer: write it when every
+      // thread has read its last exchange
+      __syncthreads();
+    }
 
     // acc += (X^m_pos - 1) u[0] + (X^m_neg - 1) u[1] (outputs h and 2 + h:
-    // keys +s and -s): write the inverse's output once over its buffer, when
-    // every thread has read its last exchange, and read it rotated
-    __syncthreads();
+    // keys +s and -s): write the inverse's output once and read it rotated
+    // (at N = 8192 from the polynomial's block that holds the coefficient,
+    // bit 9 of its index)
+    const int wo = HALF ? fresh(t) & (TG / 2 - 1) : t;  // coefficient t's word: wo + k S/8
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         u[i][k] = csub(u[i][k], Q);
-        out[i * N + t + k * TG] = u[i][k];
+        out[i * S + wo + k * (S / 8)] = u[i][k];
       }
-    __syncthreads();
+    if constexpr (HALF)
+      cluster_sync();
+    else
+      __syncthreads();
     const int m_pos = a_idx[b * n + r];
     const int m_neg = (2 * N - m_pos) & (2 * N - 1);
+    auto output = [&](int i, int c) -> u64 {
+      if constexpr (HALF) {
+        const uint32_t a = this_poly(F_AT + 2 * (i * S + drop_bit9(c)), (c >> 9) & 1);
+        return u64(ld_peer(a)) | (u64(ld_peer(a + 4)) << 32);
+      } else {
+        return out[i * N + c];
+      }
+    };
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const int j = t + k * TG;
       const int r0 = (j - m_pos) & (2 * N - 1);
       const int r1 = (j - m_neg) & (2 * N - 1);
-      const u64 c0 = out[r0 & (N - 1)];
-      const u64 c1 = out[N + (r1 & (N - 1))];
+      const u64 c0 = output(0, r0 & (N - 1));
+      const u64 c1 = output(1, r1 & (N - 1));
       const u64 v0 = r0 < N ? c0 : Q - c0;  // in [0, Q]
       const u64 v1 = r1 < N ? c1 : Q - c1;
       const u64 s = acc[k] + v0 + (Q - u[0][k]) + v1 + (Q - u[1][k]);
@@ -326,33 +480,36 @@ blind_rotate64_kernel(const u64* __restrict__ acc_in, u64* __restrict__ acc_out,
     }
     // the next round's sums and inverse overwrite the output only after its
     // first digit's exchange with the other half (a block-wide barrier, or
-    // the cluster's)
+    // the cluster's); at N = 8192 its forward overwrites the output after
+    // B_0
   }
-  // no block of a cluster leaves while its peer may still read it
+  // no block of a cluster leaves while another may still read it
   if constexpr (CL) cluster_sync();
 
 #pragma unroll
   for (int k = 0; k < 8; ++k) acc_out[(b * 2 + h) * N + t + k * TG] = acc[k];
 }
 
-// Dynamic shared memory of a block: 64 N bytes, 32 N in a cluster.
+// Dynamic shared memory of a block: 64 N bytes, 32 N in a two-block
+// cluster, 24 N (12 S words) in a four-block one.
 template <int LOGN>
 constexpr size_t smem_bytes() {
-  return (kCluster<LOGN> ? 8 : 16) * (size_t(1) << LOGN) * sizeof(uint32_t);
+  constexpr size_t N = size_t(1) << LOGN;
+  return (kBlocks<LOGN> == 4 ? 6 * N : kBlocks<LOGN> == 2 ? 8 * N : 16 * N) *
+         sizeof(uint32_t);
 }
 
 template <int LOGN>
 cudaError_t launch(const void* acc_in, void* acc_out, const void* a_idx,
                    const void* bsk, const void* tw, int B, u64 Q, int n,
                    int g_bits, int digits, int throw_digits, cudaStream_t stream) {
-  const size_t N = size_t(1) << LOGN;
   const size_t smem = smem_bytes<LOGN>();
   cudaError_t err = cudaFuncSetAttribute(
       blind_rotate64_kernel<LOGN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  if constexpr (kCluster<LOGN>) {
-    dsmem::ClusterLaunch cl(2, B, (1 << LOGN) / 8, smem, stream);
+  if constexpr (kBlocks<LOGN> > 1) {
+    dsmem::ClusterLaunch cl(kBlocks<LOGN>, B, kThreads<LOGN>, smem, stream);
     err = cudaLaunchKernelEx(
         &cl.cfg, blind_rotate64_kernel<LOGN>, static_cast<const u64*>(acc_in),
         static_cast<u64*>(acc_out), static_cast<const int32_t*>(a_idx),
@@ -360,12 +517,22 @@ cudaError_t launch(const void* acc_in, void* acc_out, const void* a_idx,
         digits, throw_digits);
     if (err != cudaSuccess) return err;
   } else {
-    blind_rotate64_kernel<LOGN><<<B, N / 4, smem, stream>>>(
+    blind_rotate64_kernel<LOGN><<<B, kThreads<LOGN>, smem, stream>>>(
         static_cast<const u64*>(acc_in), static_cast<u64*>(acc_out),
         static_cast<const int32_t*>(a_idx), static_cast<const u64*>(bsk),
         static_cast<const u64*>(tw), n, Q, g_bits, digits, throw_digits);
   }
   return cudaGetLastError();
+}
+
+template <int LOGN>
+cudaError_t clusters_of(int* clusters) {
+  cudaError_t err = cudaFuncSetAttribute(
+      blind_rotate64_kernel<LOGN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<LOGN>());
+  if (err != cudaSuccess) return err;
+  dsmem::ClusterLaunch cl(kBlocks<LOGN>, 1, kThreads<LOGN>, smem_bytes<LOGN>(), 0);
+  return cudaOccupancyMaxActiveClusters(clusters, blind_rotate64_kernel<LOGN>, &cl.cfg);
 }
 
 }  // namespace
@@ -396,20 +563,23 @@ extern "C" int tfhe_blind_rotate64(const void* acc_in, void* acc_out,
       return launch<11>(acc_in, acc_out, a_idx, bsk, tw, B, Q, n, g_bits, digits, throw_digits, s);
     case 4096:
       return launch<12>(acc_in, acc_out, a_idx, bsk, tw, B, Q, n, g_bits, digits, throw_digits, s);
+    case 8192:
+      return launch<13>(acc_in, acc_out, a_idx, bsk, tw, B, Q, n, g_bits, digits, throw_digits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// The most clusters of the ring-N cluster kernel (N = 4096) the card holds
-// at once (cudaOccupancyMaxActiveClusters), in *clusters. Returns the
+// The most clusters of the ring-N cluster kernel (N = 4096 or 8192) the card
+// holds at once (cudaOccupancyMaxActiveClusters), in *clusters. Returns the
 // cudaError_t; cudaErrorInvalidValue for a ring without a cluster layout.
 extern "C" int tfhe_blind_rotate64_clusters(int N, int* clusters) {
-  if (N != 4096) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      blind_rotate64_kernel<12>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes<12>());
-  if (err != cudaSuccess) return err;
-  dsmem::ClusterLaunch cl(2, 1, (1 << 12) / 8, smem_bytes<12>(), 0);
-  return cudaOccupancyMaxActiveClusters(clusters, blind_rotate64_kernel<12>, &cl.cfg);
+  switch (N) {
+    case 4096:
+      return clusters_of<12>(clusters);
+    case 8192:
+      return clusters_of<13>(clusters);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -4,9 +4,9 @@
 // configuration of clusters of 2 or 4 blocks, and the register NTT's
 // exchange between groups 0 and 1 when a polynomial spans two blocks.
 //
-// The kernels that run one ciphertext on a cluster (blind_rotate_rns.cu at
-// N = 4096 and 8192, blind_rotate64.cu at N = 4096, blind_rotate.cu at
-// N = 8192) read other blocks' buffers through these: `peer_address` maps a
+// The kernels that run one ciphertext on a cluster (blind_rotate_rns.cu and
+// blind_rotate64.cu at N = 4096 and 8192, blind_rotate.cu at N = 8192) read
+// other blocks' buffers through these: `peer_address` maps a
 // pointer into this block's shared memory to the same word in block
 // `rank`'s, `ld_peer` reads it (ld.shared::cluster), and `cluster_sync`
 // (barrier.cluster arrive.release / wait.acquire) makes the shared-memory
@@ -74,6 +74,9 @@ struct ClusterLaunch {
 // the register NTT's group 0 and bit 12 in groups 1-4 (register_ntt.cuh).
 // Only the exchange between groups 0 and 1 crosses the two blocks; the
 // others run in the block's half of a buffer (S = 4096 words a polynomial).
+// A polynomial of 64-bit words (blind_rotate64.cu) crosses as two u32
+// polynomials, its low and high planes 4096 words apart
+// (register_ntt64.cuh's split and join).
 
 // The word of j (swizzled or not) in its owner's half when the owner is
 // bit 9 of j: bit 9 dropped.

@@ -99,7 +99,7 @@ def load(name: str) -> ctypes.CDLL:
 
 def max_active_clusters(name: str, N: int) -> int:
     """The most clusters of csrc/<name>.cu's ring-N cluster kernel (N = 8192
-    for blind_rotate, 4096 for blind_rotate64, 4096 and 8192 for
+    for blind_rotate, 4096 and 8192 for blind_rotate64 and
     blind_rotate_rns) that the current CUDA device runs at once: the
     library's `tfhe_<name>_clusters` (cudaOccupancyMaxActiveClusters)."""
     fn = getattr(load(name), f"tfhe_{name}_clusters")

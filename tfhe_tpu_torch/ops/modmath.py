@@ -80,22 +80,28 @@ def crt_combine(r1, r2, q1: int, q2: int):
 
 
 def shoup64(b: np.ndarray, Q: int) -> np.ndarray:
-    """Shoup companions floor(b * 2^64 / Q) of residues b < Q < 2^54, exact,
-    on the host (`modmath64.shoup64`): b << 64 does not fit a u64, so the
-    quotient is built by long division in steps of at most 10 bits, where
-    every remainder shifted left stays below 2^64. Returns the int64 view of
-    the u64 companions."""
+    """`shoup64_tensor` on the host, for numpy residues b < Q < 2^54
+    (`modmath64.shoup64`): the int64 view of the u64 companions."""
+    x = torch.from_numpy(np.asarray(b, dtype=np.uint64).view(np.int64))
+    return shoup64_tensor(x, Q).numpy()
+
+
+def shoup64_tensor(b: torch.Tensor, Q: int) -> torch.Tensor:
+    """Shoup companions floor(b 2^64 / Q) of int64 residues b < Q < 2^54,
+    exact, on b's device, as the int64 view of their u64 bits. b << 64 does
+    not fit, so the quotient is built by long division in 9-bit steps, seven
+    of them and one of a bit: every remainder, below Q, shifted left stays
+    below 2^63; the quotient's last shift wraps into the sign bit, which is
+    the u64 bit."""
     if not 2 <= Q < (1 << 54):
-        raise ValueError(f"shoup64 needs Q < 2^54, got {Q}")
-    uq = np.uint64(Q)
-    x = np.asarray(b, dtype=np.uint64) % uq
-    quot = np.zeros_like(x)
-    for step in (10, 10, 10, 10, 10, 10, 4):
-        x = x << np.uint64(step)
-        digit = x // uq
-        quot = (quot << np.uint64(step)) + digit
-        x -= digit * uq
-    return quot.view(np.int64)
+        raise ValueError(f"shoup64_tensor needs Q < 2^54, got {Q}")
+    x, quot = b % Q, torch.zeros_like(b)
+    for step in (9, 9, 9, 9, 9, 9, 9, 1):
+        x = x << step
+        digit = x // Q
+        quot = (quot << step) + digit
+        x = x - digit * Q
+    return quot
 
 
 def mulhi64(a, b):
@@ -103,12 +109,25 @@ def mulhi64(a, b):
     bit patterns (either may be a Python int < 2^64), as an int64 bit
     pattern. From the four products of 32-bit halves: each is below 2^64,
     so its int64 product has the right bits, and the column sums are exact
-    modulo 2^64."""
+    modulo 2^64. The sums go in place into the products' own fresh tensors,
+    which on the CPU takes about a third off the time of the plain 64-bit
+    rotation's hottest function."""
     a0, a1 = a & _M32, (a >> 32) & _M32
     b0, b1 = b & _M32, (b >> 32) & _M32
     p01, p10 = a0 * b1, a1 * b0
-    mid = ((a0 * b0 >> 32) & _M32) + (p01 & _M32) + (p10 & _M32)   # < 3 * 2^32
-    return a1 * b1 + ((p01 >> 32) & _M32) + ((p10 >> 32) & _M32) + (mid >> 32)
+    mid = (a0 * b0 >> 32) & _M32
+    mid += p01 & _M32
+    mid += p10 & _M32                                               # < 3 * 2^32
+    hi = a1 * b1
+    p01 >>= 32
+    p01 &= _M32
+    hi += p01
+    p10 >>= 32
+    p10 &= _M32
+    hi += p10
+    mid >>= 32
+    hi += mid
+    return hi
 
 
 def mulmod_shoup64_lazy(a, w, w_sh, Q: int):

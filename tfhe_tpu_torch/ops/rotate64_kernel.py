@@ -7,7 +7,11 @@ Port of `tfhe_tpu/ops/pallas_rotate64.py`. `rotate64` launches
 `pack_bsk64`'s layout. Values cross the kernel boundary as int64: residues
 are < Q < 2^54, and the Shoup companions are the int64 view of their u64
 bits. The kernel's twiddles are `_twiddles`: `ntt.merged_tables` with their
-64-bit companions.
+64-bit companions. Up to N = 2048 one block runs a ciphertext, at N = 4096 a
+cluster of two blocks (one a polynomial), at N = 8192 a cluster of four
+blocks of 512 threads (two a polynomial, each holding half of its
+polynomial's words); the note in `csrc/blind_rotate64.cu` gives the
+layouts.
 """
 
 from __future__ import annotations
@@ -20,25 +24,37 @@ import torch
 
 from . import _build, ntt
 from .blindrotate64 import blind_rotate64
-from .modmath import shoup64
-from .ntt_sched import schedule
+from .modmath import shoup64, shoup64_tensor
 
 LAUNCHES = 0  # kernel launches made by `rotate64`
 # the ring dimensions the kernel takes: one two-half block per ciphertext up
-# to 2048, a cluster of two one-polynomial blocks at 4096
-RING_DIMS = (256, 512, 1024, 2048, 4096)
+# to 2048, a cluster of two one-polynomial blocks at 4096, of four blocks
+# (two a polynomial) at 8192
+RING_DIMS = (256, 512, 1024, 2048, 4096, 8192)
 
 
-def pack_bsk64(bsk_hat: np.ndarray, Q: int) -> torch.Tensor:
-    """Evaluation-domain key [n, 2(key), d2, 2(out), N] in natural order
-    (the host NTT mod Q) -> int64 [n, 4*d2, N] of Shoup companions only, row
+def pack_bsk64(bsk_coeff: np.ndarray, Q: int,
+               device: str | torch.device = "cpu") -> torch.Tensor:
+    """Coefficient-domain key [n, 2(key), d2, 2(out), N] mod Q -> int64
+    [n, 4*d2, N] on `device` of Shoup companions only, row
     (key*2 + out)*d2 + 2l + j (digit l of input poly j), points in the NTT's
-    bit-reversed order. The layout of `pallas_rotate64.pack_bsk64` with each
-    companion in one int64 instead of two u32 rows."""
-    n, _, d2, _, N = bsk_hat.shape
-    b = np.asarray(bsk_hat, dtype=np.uint64)[..., schedule(N, Q)["bitrev"]]
-    b = np.swapaxes(b, 2, 3)                       # [n, key, out, d2, N]
-    return torch.from_numpy(np.ascontiguousarray(shoup64(b, Q)).reshape(n, 4 * d2, N))
+    bit-reversed order. The layout of `pallas_rotate64.pack_bsk64` (of the
+    key's host NTT mod Q) with each companion in one int64 instead of two
+    u32 rows. The NTT (`ntt.forward`, exact 64-bit Shoup products) and the
+    companions run on `device`, a few rounds at a time: on a card, the host
+    does no more than copy the key there."""
+    n, _, d2, _, N = bsk_coeff.shape
+    out = torch.empty((n, 4 * d2, N), dtype=torch.int64, device=device)
+    # rounds a chunk: 2^24 words on a card, 2^17 (in cache) on the CPU,
+    # where that halves the time
+    chunk = 1 << (24 if torch.device(device).type == "cuda" else 17)
+    step = max(1, chunk // (4 * d2 * N))
+    for r in range(0, n, step):
+        chunk = np.ascontiguousarray(bsk_coeff[r:r + step], dtype=np.uint64)
+        b = torch.from_numpy(chunk.view(np.int64)).to(device)
+        bh = ntt.forward(b, Q).transpose(2, 3).reshape(-1, 4 * d2, N)
+        out[r:r + step] = shoup64_tensor(bh, Q)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,10 +75,11 @@ def _kernel():
     return fn
 
 
-def max_active_clusters() -> int:
-    """The most two-block clusters of the N = 4096 kernel that the current
-    CUDA device runs at once (cudaOccupancyMaxActiveClusters)."""
-    return _build.max_active_clusters("blind_rotate64", 4096)
+def max_active_clusters(N: int) -> int:
+    """The most clusters of the ring-N kernel (two blocks at N = 4096, four
+    at 8192) that the current CUDA device runs at once
+    (cudaOccupancyMaxActiveClusters)."""
+    return _build.max_active_clusters("blind_rotate64", N)
 
 
 def check_params(N: int, d2: int, Q: int, base_g: int) -> None:
