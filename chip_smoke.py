@@ -64,6 +64,16 @@ Then it drives the port's paths through `tfhe_tpu_torch.BinFHEContext`
   phase's secrets and seeded switching key: EvalSign and EvalFunc at
   batch 1024, every row checked by decryption and the first against the
   oracle, and EvalDecomp at batch 64, every row's digits decrypted;
+- ring dimension N = 16384 on the RNS kernel, after the N = 8192 phases
+  (and the single 54-bit prime at N = 8192) have freed their keys:
+  blind_rotate_rns as a cluster of eight blocks a ciphertext (four a
+  residue lane) against its plain version (B = 5 at d2 2, 4, 6 and 8, B =
+  64 at d2 4 and 2, then B = 1024, n = 1305 at d2 4 and 2 on a head of
+  rows), then the STD128 accelerated sets at N = 16384 (Q = 133857281 *
+  132710401) on keys of their own (a [3670016, 1306] float64 switching
+  table, 35.7 GiB, on the card): EvalSign and EvalFunc at batch 256, every
+  row checked by decryption and the first against the oracle (whose key
+  switch draws only the A rows it selects), and EvalDecomp at batch 64;
 - CiphertextMulMatrix at 1024 x 1024 mod 2^35 against the host product,
   and the DM/AP accumulator: the 8 gates at TOY AP against the oracle and
   a batch-1024 STD128_AP NAND, checked by decryption and on its first 8
@@ -124,6 +134,7 @@ of the kernels; the last line is the JSON result.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -196,6 +207,11 @@ RING8192_N = 8192           # the ring of the N = 8192 phase
 RING8192_Q = 133857281      # from_gpu_style(STD128, ..., log_q=11, N=8192).lwe.Q
 RING8192_BATCH = 1024       # its batch: bench.py's 4096, cut for the run's time limit
 RING8192_DECOMP_BATCH = 64  # EvalDecomp's batch on the RNS path at N = 8192
+RING16384_N = 16384         # the ring of the N = 16384 RNS phase
+RING16384_Q = (133857281, 132710401)   # from_gpu_style(STD128, True, 12, N=16384) primes
+RING16384_KERNEL_BATCH = 1024   # the kernel's full shape there (bench.py's 4096, cut)
+RING16384_BATCH = 256       # EvalSign's and EvalFunc's batch there, cut for the run's time
+RING16384_DECOMP_BATCH = 64  # EvalDecomp's batch there
 MESH_TOY_BATCH = 5          # TOY ciphertexts over the two-shard mesh: an uneven split
 LIMB_SHARDS = (2, 4)        # shards of the ring-sharded eval_mult_limb
 LIMB_ITERS = 3
@@ -1335,15 +1351,16 @@ def ring4096_contexts(rng) -> dict:
 
 def ring_path(state: dict, card: str) -> dict:
     """The contexts of `ring4096_contexts`, `ring8192_contexts` or
-    `ring8192_rns_contexts` on the card (contexts on one bootstrapping key
+    `ring_rns_contexts` on the card (contexts on one bootstrapping key
     share one backend): device setup, the seeded table's spot rows held to
     the host threefry, then each operation at the batch of its inputs, a
     first and a warm call timed: every row decrypts right, except where the
     parameters' noise lets rows decrypt wrong (at most a third of them),
     whose count is logged; the contexts' device state is freed (a switching
     table stays with its key). Then the host oracle (its switching key the
-    seeded A block, drawn on the card once per key and held to the host
-    threefry on the same spot rows) on the first RING_HEAD rows of each
+    seeded A block, of which each key switch draws the rows it selects on
+    the card, `SeededSwitchingKey.select_rows_on`, held to the host threefry
+    on the same spot rows) on the first RING_HEAD rows of each
     operation in the state's "oracle" (all by default), or on the first row
     that decrypts wrong: the card's outputs equal it bit for bit, so that
     the oracle's output decrypts wrong there too."""
@@ -1413,17 +1430,20 @@ def ring_path(state: dict, card: str) -> dict:
         cc.device_clean()
     torch.cuda.empty_cache()
 
-    # the oracle's switching key: the seeded A block drawn on the card (the
-    # host's CPU would take minutes) once per key, held to the host threefry
+    # the oracle's switching key: only the rows of the seeded A block that
+    # each key switch selects, drawn on the card at each read (the whole
+    # block is 38.3 GB at N = 16384), the drawn rows held to the host
+    # threefry on the spot rows
     t0 = time.time()
-    host_a = ksk.materialize("cuda").reshape(ksk.rows, -1)
+    ksk.select_rows_on("cuda")
+    check(all(np.array_equal(lwe.seeded_select(
+        ksk.seed, ksk.n, ksk.q_ks, torch.arange(r0, r1), "cuda").cpu().numpy(),
+        lwe.seeded_rows(ksk.seed, ksk.n, ksk.q_ks, r0, r1, "cpu").numpy()) for r0, r1 in spans),
+        f"N={N}: the oracle's A rows differ from the host threefry")
     timing["host_A_s"] = time.time() - t0
-    check(all(np.array_equal(host_a[r0:r1], lwe.seeded_rows(
-        ksk.seed, ksk.n, ksk.q_ks, r0, r1, "cpu").numpy()) for r0, r1 in spans),
-        f"N={N}: the oracle's A block differs from the host threefry")
-    log(f"the seeded key's A block [{ksk.rows}, {ksk.n}] on the host for the oracle "
-        f"({timing['host_A_s']:.1f} s, drawn on the card when not cached with its key), "
-        f"the same rows equal to the host threefry")
+    log(f"the seeded key's A block [{ksk.rows}, {ksk.n}] for the oracle: each key switch "
+        f"draws the rows it selects on the card (SeededRows), the same rows as the host "
+        f"threefry ({timing['host_A_s']:.1f} s)")
     t0 = time.time()
     for name, (cc, run, cts, _, _) in ops.items():
         if name not in oracle_ops:
@@ -1602,6 +1622,71 @@ def ring8192_rns_kernels(rng, peak: float) -> dict:
     return out
 
 
+def ring16384_refusals() -> None:
+    """At N = 16384 only the RNS sets run: the single 54-bit prime and the
+    logQ = 11 sets there, and every set at N = 32768, raise
+    NotImplementedError in the card's backend set-up, before any key is
+    read."""
+    from tfhe_tpu_torch import ParamSet, TorchBackend, from_gpu_style
+
+    be = TorchBackend("cuda")
+    check(be.supports(from_gpu_style(ParamSet.STD128, True, 12, N=RING16384_N)),
+          f"the RNS sets at N = {RING16384_N} are not supported")
+    refused = []
+    for N in (RING16384_N, 2 * RING16384_N):
+        refused.append((f"the single prime at N={N}", from_gpu_style(
+            ParamSet.STD128, False, 17, N=N, rns_modulus=False)))
+        for log_q, arb in ((11, False), (12, True), (17, False), (23, False)):
+            if N > RING16384_N or log_q == 11:
+                refused.append((f"logQ {log_q} at N={N}",
+                                from_gpu_style(ParamSet.STD128, arb, log_q, N=N)))
+    for name, params in refused:
+        check(not be.supports(params), f"{name} is supported")
+        try:
+            be.setup(params, None)
+        except NotImplementedError:
+            continue
+        check(False, f"{name}: the backend's set-up did not raise NotImplementedError")
+    log(f"N={RING16384_N} refusals: {', '.join(name for name, _ in refused)} raise "
+        "NotImplementedError in TorchBackend('cuda').setup")
+
+
+def ring16384_rns_kernels(rng, peak: float) -> dict:
+    """blind_rotate_rns at N = 16384 (a cluster of eight blocks of 512
+    threads a ciphertext, four a residue lane) against its plain version on
+    the card at the accelerated sets' primes there, with tolerance 0
+    (`rns_case`): every d2 in {2, 4, 6, 8} with throw 0 and 1 at B = 5 over
+    8 rounds, rows 0, 1 and 2 of the exponents 0, N and 2N - 1; d2 = 4 and
+    2 at B = 64 over 16 rounds; then the full shapes, B =
+    RING16384_KERNEL_BATCH, n = LWE_N_ACC, one digit thrown, d2 = 4 (base
+    2^18) and d2 = 2 (base 2^27), the plain version on RING_ROWS and the
+    last row. Logs the card's resident clusters and ptxas's registers and
+    spills; returns the full shapes' timings."""
+    from tfhe_tpu_torch import ParamSet, from_gpu_style
+    from tfhe_tpu_torch.ops import rotate_rns_kernel
+
+    N = RING16384_N
+    q1, q2 = from_gpu_style(ParamSet.STD128, True, 12, N=N).rgsw.rns_primes
+    check((q1, q2) == RING16384_Q, f"the N = {N} sets' primes are {q1}, {q2}, not "
+          f"{RING16384_Q}")
+    clusters = rotate_rns_kernel.max_active_clusters(N)
+    resources = kernel_resources("blind_rotate_rns", 14)
+    log(f"blind_rotate_rns at N={N} (q1={q1}, q2={q2}): one ciphertext on a cluster of eight "
+        f"blocks of {N // 32} threads, four a residue lane, 11 N = {11 * N // 1024} KB of "
+        f"shared memory each; ptxas: {resources}; the card holds {clusters} such clusters at "
+        f"once (cudaOccupancyMaxActiveClusters)")
+    for d2 in (2, 4, 6, 8):
+        for throw in (0, 1):
+            rns_case(rng, q1, q2, peak, 5, 8, d2, N, throw=throw)
+    for d2 in (4, 2):
+        rns_case(rng, q1, q2, peak, 64, 16, d2, N)
+    out = {"max_active_clusters": clusters, "ptxas": resources}
+    for d2 in (4, 2):
+        out[f"d2={d2}"] = rns_case(rng, q1, q2, peak, RING16384_KERNEL_BATCH, LWE_N_ACC, d2,
+                                   N, rows=RING_ROWS)
+    return out
+
+
 def ring8192_r64_kernels(rng, peak: float) -> dict:
     """blind_rotate64 at N = 8192 (a cluster of four blocks of 512 threads
     a ciphertext, two a polynomial) against its plain version on the card
@@ -1691,24 +1776,29 @@ def ring8192_contexts(rng) -> dict:
             "timing": timing}
 
 
-def ring8192_rns_contexts(rng, shared: dict) -> dict:
-    """Ring dimension N = 8192 on the RNS path: the STD128 accelerated sets
-    `from_gpu_style(STD128, ..., N=8192)` (n = 1305, Q = q1*q2 = 133857281 *
-    133644289 of 54 bits, qKS = 2^35, baseKS = 32, one digit thrown,
-    bench.py's seeded switching key) on the LWE secret, ring secret and
-    switching key of the logQ = 11 contexts at this ring (`shared`; the key's
-    device table and the A block for the host oracle are made once for both
-    phases), so that only the bootstrapping keys of bases 2^18 and 2^27 are
-    made. EvalSign (logQ 17, q = 16384) and EvalFunc (logQ 12, arbFunc, q =
-    8192, the cube LUT) at batch RING8192_BATCH, every row right and the
-    first held to the host oracle; EvalDecomp on a logQ = 23 context on the
-    sign context's bootstrapping keys at batch RING8192_DECOMP_BATCH, every
-    row's digits right. Returns the phase's state for `ring_path`."""
+def ring_rns_contexts(rng, N: int, B: int, decomp_B: int, shared: dict | None = None) -> dict:
+    """Ring dimension N (8192 or 16384) on the RNS path: the STD128
+    accelerated sets `from_gpu_style(STD128, ..., N=N)` (n = 1305, Q = q1*q2
+    of 54 bits: 133857281 * 133644289 at 8192, 133857281 * 132710401 at
+    16384; qKS = 2^35, baseKS = 32, one digit thrown, bench.py's seeded
+    switching key). With `shared`, on the LWE secret, ring secret and
+    switching key of the logQ = 11 contexts at this ring (the key's device
+    table is made once for both phases), so that only the bootstrapping keys
+    of bases 2^18 and 2^27 are made; without, every key is made here.
+    EvalSign (logQ 17, q = 2N) and EvalFunc (logQ 12, arbFunc, q = N, the
+    cube LUT) at batch B, every row right and the first held to the host
+    oracle; EvalDecomp on a logQ = 23 context on the sign context's
+    bootstrapping keys at batch decomp_B, every row's digits right. Returns
+    the phase's state for `ring_path`."""
     import numpy as np
+    import torch
 
     from tfhe_tpu_torch import BinFHEContext, ParamSet
 
-    N = RING8192_N
+    if shared is None:
+        free = subprocess.run(["free", "-g"], capture_output=True, text=True).stdout
+        log(f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB in use and host "
+            f"memory (free -g) before the N={N} keys:\n{free.rstrip()}")
     sign_cc, func_cc, sk, keygen_s = accelerated_contexts(ParamSet.STD128, seeded=True, N=N,
                                                           shared=shared)
     decomp_cc = BinFHEContext(seed=SEED + 3, seeded_ksk=True)
@@ -1717,21 +1807,23 @@ def ring8192_rns_contexts(rng, shared: dict) -> dict:
     p, pd = sign_cc.params, decomp_cc.params
     check((p.rgsw.N, p.rgsw.Q, p.rgsw.base_g, p.lwe.n, p.lwe.q)
           == (pd.rgsw.N, pd.rgsw.Q, pd.rgsw.base_g, pd.lwe.n, pd.lwe.q)
-          and func_cc.bt_key.ksk is sign_cc.bt_key.ksk is shared["ksk"],
+          and func_cc.bt_key.ksk is sign_cc.bt_key.ksk
+          and (shared is None or sign_cc.bt_key.ksk is shared["ksk"]),
           f"the N = {N} RNS contexts are not on one ring and the shared keys")
     for base in sorted(sign_cc.bt_key_map, key=lambda b: b == pd.rgsw.base_g):
         decomp_cc.bt_key_load(sign_cc.bt_key_map[base])
+    made = ("on the logQ=11 contexts' secrets and seeded switching key" if shared
+            else "the LWE and ring secrets and the seeded switching key made here too, "
+                 "<A, s> on the card")
     log(f"N={N} accelerated STD128: n={p.lwe.n} Q={p.lwe.Q} = {p.rgsw.rns_primes[0]} * "
         f"{p.rgsw.rns_primes[1]}, q={p.lwe.q} (arbFunc {func_cc.params.lwe.q}), qKS=2^35, "
         f"baseKS={p.lwe.base_ks}; keygen (bootstrapping keys for bases 2^18 and 2^27, the "
-        f"func and decomp contexts on them, on the logQ=11 contexts' secrets and seeded "
-        f"switching key) {keygen_s:.1f} s")
-    timing = {"N": N, "batch": RING8192_BATCH, "keygen_s": keygen_s}
+        f"func and decomp contexts on them, {made}) {keygen_s:.1f} s")
+    timing = {"N": N, "batch": B, "keygen_s": keygen_s}
 
-    B = RING8192_BATCH
     ct_s, delta = sign_inputs(sign_cc, sk, rng, B)
     ct_f, lut, want_f, p_f = func_inputs(func_cc, sk, rng, B)
-    ct_d, m_d, p_d, P_d = decomp_inputs(decomp_cc, sk, rng, RING8192_DECOMP_BATCH)
+    ct_d, m_d, p_d, P_d = decomp_inputs(decomp_cc, sk, rng, decomp_B)
     ops = {
         "EvalSign": (sign_cc, lambda c, x: c.eval_sign(x[0]), (ct_s,),
                      lambda out, r: sign_cc.decrypt(sk, out, 2) == (delta[r] >= 0), False),
@@ -3165,7 +3257,8 @@ def main() -> int:
     log(f"N={RING8192_N} blind_rotate_rns against its plain version: "
         f"{time.time() - t0:.1f} s")
     reset_counts()
-    rns8k_timing = ring_path(ring8192_rns_contexts(rng, shared), card)
+    rns8k_timing = ring_path(ring_rns_contexts(rng, RING8192_N, RING8192_BATCH,
+                                               RING8192_DECOMP_BATCH, shared), card)
     rns8k_launches = rotate_rns_kernel.LAUNCHES
     check(rns8k_launches > 0, "the N = 8192 RNS path did not launch blind_rotate_rns")
     torch.cuda.empty_cache()
@@ -3184,11 +3277,35 @@ def main() -> int:
     prime8k_timing = ring_single_prime(rng, card, shared, RING8192_N)
     prime8k_launches = rotate64_kernel.LAUNCHES
     check(prime8k_launches > 0, "the N = 8192 single-prime path did not launch blind_rotate64")
+    # the N = 8192 switching key's device table (17.9 GiB) is freed before
+    # the N = 16384 phase makes its 35.7 GiB one, whoever still holds the key
+    shared["ksk"].__dict__.pop("_device_tables", None)
     del shared
+    gc.collect()
     torch.cuda.empty_cache()
     prime8k_timing["phase_s"] = time.time() - t0
     log(f"N={RING8192_N} single-prime phase: blind_rotate64 launches {prime8k_launches} "
         f"({prime8k_timing['phase_s']:.1f} s)")
+
+    # ring dimension N = 16384 on the RNS kernel, after the N = 8192 phases
+    # have freed their table and keys: blind_rotate_rns (a cluster of eight
+    # blocks a ciphertext) against its plain version, then the accelerated
+    # sets' EvalSign, EvalFunc and EvalDecomp through the contexts on keys
+    # of their own, counts read just after the contexts' run
+    t0 = time.time()
+    ring16384_refusals()
+    rns16k_kernels = ring16384_rns_kernels(rng, peak)
+    log(f"N={RING16384_N} blind_rotate_rns against its plain version: "
+        f"{time.time() - t0:.1f} s")
+    reset_counts()
+    rns16k_timing = ring_path(ring_rns_contexts(rng, RING16384_N, RING16384_BATCH,
+                                                RING16384_DECOMP_BATCH), card)
+    rns16k_launches = rotate_rns_kernel.LAUNCHES
+    check(rns16k_launches > 0, "the N = 16384 RNS path did not launch blind_rotate_rns")
+    torch.cuda.empty_cache()
+    rns16k_timing["phase_s"] = time.time() - t0
+    log(f"N={RING16384_N} RNS phase: blind_rotate_rns launches {rns16k_launches} "
+        f"({rns16k_timing['phase_s']:.1f} s)")
 
     # CiphertextMulMatrix and the DM accumulator: torch ops, no hand kernel
     t0 = time.time()
@@ -3235,7 +3352,7 @@ def main() -> int:
                       "mesh": mesh_timing, "ring4096": ring_timing,
                       "ring4096_single_prime": prime4k_timing, "ring8192": ring8k_timing,
                       "ring8192_rns": rns8k_timing, "ring8192_single_prime": prime8k_timing,
-                      "total_s": time.time() - t_start}),
+                      "ring16384_rns": rns16k_timing, "total_s": time.time() - t_start}),
           flush=True)
     print(json.dumps({"kernels": [
         {"name": "blind_rotate", "route": "cuda",
@@ -3249,9 +3366,9 @@ def main() -> int:
          "source": "tfhe_tpu_torch/csrc/blind_rotate_rns.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate_rns.py:278",
          "launches": (rns_launches + seeded_launches + serial_rns_launches + mesh_launches[1]
-                      + ring_launches[1] + rns8k_launches),
+                      + ring_launches[1] + rns8k_launches + rns16k_launches),
          **rns_timing, "ring4096": ring_kernels["blind_rotate_rns"], "ring8192": rns8k_kernels,
-         "library_ms": None},
+         "ring16384": rns16k_kernels, "library_ms": None},
         {"name": "blind_rotate64", "route": "cuda",
          "source": "tfhe_tpu_torch/csrc/blind_rotate64.cu",
          "replaces": "tfhe_tpu/ops/pallas_rotate64.py:324",

@@ -2,9 +2,12 @@
 """The N = 4096 kernels alone, on one GPU (about a minute of command), or
 the three kernels at N = 8192 (`--ring 8192`, about three and a half
 minutes; `--ring 8192 --rns-only`, the RNS kernel alone; `--ring 8192
---r64-only`, the 64-bit kernel alone, about a minute).
+--r64-only`, the 64-bit kernel alone, about a minute), or the RNS kernel
+at N = 16384 (`--ring 16384`, with or without `--rns-only`: the only
+kernel that takes that ring).
 
     python3 scripts/torch_check_ring4096.py [--ring 8192 [--rns-only | --r64-only]]
+    python3 scripts/torch_check_ring4096.py --ring 16384 [--rns-only]
 
 Builds the three kernels (`_build.build`, one nvcc per source), prints what
 ptxas says of every instantiation's registers and spills (nothing when the
@@ -44,6 +47,14 @@ mixed logQ = 11 (B = 4096, n = 1305, N = 1024, d2 = 10) and N = 4096
 (B = 1024, n = 1305, d2 = 10), the plain versions on one row and the last.
 With `--rns-only`, only the RNS kernel's part (about a minute); with
 `--r64-only`, only the 64-bit kernel's.
+
+With `--ring 16384`: `chip_smoke.ring16384_rns_kernels` (`blind_rotate_rns`
+as an eight-block cluster at d2 2, 4, 6 and 8 with throw 0 and 1, B = 5,
+at d2 4 and 2, B = 64, then at B = 1024, n = 1305, d2 = 4 and 2 on a head
+of rows, with ptxas's registers and spills and the resident clusters) and
+beside it the RNS kernel's main shapes below N = 16384 (B = 4096, n = 1305,
+N = 2048, d2 = 4; B = 1024 at N = 4096 and 8192, d2 = 4 and 2), the plain
+versions on one row and the last.
 """
 
 from __future__ import annotations
@@ -69,9 +80,9 @@ def main() -> int:
         print("torch_check_ring4096: no CUDA device", file=sys.stderr)
         return 1
     ring = int(sys.argv[sys.argv.index("--ring") + 1]) if "--ring" in sys.argv else cs.RING_N
-    if ring not in (cs.RING_N, cs.RING8192_N):
-        print(f"torch_check_ring4096: --ring takes {cs.RING_N} or {cs.RING8192_N}",
-              file=sys.stderr)
+    if ring not in (cs.RING_N, cs.RING8192_N, cs.RING16384_N):
+        print(f"torch_check_ring4096: --ring takes {cs.RING_N}, {cs.RING8192_N} or "
+              f"{cs.RING16384_N}", file=sys.stderr)
         return 2
     t0 = time.time()
     _build.build()
@@ -84,6 +95,18 @@ def main() -> int:
                          check=True).stdout.strip(), flush=True)
     peak = cs.int32_peak_per_s()
     rng = np.random.default_rng(cs.SEED)
+    if ring == cs.RING16384_N:
+        out = {"rns_ring16384": cs.ring16384_rns_kernels(rng, peak)}
+        out["rns_N2048"] = cs.rns_case(rng, *from_gpu_style(ParamSet.STD128, True, 12)
+                                       .rgsw.rns_primes, peak, cs.FUNC_BATCH, cs.LWE_N_ACC, 4,
+                                       rows=[0])
+        for N in (cs.RING_N, cs.RING8192_N):
+            q1, q2 = from_gpu_style(ParamSet.STD128, True, 12, N=N).rgsw.rns_primes
+            for d2 in (4, 2):
+                out[f"rns_N{N}_d2={d2}"] = cs.rns_case(rng, q1, q2, peak, cs.RING_BATCH,
+                                                      cs.LWE_N_ACC, d2, N, rows=[0])
+        print(json.dumps(out), flush=True)
+        return 0
     if ring == cs.RING8192_N:
         out = {}
         if "--r64-only" not in sys.argv:

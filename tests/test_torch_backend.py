@@ -166,6 +166,18 @@ def test_ring8192_rns_params_are_supported(param_set, log_q, arb):
 @pytest.mark.parametrize("param_set", [params_mod.ParamSet.TOY, params_mod.ParamSet.STD128],
                          ids=lambda s: s.name)
 @pytest.mark.parametrize("log_q,arb", [(12, True), (17, False), (23, False)],
+                         ids=["logQ12-N16384", "logQ17-N16384", "logQ23-N16384"])
+def test_ring16384_rns_params_are_supported(param_set, log_q, arb):
+    """N = 16384: the accelerated sets with Q = q1*q2 on the RNS path
+    (blind_rotate_rns as a cluster of eight blocks)."""
+    params = params_mod.from_gpu_style(param_set, arb, log_q, N=16384)
+    assert params.rgsw.N == 16384 and params.rgsw.rns_primes == (133857281, 132710401)
+    assert TorchBackend.supports(params) and TorchBackend._path(params) == "rns"
+
+
+@pytest.mark.parametrize("param_set", [params_mod.ParamSet.TOY, params_mod.ParamSet.STD128],
+                         ids=lambda s: s.name)
+@pytest.mark.parametrize("log_q,arb", [(12, True), (17, False), (23, False)],
                          ids=["logQ12-N8192", "logQ17-N8192", "logQ23-N8192"])
 def test_ring8192_two_limb_params_are_supported(param_set, log_q, arb):
     """N = 8192 at the reference's single 54-bit prime: the accelerated
@@ -181,9 +193,9 @@ def test_ring8192_two_limb_params_are_supported(param_set, log_q, arb):
     params_mod.from_param_set(params_mod.ParamSet.STD192, params_mod.Method.AP),
     params_mod.from_gpu_style(params_mod.ParamSet.TOY, False, 17, N=16384,
                               rns_modulus=False),                         # two-limb, N = 16384
-    params_mod.from_gpu_style(params_mod.ParamSet.TOY, True, 12, N=16384),  # RNS, N = 16384
+    params_mod.from_gpu_style(params_mod.ParamSet.TOY, True, 12, N=32768),  # RNS, N = 32768
     params_mod.from_param_set(params_mod.ParamSet.STD128Q, params_mod.Method.AP),
-], ids=["std192-AP", "two-limb-N16384", "logQ12-N16384", "std128q-AP"])
+], ids=["std192-AP", "two-limb-N16384", "logQ12-N32768", "std128q-AP"])
 def test_unsupported_params_raise(params):
     be = TorchBackend("cpu")
     assert not be.supports(params)

@@ -20,7 +20,23 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 Q1, Q2 = 134176769, 134111233          # the accelerated sets' primes (N = 2048, 4096)
 Q1_8K, Q2_8K = 133857281, 133644289    # and at N = 8192
+Q1_16K, Q2_16K = 133857281, 132710401  # and at N = 16384
 M32 = (1 << 32) - 1
+
+
+def primes_of(N):
+    """The accelerated sets' (q1, q2) at ring N."""
+    return {8192: (Q1_8K, Q2_8K), 16384: (Q1_16K, Q2_16K)}.get(N, (Q1, Q2))
+
+
+class OutOfRange(Exception):
+    """A value left the lazy range that the kernel's arithmetic keeps it in:
+    in the hazard cases, a word read before it was written."""
+
+
+def in_range(x, hi):
+    if not ((x >= 0) & (x < hi)).all():
+        raise OutOfRange(f"a value outside [0, {hi})")
 
 
 def umulhi(a, b):
@@ -103,7 +119,7 @@ def fwd_group(regs, j, top, lo, q, fw, fws):
             u = csub(regs[..., k], 2 * q)
             v = mulmod_lazy(regs[..., k2], fw[idx], fws[idx], q)
             regs[..., k], regs[..., k2] = u + v, u + 2 * q - v
-    assert (regs < 4 * q).all()
+    in_range(regs, 4 * q)
     return regs
 
 
@@ -124,7 +140,7 @@ def inv_group(regs, j, top, lo, q, iw, iws):
             else:
                 regs[..., k] = csub(u + v, 2 * q)
             regs[..., k2] = mulmod_lazy(u + 2 * q - v, iw[idx], iws[idx], q)
-    assert (regs < 2 * q).all()
+    in_range(regs, 2 * q)
     return regs
 
 
@@ -163,9 +179,9 @@ def scatter(regs, C):
 
 
 @pytest.mark.parametrize("lane", [0, 1])
-@pytest.mark.parametrize("N", [256, 512, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("N", [256, 512, 1024, 2048, 4096, 8192, 16384])
 def test_merged_forward_and_inverse_equal_ntt(N, lane):
-    primes = (Q1_8K, Q2_8K) if N == 8192 else (Q1, Q2)
+    primes = primes_of(N)
     q = primes[lane]
     fw, fws, iw, iws = tables(N, lane, *primes)
     rng = np.random.default_rng(N + lane)
@@ -185,16 +201,18 @@ def test_merged_forward_and_inverse_equal_ntt(N, lane):
     assert torch.equal(got, ntt.inverse(y, q))
 
 
-@pytest.mark.parametrize("N", [256, 512, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("N", [256, 512, 1024, 2048, 4096, 8192, 16384])
 def test_register_exchanges_are_conflict_free_bijections(N):
     """Every group's layout covers each index once, every warp's access to a
     swizzled buffer hits 32 banks, and a block-wide barrier is needed only
-    where a group with C > 7 takes part. At N = 8192 the N/8 threads are
-    the two blocks of a cluster (rank = thread bit 9): each block's words
-    (bit 9 of j in group 0, bit 12 in the others) fill its half of the
-    buffer once with that bit dropped, banks unchanged, so that only the
-    exchange between groups 0 and 1 crosses blocks, and there register k
-    of group 1, or of group 0 in the inverse, lies in block k / 4."""
+    where a group with C > 7 takes part. At N = 8192 and 16384 the N/8
+    threads are the P = N / 4096 blocks of a lane (rank = thread bits
+    9 .. 8 + log2 P): each block's words (those bits of j in group 0, the
+    top log2 P bits in the others) fill its part of the buffer once with
+    them dropped (cluster.cuh's drop_rank in group 0), banks unchanged, so
+    that only the exchange between groups 0 and 1 crosses blocks, and there
+    register k of group 1, or of group 0 in the inverse, lies in block
+    k >> (3 - log2 P)."""
     TG = N // 8
     phys = swz(torch.arange(N))
     assert torch.equal(phys.sort().values, torch.arange(N))
@@ -213,20 +231,24 @@ def test_register_exchanges_are_conflict_free_bijections(N):
         assert same_warp == (max(c_a, c_b) <= 7)
     if N < 8192:
         return
-    half, rank = N // 2, torch.arange(TG)[:, None] >> 9             # [TG, 1]
+    P = N // 4096
+    lp = P.bit_length() - 1
+    rank = torch.arange(TG)[:, None] >> 9                            # [TG, 1]
     k = torch.arange(8)[None, :]
     for g, (C, _, _) in enumerate(grp):
         j = owned(C, TG)
         bit = 9 if g == 0 else 12
-        assert torch.equal(j >> bit & 1, rank.expand(TG, 8))         # the block's words
-        if g == 1:
-            assert torch.equal(j >> 9 & 1, (k >> 2).expand(TG, 8))   # the forward's crossing
-        if g == 0:
-            assert torch.equal(j >> 12 & 1, (k >> 2).expand(TG, 8))  # the inverse's
-        for r in range(2):
-            s = swz(j[r * TG // 2:(r + 1) * TG // 2])
-            word = ((s >> (bit + 1)) << bit) | (s & ((1 << bit) - 1))
-            assert torch.equal(word.reshape(-1).sort().values, torch.arange(half))
+        assert torch.equal(j >> bit & (P - 1), rank.expand(TG, 8))   # the block's words
+        if g == 1:                                                   # the forward's crossing
+            assert torch.equal(j >> 9 & (P - 1), (k >> (3 - lp)).expand(TG, 8))
+        if g == 0:                                                   # the inverse's
+            assert torch.equal(j >> 12 & (P - 1), (k >> (3 - lp)).expand(TG, 8))
+        for r in range(P):
+            s = swz(j[r * TG // P:(r + 1) * TG // P])
+            word = ((s >> (bit + lp)) << bit) | (s & ((1 << bit) - 1))
+            if g == 0:
+                assert torch.equal(word, drop_rank(s, P))
+            assert torch.equal(word.reshape(-1).sort().values, torch.arange(N // P))
             assert torch.equal(word % 32, s % 32)
 
 
@@ -278,7 +300,7 @@ def lane_round(a, digs, key, lane, q, m_pos):
         p = (mulmod_lazy(x[:, None, 0], v0, s0, q)
              + mulmod_lazy(x[:, None, 1], v1, s1, q))        # [B, 4, TG, 8]
         u = p if u is None else u + p
-        assert (u < 1 << 32).all()
+        in_range(u, 1 << 32)
     u = u - umulhi(u, red_sh) * q
     u = csub(inverse_regs(u, q, iw, iws), q)                   # [B, 4, TG, 8]
     out = scatter(u, grp[0][0])                                # [B, 4, N]
@@ -294,7 +316,7 @@ def lane_round(a, digs, key, lane, q, m_pos):
         v0 = torch.where(r0 < N, c0, q - c0)
         v1 = torch.where(r1_ < N, c1, q - c1)
         s = a[:, o] + v0 + (q - u[:, o]) + v1 + (q - u[:, 2 + o])
-        assert (s < 5 * q).all()
+        in_range(s, 5 * q)
         a[:, o] = csub(csub(csub(s, 4 * q), 2 * q), q)
     return a
 
@@ -320,84 +342,90 @@ def emulate_rotation(acc1, acc2, a_idx, key, q1, q2, base_g, throw):
     return acc[0].to(torch.int32), acc[1].to(torch.int32)
 
 
-def drop_bit9(j):
-    """The word of j in its owner's half when the owner is bit 9 of j."""
-    return ((j >> 10) << 9) | (j & 511)
+def drop_rank(j, P):
+    """The word of j in its owner's part when the owner is bits
+    9 .. 8 + log2 P of j (cluster.cuh's drop_rank)."""
+    lp = P.bit_length() - 1
+    return ((j >> (9 + lp)) << 9) | (j & 511)
 
 
-# The N = 8192 kernel's buffers in a block's shared memory, in units of
-# S = N / 2 words: the output lies over the crossing's and the forward's
-# buffers; 11 S in all.
+# The N >= 8192 kernel's buffers in a block's shared memory, in units of
+# S = 4096 words (N / P): the output lies over the crossing's and the
+# forward's buffers; 11 S in all.
 LAYOUT_8192 = {"acc": 0, "digits": 2, "inverse": 3, "crossing": 7, "forward": 9,
                "output": 7}
-BARRIERS_8192 = ("digits", "round")   # the cluster barriers a hazard may drop
 
 
-def emulate_four_blocks(acc1, acc2, a_idx, key, q1, q2, base_g, throw, layout=None,
+def emulate_lane_blocks(acc1, acc2, a_idx, key, q1, q2, base_g, throw, P, layout=None,
                         block_barriers=()):
-    """The kernel's N = 8192 layout: one ciphertext on a cluster of four
-    blocks of 512 threads, rank = 2 lane + half, logical thread t = half *
-    512 + threadIdx.x of the lane's N/8. Each block's shared memory
-    [B, 11 S] words (S = N / 2) is its own tensor, its buffers at `layout`
-    (LAYOUT_8192 unless given); a word of another block is read from that
-    block's tensor. A block holds the words of the lane's polynomials whose
-    owner bit (bit 9 of j in register group 0, bit 12 after) is its half,
-    at drop_bit9 of the word.
+    """The kernel's layout at N = 4096 P (P = 2 or 4 blocks a residue
+    lane): one ciphertext on a cluster of 2 P blocks of 512 threads, rank =
+    P lane + part, logical thread t = part * 512 + threadIdx.x of the lane's
+    N/8. Each block's shared memory [B, 11 S] words (S = N / P = 4096) is
+    its own tensor, its buffers at `layout` (LAYOUT_8192 unless given); a
+    word of another block is read from that block's tensor. A block holds
+    the words of the lane's polynomials whose owner bits (bits
+    9 .. 8 + log2 P of j in register group 0, the top log2 P bits after) are
+    its part, at drop_rank of the word in group 0.
 
     Each block runs as a generator that stops at every cluster barrier:
-    after the load; per kept digit, after the digits are written (A_l) and
-    in the forward's crossing (B_l); in the inverse's crossing (C); after
-    the output is written (E); at the round's end (F). At each, block 0
-    runs on to its next barrier, then blocks 1, 2 and 3, so a block reads
-    another's buffers after that block has written whatever it writes before
-    the next barrier: the latest such a read can come. Barriers inside a
-    block are not modelled. A barrier named in `block_barriers` ("digits":
-    every A_l, "round": every F) is a block barrier, which no other block
-    waits for; a block that leaves zeroes its shared memory."""
+    after the load; per kept digit, after the digits are written (A_l,
+    "digits") and in the forward's crossing (B_l, "forward"); in the
+    inverse's crossing (C, "inverse"); after the output is written (E,
+    "output"); at the round's end (F, "round"). At each, block 0 runs on to
+    its next barrier, then block 1, and so on, so a block reads another's
+    buffers after that block has written whatever it writes before the next
+    barrier: the latest such a read can come. Barriers inside a block are
+    not modelled. A barrier named in `block_barriers` is a block barrier,
+    which no other block waits for; a block that leaves zeroes its shared
+    memory."""
     B, _, N = acc1.shape
     n, rows, _ = key.shape
-    d2, S, TB = rows // 8, N // 2, N // 16
+    d2, S, TB, TG = rows // 8, N // P, 512, N // 8
     digits, g_bits = d2 // 2, base_g.bit_length() - 1
     grp = groups(N.bit_length() - 1)
-    assert len(grp) == 5 and N == 8192
+    assert len(grp) == 5 and S == 4096 and P in (2, 4)
     at = {name: S * v for name, v in (layout or LAYOUT_8192).items()}
     key = (key.to(torch.int64) & M32).reshape(n, 2, 4, d2, N)
-    smem = [torch.full((B, 11 * S), -1, dtype=torch.int64) for _ in range(4)]
-    result = [None] * 4
+    smem = [torch.full((B, 11 * S), -1, dtype=torch.int64) for _ in range(2 * P)]
+    result = [None] * (2 * P)
     tid = torch.arange(TB)
     sums_w = (8 * (tid & ~31) + (tid & 31))[:, None] + 32 * torch.arange(8)   # [TB, 8]
 
+    def barrier(name):
+        return name not in block_barriers
+
     def write(rank, base, words, regs):
-        """regs [B, P, TB, 8] to block rank's words base + p S + words."""
+        """regs [B, NP, TB, 8] to block rank's words base + p S + words."""
         for p in range(regs.shape[1]):
             smem[rank][:, base + p * S + words.reshape(-1)] = regs[:, p].reshape(B, -1)
 
-    def read(ranks, owner, base, words, P):
-        """[B, P, TB, 8] from the words base + p S + words, each element from
-        block ranks[owner] (owner [TB, 8] of 0 and 1)."""
+    def read(ranks, owner, base, words, NP):
+        """[B, NP, TB, 8] from the words base + p S + words, each element
+        from block ranks[owner] (owner [TB, 8] in [0, len(ranks)))."""
         out = []
-        for p in range(P):
+        for p in range(NP):
             w = (base + p * S + words).reshape(-1)
-            got = torch.where(owner.reshape(-1) == 0, smem[ranks[0]][:, w], smem[ranks[1]][:, w])
+            vals = torch.stack([smem[r][:, w] for r in ranks])              # [R, B, W]
+            got = vals.gather(0, owner.reshape(1, 1, -1).expand(1, B, -1))[0]
             out.append(got.reshape(B, TB, 8))
         return torch.stack(out, 1)
 
     def block(rank):
-        lane, half = rank >> 1, rank & 1
+        lane, part = rank // P, rank % P
         q = (q1, q2)[lane]
         fw, fws, iw, iws = tables(N, lane, q1, q2)
         red_sh = int(fws[0])
-        halves = (rank & 2, (rank & 2) | 1)                   # this lane's two blocks
-        t = half * TB + tid
-        js = [owned(C, 2 * TB)[t] for C, _, _ in grp]         # [TB, 8] per group
-        w0 = drop_bit9(js[0])                                  # register k's word
+        parts = tuple(lane * P + i for i in range(P))         # this lane's blocks
+        t = part * TB + tid
+        js = [owned(C, TG)[t] for C, _, _ in grp]             # [TB, 8] per group
+        w0 = drop_rank(js[0], P)                               # register k's word
         mine = torch.zeros((TB, 8), dtype=torch.int64)
 
         def local(C_from, C_to, regs, base):
-            """A block-local exchange in the block's half (bit 12 dropped)."""
-            write(rank, base, swz(owned(C_from, 2 * TB)[t]) & (S - 1), regs)
-            return read((rank, rank), mine, base, swz(owned(C_to, 2 * TB)[t]) & (S - 1),
-                        regs.shape[1])
+            """A block-local exchange in the block's part (top bits dropped)."""
+            write(rank, base, swz(owned(C_from, TG)[t]) & (S - 1), regs)
+            return read((rank,), mine, base, swz(owned(C_to, TG)[t]) & (S - 1), regs.shape[1])
 
         lane_acc = (acc1, acc2)[lane].to(torch.int64)
         for o in range(2):
@@ -405,21 +433,23 @@ def emulate_four_blocks(acc1, acc2, a_idx, key, q1, q2, base_g, throw, layout=No
         yield                                                  # after the load
         for r in range(n):
             own = smem[rank][:, at["acc"] + lane * S + w0]
-            other = smem[rank ^ 2][:, at["acc"] + lane * S + w0]
+            other = smem[rank ^ P][:, at["acc"] + lane * S + w0]
             r1, r2 = (own, other) if lane == 0 else (other, own)
             digs = centred_digits(r1, r2, q1, q2, g_bits, throw, digits)
             u = None
             for l in range(digits):
                 smem[rank][:, at["digits"] + w0] = digs[l]
-                if "digits" not in block_barriers:
+                if barrier("digits"):
                     yield                                      # A_l
                 own = smem[rank][:, at["digits"] + w0]
-                other = smem[rank ^ 2][:, at["digits"] + w0]
+                other = smem[rank ^ P][:, at["digits"] + w0]
                 x = torch.stack((own, other) if lane == 0 else (other, own), 1)
                 x = fwd_group(torch.where(x < 0, x + q, x), js[0], *grp[0][1:], q, fw, fws)
-                write(rank, at["crossing"], drop_bit9(swz(js[0])), x)
-                yield                                          # B_l
-                x = read(halves, js[1] >> 9 & 1, at["crossing"], drop_bit9(swz(js[1])), 2)
+                write(rank, at["crossing"], drop_rank(swz(js[0]), P), x)
+                if barrier("forward"):
+                    yield                                      # B_l
+                x = read(parts, js[1] >> 9 & (P - 1), at["crossing"],
+                         drop_rank(swz(js[1]), P), 2)
                 x = fwd_group(x, js[1], *grp[1][1:], q, fw, fws)
                 for g in range(2, 5):
                     x = local(grp[g - 1][0], grp[g][0], x, at["forward"])
@@ -430,8 +460,8 @@ def emulate_four_blocks(acc1, acc2, a_idx, key, q1, q2, base_g, throw, layout=No
                 p = (mulmod_lazy(x[:, None, 0], v0, s0, q)
                      + mulmod_lazy(x[:, None, 1], v1, s1, q))  # [B, 4, TB, 8]
                 if l:
-                    p = p + read((rank, rank), mine, at["inverse"], sums_w, 4)
-                assert (p < 1 << 32).all()
+                    p = p + read((rank,), mine, at["inverse"], sums_w, 4)
+                in_range(p, 1 << 32)
                 if l + 1 < digits:
                     write(rank, at["inverse"], sums_w, p)
                 else:
@@ -442,33 +472,34 @@ def emulate_four_blocks(acc1, acc2, a_idx, key, q1, q2, base_g, throw, layout=No
                 u = local(grp[g + 1][0], grp[g][0], u, at["inverse"])
                 u = inv_group(u, js[g], *grp[g][1:], q, iw, iws)
             write(rank, at["inverse"], swz(js[1]) & (S - 1), u)
-            yield                                              # C
-            u = read(halves, js[0] >> 12 & 1, at["inverse"], swz(js[0]) & (S - 1), 4)
+            if barrier("inverse"):
+                yield                                          # C
+            u = read(parts, js[0] >> 12 & (P - 1), at["inverse"], swz(js[0]) & (S - 1), 4)
             u = csub(inv_group(u, js[0], *grp[0][1:], q, iw, iws), q)
             write(rank, at["output"], w0, u)
-            yield                                              # E
+            if barrier("output"):
+                yield                                          # E
             m_pos = a_idx[:, r].to(torch.int64)[:, None, None]
             m_neg = (2 * N - m_pos) & (2 * N - 1)
             for o in range(2):
                 v = []
                 for ko, m in ((o, m_pos), (2 + o, m_neg)):
                     rot = (js[0] - m) & (2 * N - 1)             # [B, TB, 8]
-                    c = rot & (N - 1)
-                    w = (at["output"] + ko * S + drop_bit9(c)).reshape(B, -1)
-                    got = torch.where((c >> 9 & 1).reshape(B, -1) == 0,
-                                      torch.gather(smem[halves[0]], 1, w),
-                                      torch.gather(smem[halves[1]], 1, w)).reshape(B, TB, 8)
+                    c = (rot & (N - 1)).reshape(B, -1)
+                    w = at["output"] + ko * S + drop_rank(c, P)
+                    vals = torch.stack([torch.gather(smem[h], 1, w) for h in parts])
+                    got = vals.gather(0, (c >> 9 & (P - 1))[None])[0].reshape(B, TB, 8)
                     v.append(torch.where(rot < N, got, q - got))
                 a = smem[rank][:, at["acc"] + o * S + w0]
                 s_ = a + v[0] + (q - u[:, o]) + v[1] + (q - u[:, 2 + o])
-                assert (s_ < 5 * q).all()
+                in_range(s_, 5 * q)
                 smem[rank][:, at["acc"] + o * S + w0] = csub(csub(csub(s_, 4 * q), 2 * q), q)
-            if "round" not in block_barriers:
+            if barrier("round"):
                 yield                                          # F
         result[rank] = torch.stack([smem[rank][:, at["acc"] + o * S + w0] for o in range(2)], 1)
         smem[rank].zero_()                                     # the block leaves
 
-    running = [block(rank) for rank in range(4)]
+    running = [block(rank) for rank in range(2 * P)]
     while running:
         for g in list(running):
             try:
@@ -476,16 +507,16 @@ def emulate_four_blocks(acc1, acc2, a_idx, key, q1, q2, base_g, throw, layout=No
             except StopIteration:
                 running.remove(g)
     out = [torch.empty((B, 2, N), dtype=torch.int64) for _ in range(2)]
-    for rank in range(4):
-        t = (rank & 1) * TB + tid
-        j = owned(grp[0][0], 2 * TB)[t].reshape(-1)
-        out[rank >> 1][..., j] = result[rank].reshape(B, 2, -1)
+    for rank in range(2 * P):
+        t = (rank % P) * TB + tid
+        j = owned(grp[0][0], TG)[t].reshape(-1)
+        out[rank // P][..., j] = result[rank].reshape(B, 2, -1)
     return out[0].to(torch.int32), out[1].to(torch.int32)
 
 
 def emulate_cluster_rotation(acc1, acc2, a_idx, key, q1, q2, base_g, throw, **hazard):
-    """The kernel's cluster layouts. N = 8192: `emulate_four_blocks`. N =
-    4096: a cluster of two blocks, rank =
+    """The kernel's cluster layouts. N = 8192 and 16384: `emulate_lane_blocks`
+    with P = 2 and 4 blocks a lane. N = 4096: a cluster of two blocks, rank =
     residue lane, each with its own shared memory, laid out as the kernel
     lays it out (words: accumulator [2][N] at 0, the forward's buffer at
     2N, the digits [2 parities][N] at 4N, the inverse's output at 6N and
@@ -496,8 +527,9 @@ def emulate_cluster_rotation(acc1, acc2, a_idx, key, q1, q2, base_g, throw, **ha
     barrier, reads its own and the peer's. Both ranks finish a step before
     either starts the next, as the cluster barriers order them."""
     B, _, N = acc1.shape
-    if N == 8192:
-        return emulate_four_blocks(acc1, acc2, a_idx, key, q1, q2, base_g, throw, **hazard)
+    if N >= 8192:
+        return emulate_lane_blocks(acc1, acc2, a_idx, key, q1, q2, base_g, throw, N // 4096,
+                                   **hazard)
     n, rows, _ = key.shape
     d2, TG, g_bits = rows // 8, N // 8, base_g.bit_length() - 1
     C0 = groups(N.bit_length() - 1)[0][0]
@@ -553,7 +585,7 @@ def test_emulated_kernel_round_equals_plain(N, d2, throw, base_log):
 def cluster_inputs(N, d2, seed, B=2, n=2):
     """acc1, acc2, a_idx and a pack_bsk_rns key at the ring's primes; row 0
     of the exponents holds 0 and 2N - 1."""
-    q1, q2 = (Q1_8K, Q2_8K) if N == 8192 else (Q1, Q2)
+    q1, q2 = primes_of(N)
     rng = np.random.default_rng(seed)
     acc = [torch.from_numpy(rng.integers(0, qi, (B, 2, N)).astype(np.int32)) for qi in (q1, q2)]
     a_idx = torch.from_numpy(rng.integers(0, 2 * N, (B, n)).astype(np.int32))
@@ -564,14 +596,16 @@ def cluster_inputs(N, d2, seed, B=2, n=2):
 
 @pytest.mark.parametrize("N,d2,throw,base_log", [
     (4096, 4, 1, 18), (4096, 2, 1, 27), (8192, 4, 1, 18), (8192, 2, 1, 27),
-    (8192, 8, 0, 7)], ids=["base18", "base27", "N8192-base18", "N8192-base27",
-                           "N8192-base7-throw0"])
+    (8192, 8, 0, 7), (16384, 4, 1, 18), (16384, 2, 1, 27), (16384, 8, 0, 7)],
+    ids=["base18", "base27", "N8192-base18", "N8192-base27", "N8192-base7-throw0",
+         "N16384-base18", "N16384-base27", "N16384-base7-throw0"])
 def test_emulated_cluster_round_equals_plain(N, d2, throw, base_log):
     """N = 4096: the two blocks of a cluster, each reading the peer's
-    residues and digits; N = 8192: the four blocks, two a lane, also
-    crossing inside each transform and in the rotated reads. Both give the
-    plain rotation, and a block's buffers fit the 227 KB it may use."""
-    words = 14 * N if N == 4096 else 11 * N // 2
+    residues and digits; N = 8192 and 16384: the four and eight blocks, two
+    and four a lane, also crossing inside each transform and in the rotated
+    reads. All give the plain rotation, and a block's buffers fit the 227 KB
+    it may use."""
+    words = 14 * N if N == 4096 else 11 * 4096
     assert words * 4 + 4 <= 232448
     acc, a_idx, key, q1, q2 = cluster_inputs(N, d2, base_log if N == 4096 else N + d2)
     want = blindrotate_rns.blind_rotate_rns(*acc, a_idx, key, q1, q2, 1 << base_log, throw)
@@ -609,6 +643,52 @@ def test_four_block_hazards_show_in_the_emulation(hazard):
     else:
         kw["block_barriers"] = ("digits",) if hazard.startswith("digits") else ("round",)
     got = emulate_cluster_rotation(*acc, a_idx, key, q1, q2, base_g, throw, layout=layout, **kw)
+    assert not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+
+
+@pytest.fixture(scope="module")
+def eight_block_case():
+    """The eight-block hazard cases' inputs at N = 16384, base 2^18, d2 = 4,
+    one digit thrown, and the plain result, which the emulation without a
+    hazard gives on them."""
+    N, d2, throw, base_g = 16384, 4, 1, 1 << 18
+    acc, a_idx, key, q1, q2 = cluster_inputs(N, d2, seed=16384)
+    args = (*acc, a_idx, key, q1, q2, base_g, throw)
+    want = blindrotate_rns.blind_rotate_rns(*args)
+    got = emulate_cluster_rotation(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return args, want
+
+
+@pytest.mark.parametrize("hazard", ["output over the inverse's buffer",
+                                    "digits over the crossing's buffer",
+                                    "crossing over the forward's buffer",
+                                    "digits", "forward", "inverse", "output", "round"],
+                         ids=["output-over-inverse", "digits-over-crossing",
+                              "crossing-over-forward", "A-in-the-block", "B-in-the-block",
+                              "C-in-the-block", "E-in-the-block", "F-in-the-block"])
+def test_eight_block_hazards_show_in_the_emulation(eight_block_case, hazard):
+    """N = 16384, four blocks a lane: the emulated cluster equals the plain
+    version only with the kernel's layout and all five cluster barriers a
+    round. The three layouts of the four-block case go wrong here too, and
+    a block barrier in place of any of A_l, B_l, C, E or F lets a block
+    read another's words before they are written (F: also the accumulator
+    before the round has updated it). A case counts a wrong result or a
+    value out of its lazy range (`OutOfRange`), nothing else."""
+    args, want = eight_block_case
+    layout, kw = dict(LAYOUT_8192), {}
+    if hazard == "output over the inverse's buffer":
+        layout["output"] = layout["inverse"]
+    elif hazard == "digits over the crossing's buffer":
+        layout["digits"] = layout["crossing"]
+    elif hazard == "crossing over the forward's buffer":
+        layout["crossing"] = layout["forward"]
+    else:
+        kw["block_barriers"] = (hazard,)
+    try:
+        got = emulate_cluster_rotation(*args, layout=layout, **kw)
+    except OutOfRange:
+        return                  # a word read too early left the lazy ranges
     assert not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
 
 

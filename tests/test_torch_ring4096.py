@@ -104,16 +104,18 @@ def on_jax_backend(jc, op):
 
 
 def test_kernel_wrappers_take_their_rings():
-    """The gate, RNS and 64-bit kernels take N = 4096 and N = 8192, and
-    refuse N = 16384."""
+    """The gate, RNS and 64-bit kernels take N = 4096 and N = 8192; the RNS
+    kernel also takes N = 16384 and refuses N = 32768, the other two refuse
+    N = 16384."""
     assert N in rotate_kernel.RING_DIMS and rotate_kernel.RING_DIMS[-1] == 2 * N
-    assert rotate_rns_kernel.RING_DIMS[-1] == 2 * N and rotate64_kernel.RING_DIMS[-1] == 2 * N
+    assert rotate_rns_kernel.RING_DIMS[-1] == 4 * N and rotate64_kernel.RING_DIMS[-1] == 2 * N
     rotate_rns_kernel.check_params(N, 4, Q1, Q2, 1 << 18)
     rotate_rns_kernel.check_params(2 * N, 4, 133857281, 133644289, 1 << 18)
+    rotate_rns_kernel.check_params(4 * N, 4, 133857281, 132710401, 1 << 18)
     rotate64_kernel.check_params(N, 4, (1 << 54) - 33, 1 << 18)
     rotate64_kernel.check_params(2 * N, 4, (1 << 54) - 33, 1 << 18)
     with pytest.raises(ValueError):
-        rotate_rns_kernel.check_params(4 * N, 4, Q1, Q2, 1 << 18)
+        rotate_rns_kernel.check_params(8 * N, 4, Q1, Q2, 1 << 18)
     with pytest.raises(ValueError):
         rotate64_kernel.check_params(4 * N, 4, (1 << 54) - 33, 1 << 18)
 

@@ -72,7 +72,7 @@ def test_kernel_takes_the_ring():
     rotate_rns_kernel.check_params(N, 4, Q1, Q2, 1 << 18)
     rotate_rns_kernel.check_params(N, 2, Q1, Q2, 1 << 27)
     with pytest.raises(ValueError):
-        rotate_rns_kernel.check_params(2 * N, 4, Q1, Q2, 1 << 18)
+        rotate_rns_kernel.check_params(4 * N, 4, Q1, Q2, 1 << 18)
 
 
 def test_sets_take_the_rns_path(rns):

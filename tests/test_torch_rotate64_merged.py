@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 from chip_smoke import rotate64_cases
-from test_torch_ntt_merged import (M32, drop_bit9, extract, groups, owned, scatter, swz,
+from test_torch_ntt_merged import (M32, drop_rank, extract, groups, owned, scatter, swz,
                                    twiddle_index)
 from test_torch_ntt_merged import exchange as exchange32
 
@@ -299,7 +299,8 @@ def emulate_four_blocks(acc, a_idx, key, Q, base_g, throw, layout=None, block_ba
     `layout` (LAYOUT_8192 unless given); a word of another block is read
     from that block's tensor. A block holds the words of its polynomial
     whose owner bit (bit 9 of j in register group 0, bit 12 after) is its
-    half, at drop_bit9 of the word in group 0 and with bit 12 dropped after;
+    half, at the word with bit 9 dropped in group 0 (drop_rank(j, 2)) and
+    with bit 12 dropped after;
     a u64 is two u32 planes S words apart, as cluster.cuh's crossings move
     it, and the output u64 words in natural order.
 
@@ -384,11 +385,11 @@ def emulate_four_blocks(acc, a_idx, key, Q, base_g, throw, layout=None, block_ba
                 remainders(d)
                 x = torch.where(rr < 0, rr + Q, rr)[:, None]   # [B, 1, TB, 8]
                 x = fwd_group(x, js[0], *grp[0][1:], Q, fw, fws)
-                write(rank, at["crossing"], drop_bit9(swz(js[0])), planes(x))
+                write(rank, at["crossing"], drop_rank(swz(js[0]), 2), planes(x))
                 if barrier("B"):
                     yield                                      # B_l
                 x = unplanes(read(halves, js[1] >> 9 & 1, at["crossing"],
-                                  drop_bit9(swz(js[1])), 2))
+                                  drop_rank(swz(js[1]), 2), 2))
                 x = fwd_group(x, js[1], *grp[1][1:], Q, fw, fws)
                 for g in range(2, 5):
                     x = local(grp[g - 1][0], grp[g][0], x, at["forward"])
@@ -418,7 +419,7 @@ def emulate_four_blocks(acc, a_idx, key, Q, base_g, throw, layout=None, block_ba
                 yield                                          # C
             u = unplanes(read(halves, js[0] >> 12 & 1, at["inverse"], swz(js[0]) & (S - 1), 4))
             u = csub(inv_group(u, js[0], *grp[0][1:], Q, iw, iws), Q)   # [B, 2, TB, 8]
-            w0 = at["output"] + 2 * drop_bit9(js[0])
+            w0 = at["output"] + 2 * drop_rank(js[0], 2)
             for i in range(2):
                 smem[rank][:, (w0 + 2 * i * S).reshape(-1)] = (u[:, i] & M32).reshape(B, -1)
                 smem[rank][:, (w0 + 2 * i * S + 1).reshape(-1)] = (u[:, i] >> 32).reshape(B, -1)
@@ -430,7 +431,7 @@ def emulate_four_blocks(acc, a_idx, key, Q, base_g, throw, layout=None, block_ba
             for i, m in ((0, m_pos), (1, m_neg)):
                 rot = (js[0] - m) & (2 * N - 1)                 # [B, TB, 8]
                 c = rot & (N - 1)
-                w = (at["output"] + 2 * (i * S + drop_bit9(c))).reshape(B, -1)
+                w = (at["output"] + 2 * (i * S + drop_rank(c, 2))).reshape(B, -1)
                 own = (c >> 9 & 1).reshape(B, -1) == 0
                 lo = torch.where(own, torch.gather(smem[halves[0]], 1, w),
                                  torch.gather(smem[halves[1]], 1, w))
@@ -569,7 +570,7 @@ def test_register_exchanges64_are_conflict_free_bijections(N):
             jr = j[r * TG // blocks:(r + 1) * TG // blocks]
             s = swz(jr)
             if blocks == 2:
-                s = drop_bit9(s) if g == 0 else s & (S - 1)
+                s = drop_rank(s, 2) if g == 0 else s & (S - 1)
             word = torch.cat([s, s + S]).reshape(-1)              # the two planes
             assert torch.equal(word.sort().values, torch.arange(2 * S))
             for w in range(0, jr.shape[0], 32):

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 from chip_smoke import gate_cases
-from test_torch_ntt_merged import (M32, csub, drop_bit9, extract, forward_regs, fwd_group, groups,
+from test_torch_ntt_merged import (M32, csub, drop_rank, extract, forward_regs, fwd_group, groups,
                                    inv_group, inverse_regs, mulmod_lazy, owned, scatter,
                                    swz, umulhi)
 
@@ -175,9 +175,9 @@ def emulate_cluster_rotation(acc, a_idx, bsk_pack, Q, base_g, throw, parity=None
                 rr, d = extract(d, g_bits)
                 x = fwd_group(torch.where(rr < 0, rr + Q, rr), js[0], *grp[0][1:], Q, fw, fws)
                 par = X + 2 * S * parity(r, l)
-                write(h, par, drop_bit9(swz(js[0])), x)
+                write(h, par, drop_rank(swz(js[0]), 2), x)
                 yield                                              # the crossing
-                x = read(js[1] >> 9 & 1, par, drop_bit9(swz(js[1])), 2)
+                x = read(js[1] >> 9 & 1, par, drop_rank(swz(js[1]), 2), 2)
                 x = fwd_group(x, js[1], *grp[1][1:], Q, fw, fws)
                 for g in range(2, 5):
                     x = local(h, grp[g - 1][0], grp[g][0], x, F)
@@ -203,7 +203,7 @@ def emulate_cluster_rotation(acc, a_idx, bsk_pack, Q, base_g, throw, parity=None
             yield                                                  # the inverse's crossing
             u = read(js[0] >> 12 & 1, I, swz(js[0]) & (S - 1), 4)
             u = csub(inv_group(u, js[0], *grp[0][1:], Q, iw, iws), Q)
-            write(h, O, drop_bit9(js[0]), u)
+            write(h, O, drop_rank(js[0], 2), u)
             yield                                                  # the output
             m_pos = a_idx[:, r].to(torch.int64)[:, None, None]
             m_neg = (2 * N - m_pos) & (2 * N - 1)
@@ -212,7 +212,7 @@ def emulate_cluster_rotation(acc, a_idx, bsk_pack, Q, base_g, throw, parity=None
                 for ko, m in ((o, m_pos), (2 + o, m_neg)):
                     rot = (js[0] - m) & (2 * N - 1)                 # [B, TB, 8]
                     c = rot & (N - 1)
-                    w = (O + ko * S + drop_bit9(c)).reshape(B, -1)
+                    w = (O + ko * S + drop_rank(c, 2)).reshape(B, -1)
                     got = torch.where((c >> 9 & 1).reshape(B, -1) == 0,
                                       torch.gather(smem[0], 1, w), torch.gather(smem[1], 1, w))
                     got = got.reshape(B, TB, 8)

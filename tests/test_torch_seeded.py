@@ -201,3 +201,33 @@ def test_seeded_keygen_runs_on_the_contexts_device():
         with pytest.raises((RuntimeError, AssertionError)):
             cc.bt_key_gen(sk)
         assert cc.bt_key is None
+
+
+def test_selected_rows_equal_the_materialized_block():
+    """TOY's accelerated seeded switching key (n = 32, N = 1024, qKS = 2^35,
+    baseKS 32: 229,376 rows over four chunks): the rows that `SeededRows`
+    draws for each read, and a host key switch of a batch through it, equal
+    the materialized block's, word for word."""
+    from tfhe_tpu_torch.params import ParamSet
+
+    tc = tfhe_tpu_torch.BinFHEContext(seed=2027, seeded_ksk=True, device="cpu")
+    tc.generate_binfhe_context(ParamSet.TOY, arb_func=False, log_q=17, num_digits_to_throw=1)
+    tc.bt_key_gen(tc.key_gen())
+    full = tc.bt_key.ksk
+    drawn = lwe.SeededSwitchingKey(full.seed, full.N, full.base_ks, full.digit_count, full.n,
+                                   full.q_ks, full.B)
+    drawn.select_rows_on("cpu")
+    p = tc.params.lwe
+    assert isinstance(drawn.A, lwe.SeededRows) and drawn._A is None
+    assert full.rows > 3 * lwe.KSK_ROW_CHUNK
+    rng = np.random.default_rng(2027)
+    i = rng.integers(0, p.N, (3, p.N))
+    i[0, :4] = [0, p.N - 1, lwe.KSK_ROW_CHUNK // (p.base_ks * p.digit_count_ks), 0]
+    a0 = rng.integers(0, p.base_ks, (3, p.N))
+    for j in range(p.digit_count_ks):
+        assert np.array_equal(drawn.A[i, a0, j], full.A[i, a0, j])
+    ct = lwe.LWECiphertext(rng.integers(0, p.Q, (5, p.N)).astype(np.uint64),
+                           rng.integers(0, p.Q, 5).astype(np.uint64), p.Q)
+    want, got = lwe.key_switch(p, full, ct), lwe.key_switch(p, drawn, ct)
+    assert np.array_equal(got.a, want.a) and np.array_equal(got.b, want.b)
+    assert drawn._A is None                      # the block was never built

@@ -127,7 +127,7 @@ namespace {
 using dsmem::cluster_sync;
 using dsmem::cross_forward;
 using dsmem::cross_inverse;
-using dsmem::drop_bit9;
+using dsmem::drop_rank;
 using dsmem::ld_peer;
 using rntt::csub;
 using rntt::mulmod_lazy;
@@ -327,7 +327,7 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         u[ko][k] = csub(u[ko][k], Q);
-        obuf[ko * S + (CL ? drop_bit9(t + k * TG) : t + k * TG)] = u[ko][k];
+        obuf[ko * S + (CL ? drop_rank<2>(t + k * TG) : t + k * TG)] = u[ko][k];
       }
     if constexpr (CL)
       cluster_sync();
@@ -338,7 +338,7 @@ blind_rotate_kernel(const uint32_t* __restrict__ acc_in,
     // the output's coefficient c of polynomial ko
     auto output = [&](int ko, int c) -> uint32_t {
       if constexpr (CL)
-        return ld_peer(((c >> 9) & 1 ? at[1] : at[0]) + 4 * (10 * S + ko * S + drop_bit9(c)));
+        return ld_peer(((c >> 9) & 1 ? at[1] : at[0]) + 4 * (10 * S + ko * S + drop_rank<2>(c)));
       else
         return obuf[ko * N + c];
     };

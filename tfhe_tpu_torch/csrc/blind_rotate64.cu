@@ -113,7 +113,7 @@
 // memory per block, in words: the inverse's buffer [2][2 planes][S] (with
 // the waiting sums) at 0, the crossing's buffer [2 planes][S] at 4S, the
 // forward's [2 planes][S] at 6S, the inverse's output [2][S] u64 (natural
-// order, word drop_bit9(j)) at 6S, over the forward's buffer and the 2S
+// order, word drop_rank<2>(j)) at 6S, over the forward's buffer and the 2S
 // words after it, and at 10S the remainders of the centred accumulator
 // that the digits are taken from ([8][512] int64, the thread's own: a
 // variant that kept them in registers, as below N = 8192, spilled 8-24
@@ -172,7 +172,7 @@ namespace {
 
 using dsmem::cluster_rank;
 using dsmem::cluster_sync;
-using dsmem::drop_bit9;
+using dsmem::drop_rank;
 using dsmem::ld_peer;
 using dsmem::peer_address;
 using rntt64::csub;
@@ -460,7 +460,7 @@ blind_rotate64_kernel(const u64* __restrict__ acc_in, u64* __restrict__ acc_out,
     const int m_neg = (2 * N - m_pos) & (2 * N - 1);
     auto output = [&](int i, int c) -> u64 {
       if constexpr (HALF) {
-        const uint32_t a = this_poly(F_AT + 2 * (i * S + drop_bit9(c)), (c >> 9) & 1);
+        const uint32_t a = this_poly(F_AT + 2 * (i * S + drop_rank<2>(c)), (c >> 9) & 1);
         return u64(ld_peer(a)) | (u64(ld_peer(a + 4)) << 32);
       } else {
         return out[i * N + c];

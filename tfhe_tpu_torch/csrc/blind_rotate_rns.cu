@@ -167,6 +167,47 @@
 // product, 4 a CRT coefficient); the key, 1.37 GB at d2 = 4, streams each
 // round's 512 KB a lane from L2 once per ciphertext, each block its half.
 //
+// N = 16384: a cluster of eight blocks of 512 threads, four a residue lane
+// (eight is the portable cluster maximum). One lane needs N/8 = 2048
+// threads at 128 registers, four SMs' registers, so the layout above is
+// kept with P = 4 blocks a lane in place of 2: block rank = 4 lane +
+// quarter, logical thread t = quarter * 512 + threadIdx.x of the lane's
+// 2048. The register NTT runs at 14 index bits (C = 13, 10, 7, 4, 2);
+// `quarter` is bits 9-10 of j in group 0 (j = t | k << 11) and bits 12-13
+// in groups 1-4, so each block holds the quarter of every buffer whose
+// owner bits are its quarter: S = N/4 = 4096 words a polynomial (word
+// drop_rank<4>(j) = ((j >> 11) << 9) | (j & 511) in natural order), the
+// same S as a half at N = 8192, so the same 11 S words, 176 KB a block,
+// at the same offsets. What crosses, all through the same cluster
+// barriers:
+// - the CRT and digit l: the other lane's block of the same quarter,
+//   rank ^ 4 (barriers F and A_l);
+// - the forward's 0 -> 1 exchange (cross_forward<NP, 4>, barrier B_l):
+//   group 1's register k reads block 4 lane + (k >> 1) of its lane, since
+//   j's bits 9-10 are bits 1-2 of k at C = 10; the inverse's 1 -> 0
+//   (cross_inverse<NP, 4>, barrier C): group 0's register k reads block
+//   k >> 1, j's bits 12-13 being bits 1-2 of k at C = 13;
+// - the rotated reads after E: each coefficient c from the lane's block of
+//   c's bits 9-10 (`holder`, a 4-entry at[] of cluster addresses).
+// 2 digits + 3 cluster barriers a round, as at N = 8192, and one at the
+// end. The hazards are the ones listed above with "the lane's other
+// blocks" for "the lane's other block": every barrier there is already
+// the whole cluster's, so each guard holds for P = 4 as for P = 2, and
+// none of the five can go (A_l, B_l, C and E each order a write before
+// another block's read; F orders the accumulator's write before the other
+// lane's CRT read and every block's rotated reads before the next round's
+// writes of the crossing's and forward's buffers). The emulation in
+// tests/test_torch_ntt_merged.py runs the eight-block layout alike.
+// Bound: at B = 1024, n = 1305, N = 16384 the operations bind, 575.9 ms at
+// d2 = 4 and 403.1 ms at d2 = 2 (chip_smoke.bound); the key, 2.74 GB at
+// d2 = 4, streams each round's 1 MB a lane from L2 once per ciphertext,
+// each block its quarter. Every key and accumulator address is a size_t
+// (the key's byte offsets pass 2^31). Measured on an NVIDIA H100 80GB HBM3
+// at 700.00 W (scripts/torch_check_ring4096.py --ring 16384): 3505.1 ms
+// at d2 = 4 (16.4% of the bound) and 2488.6 ms at d2 = 2 (16.2%), against
+// 17.0-17.5% for four blocks at N = 8192 in the same call; 124 registers,
+// no spills; 15 eight-block clusters resident (120 of 132 SMs).
+//
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -177,7 +218,7 @@ namespace {
 
 using dsmem::cluster_rank;
 using dsmem::cluster_sync;
-using dsmem::drop_bit9;
+using dsmem::drop_rank;
 using dsmem::ld_peer;
 using dsmem::peer_address;
 using rntt::csub;
@@ -194,9 +235,14 @@ __device__ __forceinline__ int64_t extract(int64_t& d, int g_bits) {
 
 // Blocks a ciphertext: one two-lane block up to N = 2048, a cluster of two
 // one-lane blocks at 4096, of four blocks (two a lane, each half of its
-// lane's words) at 8192.
+// lane's words) at 8192, of eight (four a lane, each a quarter) at 16384.
 template <int LOGN>
-constexpr int kBlocks = LOGN > 12 ? 4 : LOGN > 11 ? 2 : 1;
+constexpr int kBlocks = LOGN > 13 ? 8 : LOGN > 12 ? 4 : LOGN > 11 ? 2 : 1;
+
+// Blocks a residue lane: P > 1 at N >= 8192, where a block holds 1/P of its
+// lane's words.
+template <int LOGN>
+constexpr int kLaneBlocks = kBlocks<LOGN> > 2 ? kBlocks<LOGN> / 2 : 1;
 
 template <int LOGN>
 constexpr int kThreads = (1 << LOGN) / (4 * kBlocks<LOGN>);
@@ -207,7 +253,7 @@ constexpr int kThreads = (1 << LOGN) / (4 * kBlocks<LOGN>);
 // (register_ntt.cuh; x' = Shoup companion); fwd[0] = 1, so fwd'[0] =
 // floor(2^32 / q) reduces the lazy sums. In a cluster, block
 // kBlocks * b + rank of the grid runs ciphertext b: rank = lane at N = 4096,
-// rank = 2 lane + half at N = 8192.
+// rank = P lane + part at N = 8192 (P = 2) and 16384 (P = 4).
 template <int LOGN>
 __global__ void __launch_bounds__(kThreads<LOGN>, kBlocks<LOGN> > 1 ? 1 : 2048 >> LOGN)
 blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
@@ -223,16 +269,17 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
   constexpr int TG = N / 8;                 // threads per lane
   constexpr int G = rntt::groups<LOGN>();
   constexpr bool CL = kBlocks<LOGN> > 1;
-  constexpr bool HALF = kBlocks<LOGN> == 4; // a block holds half of its lane's words
+  constexpr int P = kLaneBlocks<LOGN>;      // blocks a lane
+  constexpr bool PART = P > 1;              // a block holds 1/P of its lane's words
   constexpr int L = CL ? 1 : 2;             // lanes in this block
-  constexpr int S = HALF ? N / 2 : N;       // words a polynomial in a block
+  constexpr int S = N / P;                  // words a polynomial in a block
   constexpr int WK = S / 8;                 // word step of a thread's registers k
   // word offsets of the buffers (the layouts in the note above); the
-  // crossing's buffer exists only at N = 8192
-  constexpr int F_AT = HALF ? 9 * S : 2 * L * N;              // forward's, swizzled
-  constexpr int D_AT = HALF ? 2 * S : 4 * L * N;              // digits
-  constexpr int O_AT = HALF ? 7 * S : CL ? 6 * N : 2 * L * N; // inverse's output
-  constexpr int I_AT = HALF ? 3 * S : CL ? 10 * N : 12 * N;   // inverse's, swizzled
+  // crossing's buffer exists only at N >= 8192
+  constexpr int F_AT = PART ? 9 * S : 2 * L * N;              // forward's, swizzled
+  constexpr int D_AT = PART ? 2 * S : 4 * L * N;              // digits
+  constexpr int O_AT = PART ? 7 * S : CL ? 6 * N : 2 * L * N; // inverse's output
+  constexpr int I_AT = PART ? 3 * S : CL ? 10 * N : 12 * N;   // inverse's, swizzled
   constexpr int X_AT = 7 * S;                                 // the crossing's
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* acc = smem;              // [L lanes][2][S], natural order
@@ -241,23 +288,23 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
   uint32_t* out = smem + O_AT;       // [L lanes][4][S], natural order
   uint32_t* ibuf = smem + I_AT;      // [L lanes][4][S]
 
-  int lane, t, wt, half = 0;         // wt + k WK: the word of register k
+  int lane, t, wt, part = 0;         // wt + k WK: the word of register k
   size_t b;
   // the cluster addresses of this block's shared memory in the other
-  // lane's block of the same half (peer), and in this lane's two blocks
-  // (at, N = 8192)
+  // lane's block of the same part (peer), and in this lane's P blocks
+  // (at[0 .. P), N >= 8192)
   uint32_t peer = 0u;
-  uint32_t at[2] = {0u, 0u};
-  if constexpr (HALF) {
+  uint32_t at[P] = {};
+  if constexpr (PART) {
     const int rank = cluster_rank();
-    lane = rank >> 1;
-    half = rank & 1;
-    t = half * (TG / 2) + threadIdx.x;
+    lane = rank / P;
+    part = rank % P;
+    t = part * kThreads<LOGN> + threadIdx.x;
     wt = threadIdx.x;
-    b = blockIdx.x / 4;
-    peer = peer_address(smem, rank ^ 2);
-    at[0] = peer_address(smem, rank & 2);
-    at[1] = peer_address(smem, (rank & 2) | 1);
+    b = blockIdx.x / kBlocks<LOGN>;
+    peer = peer_address(smem, rank ^ P);
+#pragma unroll
+    for (int i = 0; i < P; ++i) at[i] = peer_address(smem, lane * P + i);
   } else if constexpr (CL) {
     lane = cluster_rank();
     t = wt = threadIdx.x;
@@ -281,12 +328,25 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
   uint32_t* my_acc = acc + slot * 2 * S;
   uint32_t* my_out = out + slot * 4 * S;
   // coefficient (polynomial, index) of word i of a block's [2][S]
-  // accumulator: at N = 8192 the block's words are those with bit 9 = half
+  // accumulator: at N >= 8192 the block's words are those whose bits
+  // 9 .. 8 + log2 P are its part
   auto coef = [&](int i) {
-    if constexpr (HALF)
-      return (i >> 12) * N + ((((i >> 9) & 7) << 10) | (half << 9) | (i & 511));
+    if constexpr (PART)
+      return (i / S) * N + ((((i >> 9) & 7) << (9 + dsmem::kRankBits<P>)) | (part << 9) |
+                            (i & 511));
     else
       return i;
+  };
+  // the cluster address of this block's word `w` in the lane's block that
+  // holds coefficient c (bits 9 .. 8 + log2 P of c), N >= 8192
+  auto holder = [&](int c, int w) -> uint32_t {
+    const int i = (c >> 9) & (P - 1);
+    if constexpr (P == 4)
+      return (i & 2 ? (i & 1 ? at[3] : at[2]) : (i & 1 ? at[1] : at[0])) + 4 * w;
+    else if constexpr (P == 2)
+      return (i ? at[1] : at[0]) + 4 * w;
+    else
+      return 0u;
   };
 
   // fresh(t) is t read anew from shared memory: the addresses each NTT makes
@@ -344,7 +404,7 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
     // digit l of both polynomials, through shared memory into this lane,
     // then the lane's forward NTT of the two: x[o][k] at point 8t + k
     auto digit_forward = [&](int l, uint32_t (&x)[2][8]) {
-      const int par = HALF ? 0 : (l & 1) * L * S;   // one buffer at N = 8192
+      const int par = PART ? 0 : (l & 1) * L * S;   // one buffer at N >= 8192
       int32_t* dg = digs + par;
 #pragma unroll
       for (int k = 0; k < 8; ++k) dg[slot * S + wt + k * WK] = int32_t(extract(d[k], g_bits));
@@ -370,10 +430,12 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
             x[o][k] = rr < 0 ? uint32_t(rr + int32_t(q)) : uint32_t(rr);
           }
       }
-      if constexpr (HALF) {
-        // group 0 here, its exchange to group 1 across the lane's two blocks
+      if constexpr (PART) {
+        // group 0 here, its exchange to group 1 across the lane's P blocks
         rntt::fwd_pass<LOGN, 0, 2>(x, fresh(t), fw, fws, q);
-        const uint32_t x_at[2] = {at[0] + 4 * X_AT, at[1] + 4 * X_AT};
+        uint32_t x_at[P];
+#pragma unroll
+        for (int i = 0; i < P; ++i) x_at[i] = at[i] + 4 * X_AT;
         dsmem::cross_forward(x, smem + X_AT, x_at, fresh(t));
         rntt::forward<LOGN, 1, 2, S>(x, fbuf, fresh(t), fw, fws, q);
       } else {
@@ -429,11 +491,13 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
     for (int ko = 0; ko < 4; ++ko)
 #pragma unroll
       for (int k = 0; k < 8; ++k) u[ko][k] -= __umulhi(u[ko][k], red_sh) * q;
-    if constexpr (HALF) {
-      // groups 4 .. 1 in the block's half, the exchange to group 0 across
-      // the lane's two blocks
+    if constexpr (PART) {
+      // groups 4 .. 1 in the block's part, the exchange to group 0 across
+      // the lane's P blocks
       rntt::inverse<LOGN, G - 1, 4, S, 1>(u, ibuf, fresh(t), iw, iws, q);
-      const uint32_t i_at[2] = {at[0] + 4 * I_AT, at[1] + 4 * I_AT};
+      uint32_t i_at[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i) i_at[i] = at[i] + 4 * I_AT;
       dsmem::cross_inverse(u, ibuf, i_at, fresh(t));
       rntt::inv_pass<LOGN, 0, 4>(u, fresh(t), iw, iws, q);
     } else {
@@ -445,7 +509,7 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
     // lane's forward buffer and digits: below N = 512 no exchange of the
     // inverse was block-wide, so wait here for the other lane to be done
     // with them. (A cluster's block has its own output buffer at N = 4096;
-    // at N = 8192 it lies over the crossing's and the forward's buffers,
+    // at N >= 8192 it lies over the crossing's and the forward's buffers,
     // which the inverse's crossing barrier has freed.)
     if constexpr (LOGN < 9) __syncthreads();
 #pragma unroll
@@ -455,17 +519,17 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
         u[ko][k] = csub(u[ko][k], q);
         my_out[ko * S + wt + k * WK] = u[ko][k];
       }
-    if constexpr (HALF)
-      cluster_sync();  // the rotated reads cross the lane's two blocks
+    if constexpr (PART)
+      cluster_sync();  // the rotated reads cross the lane's P blocks
     else
       __syncthreads();
     const int m_pos = a_idx[b * n + r];
     const int m_neg = (2 * N - m_pos) & (2 * N - 1);
-    // the output's coefficient c of polynomial ko: at N = 8192 in the
-    // lane's block whose half is bit 9 of c
+    // the output's coefficient c of polynomial ko: at N >= 8192 in the
+    // lane's block whose part is bits 9 .. 8 + log2 P of c
     auto output = [&](int ko, int c) -> uint32_t {
-      if constexpr (HALF)
-        return ld_peer(((c >> 9) & 1 ? at[1] : at[0]) + 4 * (O_AT + ko * S + drop_bit9(c)));
+      if constexpr (PART)
+        return ld_peer(holder(c, O_AT + ko * S + drop_rank<P>(c)));
       else
         return my_out[ko * N + c];
     };
@@ -503,11 +567,12 @@ blind_rotate_rns_kernel(const uint32_t* __restrict__ acc1_in,
 }
 
 // Dynamic shared memory of a block: 80 N bytes, 56 N in a two-block
-// cluster, 22 N (11 S words) in a four-block one.
+// cluster, 11 S words (S = N / P) in a four- or eight-block one: 176 KB.
 template <int LOGN>
 constexpr size_t smem_bytes() {
   constexpr size_t N = size_t(1) << LOGN;
-  return (kBlocks<LOGN> == 4 ? 11 * N / 2 : kBlocks<LOGN> == 2 ? 14 * N : 20 * N) *
+  return (kBlocks<LOGN> >= 4 ? 11 * N / kLaneBlocks<LOGN> : kBlocks<LOGN> == 2 ? 14 * N
+                                                                              : 20 * N) *
          sizeof(uint32_t);
 }
 
@@ -578,12 +643,14 @@ extern "C" int tfhe_blind_rotate_rns(const void* acc1_in, const void* acc2_in,
       return launch<12>(acc1_in, acc2_in, acc1_out, acc2_out, a_idx, bsk, tw, B, n, q1, q2, c12, c12_sh, g_bits, digits, throw_digits, s);
     case 8192:
       return launch<13>(acc1_in, acc2_in, acc1_out, acc2_out, a_idx, bsk, tw, B, n, q1, q2, c12, c12_sh, g_bits, digits, throw_digits, s);
+    case 16384:
+      return launch<14>(acc1_in, acc2_in, acc1_out, acc2_out, a_idx, bsk, tw, B, n, q1, q2, c12, c12_sh, g_bits, digits, throw_digits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// The most clusters of the ring-N cluster kernel (N = 4096 or 8192) the
+// The most clusters of the ring-N cluster kernel (N = 4096, 8192 or 16384) the
 // card holds at once (cudaOccupancyMaxActiveClusters), in *clusters. Returns
 // the cudaError_t; cudaErrorInvalidValue for a ring without a cluster layout.
 extern "C" int tfhe_blind_rotate_rns_clusters(int N, int* clusters) {
@@ -592,6 +659,8 @@ extern "C" int tfhe_blind_rotate_rns_clusters(int N, int* clusters) {
       return clusters_of<12>(clusters);
     case 8192:
       return clusters_of<13>(clusters);
+    case 16384:
+      return clusters_of<14>(clusters);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,5 +1,5 @@
 // Register-resident negacyclic NTT over one prime q < 2^28, merged twiddles,
-// for one group of N / 8 threads per polynomial (N = 2^LOGN, 256..8192).
+// for one group of N / 8 threads per polynomial (N = 2^LOGN, 256..16384).
 //
 // Forward: Cooley-Tukey stages with half-length N/2 .. 1 and the twiddle
 // psi^brv(m) at index m + i (m = N / 2t blocks, i = the block), natural
@@ -26,18 +26,24 @@
 // three exchanges per transform, one of them block-wide; at N = 4096 they
 // are C = 11, 8, 5, 2, and two of the three exchanges are block-wide. At
 // N = 8192 they are C = 12, 9, 6, 3, 2: the 1024 threads of a polynomial
-// are two blocks of a cluster (csrc/blind_rotate.cu), thread bit 9 the
-// block's rank, which is bit 9 of j in group 0 and bit 12 in the others,
-// so only the exchange between groups 0 and 1 crosses blocks; the others
-// run in the block's half of the buffer (`S` = N/2 words a polynomial,
-// bit 12 dropped).
+// are two blocks of a cluster (csrc/blind_rotate.cu, blind_rotate_rns.cu),
+// thread bit 9 the block's rank, which is bit 9 of j in group 0 and bit 12
+// in the others, so only the exchange between groups 0 and 1 crosses
+// blocks; the others run in the block's half of the buffer (`S` = N/2
+// words a polynomial, bit 12 dropped). At N = 16384 they are C = 13, 10,
+// 7, 4, 2: the 2048 threads of a residue lane are four blocks
+// (blind_rotate_rns.cu), thread bits 9-10 the block's rank, bits 9-10 of j
+// in group 0 and bits 12-13 in the others; again only the 0 <-> 1 exchange
+// crosses blocks (cluster.cuh), the others run in the block's quarter
+// (`S` = N/4, bits 12-13 dropped).
 //
 // Shared memory holds a polynomial at word swz(j), an XOR swizzle of the
 // bits 5..10 of j into the bank bits that makes every group's reads and
-// writes free of bank conflicts at all six ring sizes: bits 11 and 12 are
-// register bits of group 0 and thread bits of the others, constant across
-// a warp's access in every group, so they need no term, and dropping
-// either of the bits 9 and 12 from a word keeps its bank.
+// writes free of bank conflicts at all seven ring sizes: bits 11 to 13 are
+// register bits of group 0 and thread bits above a warp's of the others,
+// constant across a warp's access in every group, so they need no term;
+// the swizzle writes bits 0..4 only, so dropping any of the bits 9 to 13
+// from a word (a block's part of a buffer) keeps its bank.
 //
 // Lazy ranges: the forward takes values < 4q and returns values < 4q
 // (Harvey's butterfly); the inverse takes values < 2q and returns values
@@ -180,8 +186,9 @@ __device__ __forceinline__ void inv_pass(uint32_t (&x)[NP][8], int t,
 }
 
 // The word of swizzled index s in a buffer of S words a polynomial: s
-// itself, or s with its bit log2(S) dropped (a block's half of the buffer
-// at N = 8192, where that bit is the block's rank in both groups).
+// itself, or s with its bits from log2(S) up dropped (a block's part of the
+// buffer at N = 8192 or 16384, where those bits are the block's rank in
+// groups 1 and after).
 template <int LOGN, int S>
 __device__ __forceinline__ int word(int s) {
   if constexpr (S == (1 << LOGN))

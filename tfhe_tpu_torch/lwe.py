@@ -80,15 +80,27 @@ class SeededSwitchingKey:
         self.n, self.q_ks = n, q_ks
         self.B = B
         self._A: np.ndarray | None = None
+        self._rows: SeededRows | None = None
 
     @property
     def rows(self) -> int:
         return self.N * self.base_ks * self.digit_count
 
     @property
-    def A(self) -> np.ndarray:
-        """Materialized A [N, baseKS, dc, n] u64 (host, lazy, cached)."""
+    def A(self):
+        """Materialized A [N, baseKS, dc, n] u64 (host, lazy, cached), or
+        after `select_rows_on` a `SeededRows` view that draws only the rows
+        it is indexed at."""
+        if self._A is None and self._rows is not None:
+            return self._rows
         return self.materialize("cpu")
+
+    def select_rows_on(self, device) -> None:
+        """Let `.A` give, at each read, only the rows the reader selects,
+        drawn on `device` (`SeededRows`), where the whole block would not
+        fit the host or would take long to copy there (38.3 GB at N =
+        16384, n = 1305). The words are the materialized block's."""
+        self._rows = SeededRows(self, device)
 
     def materialize(self, device="cpu") -> np.ndarray:
         """`.A` on the host, its rows drawn on `device` where it is not
@@ -128,6 +140,23 @@ def seeded_blocks(R: int, n: int, device) -> list[tuple[int, int]]:
     return out
 
 
+def _chunk_words(key_c: tuple[int, int], ctr: torch.Tensor, n: int,
+                 q_ks: int) -> torch.Tensor:
+    """The residues mod the power-of-two q_ks at the plane-0 counters `ctr`
+    (consumed) of a chunk's draw under key_c: for q_ks <= 2^32 the plane-0
+    word, masked; above, the low word from plane 0 and the high word,
+    masked, from plane 1 (counter + C n)."""
+    ks_bits = q_ks.bit_length() - 1
+    lo = threefry.bits(key_c, ctr)
+    if ks_bits < 32:
+        lo.bitwise_and_(q_ks - 1)
+    elif ks_bits > 32:
+        hi = threefry.bits(key_c, ctr.add_(KSK_ROW_CHUNK * n))
+        hi.bitwise_and_((1 << (ks_bits - 32)) - 1)
+        lo.bitwise_or_(hi.bitwise_left_shift_(32))
+    return lo
+
+
 def seeded_rows(seed: int, n: int, q_ks: int, r0: int, r1: int,
                 device) -> torch.Tensor:
     """Rows r0..r1-1 of the seeded A block, int64 [r1 - r0, n] residues mod
@@ -135,26 +164,52 @@ def seeded_rows(seed: int, n: int, q_ks: int, r0: int, r1: int,
     one u32 plane of the chunk's draw bits(key_c, (C, n)); above, the low
     word comes from plane 0 and the high word, masked, from plane 1 of
     bits(key_c, (2, C, n)): counter C*n + r*n + j."""
-    ks_bits = q_ks.bit_length() - 1
     key = threefry.prng_key(seed)
     parts = []
     while r0 < r1:
         c = r0 // KSK_ROW_CHUNK
         stop = min(r1, (c + 1) * KSK_ROW_CHUNK)
-        key_c = threefry.fold_in(key, c)
         local = r0 - c * KSK_ROW_CHUNK
         ctr = torch.arange(local * n, (local + stop - r0) * n,
                            dtype=torch.int64, device=device)
-        lo = threefry.bits(key_c, ctr)
-        if ks_bits < 32:
-            lo.bitwise_and_(q_ks - 1)
-        elif ks_bits > 32:
-            hi = threefry.bits(key_c, ctr.add_(KSK_ROW_CHUNK * n))
-            hi.bitwise_and_((1 << (ks_bits - 32)) - 1)
-            lo.bitwise_or_(hi.bitwise_left_shift_(32))
-        parts.append(lo.view(stop - r0, n))
+        parts.append(_chunk_words(threefry.fold_in(key, c), ctr, n, q_ks).view(stop - r0, n))
         r0 = stop
     return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def seeded_select(seed: int, n: int, q_ks: int, rows: torch.Tensor,
+                  device) -> torch.Tensor:
+    """The rows `rows` (int64, any order) of the seeded A block, int64
+    [len(rows), n], generated on `device`: `seeded_rows`' words, each row
+    drawn from its own counters, one draw per chunk the rows touch."""
+    rows = rows.to(device)
+    out = torch.empty((rows.shape[0], n), dtype=torch.int64, device=device)
+    key, chunk = threefry.prng_key(seed), rows // KSK_ROW_CHUNK
+    cols = torch.arange(n, dtype=torch.int64, device=device)
+    for c in torch.unique(chunk).tolist():
+        sel = torch.nonzero(chunk == c).squeeze(1)
+        ctr = ((rows[sel] - c * KSK_ROW_CHUNK)[:, None] * n + cols).reshape(-1)
+        out[sel] = _chunk_words(threefry.fold_in(key, c), ctr, n, q_ks).view(-1, n)
+    return out
+
+
+class SeededRows:
+    """The A block of a SeededSwitchingKey as the host key switch indexes
+    it, A[i, a0, j] -> [..., N, n] u64 for index arrays i, a0 [..., N] and a
+    digit j, without the block: each read draws the distinct rows it needs
+    on `device` (`seeded_select`) and copies only those to the host."""
+
+    def __init__(self, key: SeededSwitchingKey, device):
+        self.key, self.device = key, device
+
+    def __getitem__(self, index) -> np.ndarray:
+        i, a0, j = index
+        k = self.key
+        flat = (np.asarray(i, dtype=np.int64) * k.base_ks
+                + np.asarray(a0, dtype=np.int64)) * k.digit_count + int(j)
+        uniq, inv = np.unique(flat, return_inverse=True)
+        words = seeded_select(k.seed, k.n, k.q_ks, torch.from_numpy(uniq), self.device)
+        return words.cpu().numpy().view(np.uint64)[inv.reshape(flat.shape)]
 
 
 def key_switch_gen_seeded(rng: BinFHERng, params: LWEParams,

@@ -207,9 +207,97 @@ void tfhe_pointwise_mulmod(u64* a, const u64* b, i64 count, u64 Q) {
     for (i64 i = 0; i < count; i++) a[i] = mulmod(a[i], b[i], Q);
 }
 
+// The steps of one CGGI round on one ciphertext (rgsw-acc-cggi.cpp:246-307),
+// each over independent data: the signed digits of each coefficient
+// (rgsw-acc.cpp:57-111), the forward NTT of each digit row, the product with
+// the key at each coefficient, the inverse NTT of each (key, output) pair,
+// and the update of each accumulator coefficient. Sums mod Q do not depend on their order, so
+// the update adds key 0's term, then key 1's, at each coefficient.
+struct CggiRound {
+    const Tables* t;
+    i64 N, d2, g_bits, digits_eff, throw_digits;
+    u64 Q;
+
+    void digits_at(const u64* acc_b, i64 k, u64* const* dct) const {
+        const i64 half = i64(1) << (g_bits - 1), base_g = i64(1) << g_bits;
+        const u64 v0 = acc_b[k], v1 = acc_b[N + k];
+        i64 d0 = v0 < (Q >> 1) ? (i64)v0 : (i64)v0 - (i64)Q;
+        i64 d1 = v1 < (Q >> 1) ? (i64)v1 : (i64)v1 - (i64)Q;
+        for (i64 l = -throw_digits; l < digits_eff; l++) {
+            i64 r0 = d0 & (base_g - 1);
+            if (r0 >= half) r0 -= base_g;
+            d0 = (d0 - r0) >> g_bits;
+            i64 r1 = d1 & (base_g - 1);
+            if (r1 >= half) r1 -= base_g;
+            d1 = (d1 - r1) >> g_bits;
+            if (l >= 0) {
+                dct[2 * l][k] = r0 < 0 ? Q + (u64)r0 : (u64)r0;
+                dct[2 * l + 1][k] = r1 < 0 ? Q + (u64)r1 : (u64)r1;
+            }
+        }
+    }
+
+    void forward_row(u64* row, u64* scratch) const {
+        for (i64 k = 0; k < N; k++)
+            row[k] = mulmod_shoup(row[k], t->twist[k], t->twist_sh[k], Q);
+        cyclic_one(row, t, false, scratch);
+    }
+
+    // cs[2 key + j][k] = sum_l dct_hat[l][k] * ek[key][l][j][k]
+    void product_at(const u64* ek_r, i64 k, u64* const* dct, u64* const* cs) const {
+        for (i64 kj = 0; kj < 4; kj++) {
+            const u64* ek = ek_r + ((kj >> 1) * d2 * 2 + (kj & 1)) * N + k;
+            u64 c = 0;
+            for (i64 l = 0; l < d2; l++) {
+                u64 s = c + mulmod(dct[l][k], ek[l * 2 * N], Q);
+                c = s >= Q ? s - Q : s;
+            }
+            cs[kj][k] = c;
+        }
+    }
+
+    void inverse_row(u64* c, u64* scratch) const {
+        cyclic_one(c, t, true, scratch);
+        for (i64 k = 0; k < N; k++)
+            c[k] = mulmod_shoup(c[k], t->untwist[k], t->untwist_sh[k], Q);
+    }
+
+    // acc[j][k] += X^idx c - c for key 0 (idx = the round's exponent) and
+    // key 1 (its negation), cs[2 key + j] (the negacyclic monomial)
+    void update_at(u64* acc_b, i64 k, i64 a, u64* const* cs) const {
+        const i64 M = 2 * N;
+        const i64 idx_pos = ((a % M) + M) % M;
+        const i64 idx_neg = (M - idx_pos) % M;
+        for (int key = 0; key < 2; key++) {
+            i64 sft = key == 0 ? idx_pos : idx_neg;
+            bool neg = false;
+            if (sft >= N) { sft -= N; neg = true; }
+            i64 src = k - sft;
+            bool flip = neg;
+            if (src < 0) { src += N; flip = !flip; }
+            for (int j = 0; j < 2; j++) {
+                const u64* c = cs[2 * key + j];
+                u64 v = c[src];
+                if (flip && v) v = Q - v;
+                u64 s = acc_b[j * N + k] + v;  // acc += v - c[k]  (mod Q)
+                if (s >= Q) s -= Q;
+                s += Q - c[k];
+                if (s >= Q) s -= Q;
+                acc_b[j * N + k] = s;
+            }
+        }
+    }
+};
+
 // Full CGGI blind rotation, batched over ciphertexts (OpenMP) — the C++
 // mirror of ref/rgsw.py::eval_acc_cggi / add_to_acc_cggi
-// (rgsw-acc-cggi.cpp:143-307), bit-exact with the numpy oracle.
+// (rgsw-acc-cggi.cpp:143-307), bit-exact with the numpy oracle. A batch at
+// least as large as the thread count runs a ciphertext a thread; at
+// N >= 4096 a smaller one (the host oracle runs one row a call) runs its
+// ciphertexts one after another, each round's steps shared by all threads
+// (`omp for` over the coefficients, the digit rows or the four (key,
+// output) pairs, a barrier after each). Below N = 4096 a step is too short
+// to be worth its barrier.
 //
 // acc:      [batch, 2, N] residues mod Q, coefficient domain, in place
 // a_scaled: [batch, n] monomial exponents in [0, 2N) (already 2N/q-scaled)
@@ -217,94 +305,63 @@ void tfhe_pointwise_mulmod(u64* a, const u64* b, i64 count, u64 Q) {
 void tfhe_cggi_rotate(u64* acc, const i64* a_scaled, const u64* bsk_hat,
                       i64 batch, i64 n, i64 N, u64 Q, u64 psi,
                       i64 g_bits, i64 digits_eff, i64 throw_digits) {
-    Tables* t = get_tables(N, Q, psi);
-    const i64 d2 = 2 * digits_eff;
-    const i64 half = i64(1) << (g_bits - 1);
-    const i64 base_g = i64(1) << g_bits;
-    const u64 half_q = Q >> 1;
-
+    const CggiRound rd{get_tables(N, Q, psi), N, 2 * digits_eff, g_bits, digits_eff,
+                       throw_digits, Q};
+    const i64 d2 = rd.d2;
+    auto rows = [&](std::vector<std::vector<u64>>& v, std::vector<u64*>& p, i64 count) {
+        v.assign(count, std::vector<u64>(N));
+        p.resize(count);
+        for (i64 i = 0; i < count; i++) p[i] = v[i].data();
+    };
+#ifdef _OPENMP
+    const bool inner = batch < omp_get_max_threads() && N >= 4096;
+#else
+    const bool inner = false;
+#endif
+    if (!inner) {
+#pragma omp parallel
+        {
+            std::vector<u64> scratch(N);
+            std::vector<std::vector<u64>> dv, cv;
+            std::vector<u64*> dct, cs;
+            rows(dv, dct, d2);
+            rows(cv, cs, 4);
+#pragma omp for schedule(static)
+            for (i64 b = 0; b < batch; b++) {
+                u64* acc_b = acc + b * 2 * N;
+                for (i64 r = 0; r < n; r++) {
+                    const u64* ek_r = bsk_hat + r * 2 * d2 * 2 * N;
+                    for (i64 k = 0; k < N; k++) rd.digits_at(acc_b, k, dct.data());
+                    for (i64 l = 0; l < d2; l++) rd.forward_row(dct[l], scratch.data());
+                    for (i64 k = 0; k < N; k++) rd.product_at(ek_r, k, dct.data(), cs.data());
+                    for (i64 kj = 0; kj < 4; kj++) rd.inverse_row(cs[kj], scratch.data());
+                    for (i64 k = 0; k < N; k++) rd.update_at(acc_b, k, a_scaled[b * n + r], cs.data());
+                }
+            }
+        }
+        return;
+    }
+    std::vector<std::vector<u64>> dv, cv;
+    std::vector<u64*> dct, cs;
+    rows(dv, dct, d2);
+    rows(cv, cs, 4);
 #pragma omp parallel
     {
         std::vector<u64> scratch(N);
-        std::vector<i64> d0(N), d1(N);
-        std::vector<std::vector<u64>> dct(d2, std::vector<u64>(N));
-        std::vector<u64> u(N), c(N);
-
-#pragma omp for schedule(static)
         for (i64 b = 0; b < batch; b++) {
             u64* acc_b = acc + b * 2 * N;
             for (i64 r = 0; r < n; r++) {
-                // signed digit decomposition (rgsw-acc.cpp:57-111)
-                for (i64 k = 0; k < N; k++) {
-                    u64 v0 = acc_b[k], v1 = acc_b[N + k];
-                    d0[k] = v0 < half_q ? (i64)v0 : (i64)v0 - (i64)Q;
-                    d1[k] = v1 < half_q ? (i64)v1 : (i64)v1 - (i64)Q;
-                }
-                for (i64 l = -throw_digits; l < digits_eff; l++) {
-                    for (i64 k = 0; k < N; k++) {
-                        i64 r0 = d0[k] & (base_g - 1);
-                        if (r0 >= half) r0 -= base_g;
-                        d0[k] = (d0[k] - r0) >> g_bits;
-                        i64 r1 = d1[k] & (base_g - 1);
-                        if (r1 >= half) r1 -= base_g;
-                        d1[k] = (d1[k] - r1) >> g_bits;
-                        if (l >= 0) {
-                            dct[2 * l][k] = r0 < 0 ? Q + (u64)r0 : (u64)r0;
-                            dct[2 * l + 1][k] = r1 < 0 ? Q + (u64)r1 : (u64)r1;
-                        }
-                    }
-                }
-                // forward NTTs of the digit rows
-                for (i64 l = 0; l < d2; l++) {
-                    u64* row = dct[l].data();
-                    for (i64 k = 0; k < N; k++)
-                        row[k] = mulmod_shoup(row[k], t->twist[k], t->twist_sh[k], Q);
-                    cyclic_one(row, t, false, scratch.data());
-                }
-                const i64 M = 2 * N;
-                const i64 idx_pos = ((a_scaled[b * n + r] % M) + M) % M;
-                const i64 idx_neg = (M - idx_pos) % M;
-                for (int key = 0; key < 2; key++) {
-                    const u64* ek = bsk_hat + ((r * 2 + key) * d2) * 2 * N;
-                    const i64 idx = key == 0 ? idx_pos : idx_neg;
-                    for (int j = 0; j < 2; j++) {
-                        // u = sum_l dct_hat[l] * ek[l][j]
-                        for (i64 k = 0; k < N; k++) u[k] = 0;
-                        for (i64 l = 0; l < d2; l++) {
-                            const u64* ekrow = ek + (l * 2 + j) * N;
-                            const u64* dr = dct[l].data();
-                            for (i64 k = 0; k < N; k++) {
-                                u64 p = mulmod(dr[k], ekrow[k], Q);
-                                u64 s = u[k] + p;
-                                u[k] = s >= Q ? s - Q : s;
-                            }
-                        }
-                        // inverse NTT
-                        std::memcpy(c.data(), u.data(), N * sizeof(u64));
-                        cyclic_one(c.data(), t, true, scratch.data());
-                        for (i64 k = 0; k < N; k++)
-                            c[k] = mulmod_shoup(c[k], t->untwist[k],
-                                                t->untwist_sh[k], Q);
-                        // acc[j] += X^idx * c - c (negacyclic monomial)
-                        i64 sft = idx;
-                        bool neg = false;
-                        if (sft >= N) { sft -= N; neg = true; }
-                        u64* aj = acc_b + j * N;
-                        for (i64 k = 0; k < N; k++) {
-                            i64 src = k - sft;
-                            bool flip = neg;
-                            if (src < 0) { src += N; flip = !flip; }
-                            u64 v = c[src];
-                            if (flip && v) v = Q - v;
-                            // acc += v - c[k]  (mod Q)
-                            u64 s = aj[k] + v;
-                            if (s >= Q) s -= Q;
-                            s += Q - c[k];
-                            if (s >= Q) s -= Q;
-                            aj[k] = s;
-                        }
-                    }
-                }
+                const u64* ek_r = bsk_hat + r * 2 * d2 * 2 * N;
+#pragma omp for schedule(static)
+                for (i64 k = 0; k < N; k++) rd.digits_at(acc_b, k, dct.data());
+#pragma omp for schedule(static)
+                for (i64 l = 0; l < d2; l++) rd.forward_row(dct[l], scratch.data());
+#pragma omp for schedule(static)
+                for (i64 k = 0; k < N; k++) rd.product_at(ek_r, k, dct.data(), cs.data());
+#pragma omp for schedule(static)
+                for (i64 kj = 0; kj < 4; kj++) rd.inverse_row(cs[kj], scratch.data());
+#pragma omp for schedule(static)
+                for (i64 k = 0; k < N; k++) rd.update_at(acc_b, k, a_scaled[b * n + r], cs.data());
             }
         }
     }

@@ -99,8 +99,8 @@ def load(name: str) -> ctypes.CDLL:
 
 def max_active_clusters(name: str, N: int) -> int:
     """The most clusters of csrc/<name>.cu's ring-N cluster kernel (N = 8192
-    for blind_rotate, 4096 and 8192 for blind_rotate64 and
-    blind_rotate_rns) that the current CUDA device runs at once: the
+    for blind_rotate, 4096 and 8192 for blind_rotate64, 4096, 8192 and 16384
+    for blind_rotate_rns) that the current CUDA device runs at once: the
     library's `tfhe_<name>_clusters` (cudaOccupancyMaxActiveClusters)."""
     fn = getattr(load(name), f"tfhe_{name}_clusters")
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]

@@ -25,8 +25,8 @@ from .rotate_kernel import _with_shoup
 LAUNCHES = 0  # kernel launches made by `rotate_rns`
 # the ring dimensions the kernel takes: one two-lane block per ciphertext up
 # to 2048, a cluster of two one-lane blocks at 4096, of four blocks (two a
-# lane) at 8192
-RING_DIMS = (256, 512, 1024, 2048, 4096, 8192)
+# lane) at 8192, of eight (four a lane) at 16384
+RING_DIMS = (256, 512, 1024, 2048, 4096, 8192, 16384)
 
 
 def pack_bsk_rns(bsk_coeff: np.ndarray, q1: int, q2: int,
@@ -41,7 +41,9 @@ def pack_bsk_rns(bsk_coeff: np.ndarray, q1: int, q2: int,
     a time: on a card, the host does no more than copy the key there."""
     n, _, d2, _, N = bsk_coeff.shape
     out = torch.empty((n, 8 * d2, N), dtype=torch.int32, device=device)
-    step = max(1, (1 << 24) // (4 * d2 * N))             # rounds a chunk
+    # rounds a chunk: 2^24 words on a card, 2^17 (in cache) on the CPU
+    chunk = 1 << (24 if torch.device(device).type == "cuda" else 17)
+    step = max(1, chunk // (4 * d2 * N))
     for r in range(0, n, step):
         chunk = np.ascontiguousarray(bsk_coeff[r:r + step], dtype=np.uint64)
         b = torch.from_numpy(chunk.view(np.int64)).to(device)
@@ -74,7 +76,7 @@ def _kernel():
 
 def max_active_clusters(N: int) -> int:
     """The most clusters of the ring-N kernel (two blocks at N = 4096, four
-    at 8192) that the current CUDA device runs at once
+    at 8192, eight at 16384) that the current CUDA device runs at once
     (cudaOccupancyMaxActiveClusters)."""
     return _build.max_active_clusters("blind_rotate_rns", N)
 

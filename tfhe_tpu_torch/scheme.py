@@ -18,6 +18,7 @@ from dataclasses import dataclass
 from typing import Callable, Protocol
 
 import numpy as np
+import torch
 
 from . import lwe
 from .params import BinFHEParams, Gate, Method
@@ -70,7 +71,10 @@ def key_gen(rng: BinFHERng, params: BinFHEParams, sk: lwe.LWEPrivateKey,
 
     `seeded_ksk` (None = env TFHE_TPU_SEEDED_KSK) selects the seeded
     (threefry) switching key for the big power-of-two qKS sets; its
-    <A, s> is summed on `device`."""
+    <A, s> is summed on `device`. On a CUDA `device`, when a card is there,
+    the GINX key's ring products run on it too (`ops/keygen.ring_mul`; the
+    draws stay on the host, the words are the host engine's); without one
+    the host engine computes them, as it does for every other device."""
     import os
 
     p = params.lwe
@@ -89,7 +93,11 @@ def key_gen(rng: BinFHERng, params: BinFHEParams, sk: lwe.LWEPrivateKey,
     sk_n_coeff = modmath.asarray(sk_n.s, p.Q)
     sk_n_ntt = ntt.forward(sk_n_coeff, p.Q)
     if params.rgsw.method == Method.GINX:
-        bsk = rgsw.keygen_acc_cggi(rng, params.rgsw, sk_n_ntt, sk.s)
+        ring_mul = None
+        if str(device).startswith("cuda") and torch.cuda.is_available():
+            from .ops import keygen
+            ring_mul = keygen.ring_mul(sk_n_coeff, p.Q, params.rgsw.rns_primes, device)
+        bsk = rgsw.keygen_acc_cggi(rng, params.rgsw, sk_n_ntt, sk.s, ring_mul)
     else:
         bsk = rgsw.keygen_acc_dm(rng, params.rgsw, sk_n_ntt, sk.s)
     return BTKey(bsk_coeff=bsk, ksk=ksk, base_g=params.rgsw.base_g, sk_n=sk_n)
